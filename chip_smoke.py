@@ -1,0 +1,744 @@
+#!/usr/bin/env python3
+"""Smoke run of the DACP PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # from the repository root, one CUDA card
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+  1. card and build — prints the card's name and power limit as
+     ``nvidia-smi`` gives them, builds the data-plane kernels from
+     ``src/repro_torch/kernels/csrc`` and times the build;
+  2. kernels — calls each kernel's wrapper on card tensors at the shapes
+     the main path hands it (one 65536-row morsel of the COOK below) and at
+     the backend's widest envelope (262144 rows, 256 groups), with seeded
+     inputs holding NaN payloads, ±0, ±inf and int64 extremes; holds every
+     result bit for bit against the plain PyTorch version run on the CPU
+     (tolerance 0) and times kernel, plain version (on the card) and the
+     one-call PyTorch yardstick with CUDA events; times the H2D / D2H copy
+     of one morsel;
+  3. end to end — writes a seeded 2^24-row station-observations table
+     (16 columnar parts), serves it from two port ``FairdServer``s over TCP
+     loopback (torch backend on cuda, numpy backend), runs PING, LIST,
+     DESCRIBE, a GET and two COOKs through the port's client on both, holds
+     every reply byte for byte against the numpy server's, and checks that
+     each of the four kernels launched during the torch server's run.
+
+The second-to-last line is the ``{"kernels": [...]}`` record, the last
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+TILE = 256
+MORSEL = 65536  # rows per morsel on the main path: the columnar scan's batch size
+WIDE_N = 262144  # SUM_ROW_CAP, the largest morsel the backend hands a kernel
+STATIONS = 200
+E2E_ROWS = 1 << 24
+E2E_PARTS = 16
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+WARMUP = 5
+REPS = 50
+SEED = 20261016
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card and build
+# ---------------------------------------------------------------------------
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+    )
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> float:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    report = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    print("\n".join(report), file=sys.stderr)
+    return seconds
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+def _bits32(rng, shape) -> np.ndarray:
+    """Random int32 bit patterns with float specials planted."""
+    a = rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    flat = a.reshape(-1)
+    specials = np.array([0x7FC00000, 0xFFC00000, 0x7FA00001, 0x80000000, 0, 0x7F800000, 0xFF800000, 1], np.uint32)
+    idx = rng.choice(flat.size, size=min(flat.size, 64), replace=False)
+    flat[idx] = specials[np.arange(idx.size) % specials.size].view(np.int32)
+    return a
+
+
+def _f32_specials(rng, n: int) -> np.ndarray:
+    v = (rng.standard_normal(n) * 20.0).astype(np.float32)
+    v[::97] = -0.0
+    v[1::97] = 0.0
+    v[2::101] = np.nan
+    v[3::103] = np.inf
+    v[4::107] = -np.inf
+    v[5::109] = np.array([0x7FA00001], np.uint32).view(np.float32)[0]  # signalling NaN payload
+    v[6::113] = np.float32(1e-45)  # denormal
+    return v
+
+
+def _signed32(v: int) -> int:
+    return ((v + 2**31) % 2**32) - 2**31
+
+
+def _i64_words(v: np.ndarray) -> np.ndarray:
+    hi = (v >> 32).astype(np.int32)
+    lo = (v & np.int64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return np.stack([hi, lo], axis=1)
+
+
+def _same(a, b) -> tuple:
+    """(bit-identical, max |a - b| over the values) for two tensors."""
+    a = a.detach().cpu().contiguous()
+    b = b.detach().cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False, float("inf")
+    an, bn = a.numpy(), b.numpy()
+    exact = an.tobytes() == bn.tobytes()
+    if exact:
+        return True, 0.0
+    with np.errstate(invalid="ignore", over="ignore"):
+        diff = np.abs(an.astype(np.float64) - bn.astype(np.float64))
+    return False, float(np.nanmax(diff)) if np.isfinite(diff).any() else float("inf")
+
+
+_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_")
+
+
+def _device_times(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler``; returns ({event name:
+    device microseconds}, wall seconds) over the CUDA-side events (kernels,
+    memcpys, memsets) it traced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out: dict = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        out[e.key] = out.get(e.key, 0.0) + float(us)
+    return out, wall
+
+
+def _kernel_device_ms(fn) -> float | None:
+    """Device time per call of our kernels in ``fn`` (REPS calls, profiled),
+    or None when the profiler saw no device time."""
+    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    us = sum(v for k, v in times.items() if any(n in k for n in _OUR_KERNELS))
+    if us <= 0:
+        print(f"profiler saw no kernel time; device events: {times}", file=sys.stderr)
+        return None
+    return us / 1e3 / REPS
+
+
+def _time_ms(fn) -> float:
+    """Mean milliseconds per call of ``fn`` on the card, CUDA events around
+    REPS calls after WARMUP."""
+    import torch
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+class KernelRecord:
+    def __init__(self, name, source, replaces):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.exact = True
+        self.max_abs_err = 0.0
+        self.checks = 0
+        self.ms = self.call_ms = self.plain_ms = self.bound_ms = self.library_ms = None
+        self.ms_source = "cuda_events"
+        self.bound_by = "bytes"
+        self.shape = ""
+        self.wide_ms = self.wide_bound_ms = None
+        self.wide_shape = ""
+
+    def wide(self, fn, nbytes: int, shape: str) -> None:
+        """Device time and byte bound at the backend's widest envelope."""
+        self.wide_ms = _kernel_device_ms(fn)
+        self.wide_bound_ms = _bytes_bound_ms(nbytes)
+        self.wide_shape = shape
+
+    def compare(self, got, want, what: str) -> None:
+        for g, w in zip(got, want):
+            same, err = _same(g, w)
+            self.checks += 1
+            self.max_abs_err = max(self.max_abs_err, err)
+            if not same:
+                self.exact = False
+                log(f"MISMATCH {self.name}: {what}")
+
+    def as_json(self, launches: int) -> dict:
+        return {
+            "name": self.name,
+            "route": "cuda",
+            "source": self.source,
+            "replaces": self.replaces,
+            "launches": launches,
+            "exact": self.exact,
+            "checks": self.checks,
+            "max_abs_err": self.max_abs_err,
+            "ms": self.ms,
+            "ms_source": self.ms_source,
+            "call_ms": self.call_ms,
+            "plain_ms": self.plain_ms,
+            "bound_ms": self.bound_ms,
+            "bound_by": self.bound_by,
+            "library_ms": self.library_ms,
+            "shape": self.shape,
+            "wide_ms": self.wide_ms,
+            "wide_bound_ms": self.wide_bound_ms,
+            "wide_shape": self.wide_shape,
+        }
+
+
+def _time_kernel(rec: KernelRecord, fn) -> None:
+    """``call_ms``: CUDA events around REPS wrapper calls (host launch cost
+    included); ``ms``: the kernels' own device time from the profiler, or
+    the event time when the profiler saw none."""
+    import torch
+
+    rec.call_ms = _time_ms(fn)
+    dev_ms = _kernel_device_ms(fn)
+    rec.ms, rec.ms_source = (dev_ms, "profiler") if dev_ms is not None else (rec.call_ms, "cuda_events")
+
+
+def _bytes_bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_filter_select(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels import filter_select as fs
+
+    rec = KernelRecord("filter_select_planes", "src/repro_torch/kernels/csrc/filter_select.cu",
+                       "src/repro/kernels/filter_select.py:104")
+    # shapes: (rows, table planes) — the COOK's unfused filter on the int64
+    # `age` column carries 11 planes; its filter+select carries 5; the wide
+    # envelope 8 at SUM_ROW_CAP rows
+    for n, d in ((MORSEL, 11), (MORSEL, 5), (WIDE_N, 8)):
+        f32 = _f32_specials(rng, n)
+        i32 = rng.integers(-1000, 1000, n).astype(np.int32)
+        i64 = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+        i64[:8] = [-(2**63), 2**63 - 1, 0, -1, 1, 2**32, -(2**32), 7]
+        table = _bits32(rng, (n, d))
+        preds = {
+            "f32": (f32.view(np.int32).reshape(n, 1), int(np.array([0.5], np.float32).view(np.int32)[0]), 0),
+            "i32": (i32.reshape(n, 1), 17, 0),
+            "i64": (_i64_words(i64), int(i64[5] >> 32), _signed32((int(i64[5]) & 0xFFFFFFFF) ^ 0x80000000)),
+        }
+        t_cpu = torch.from_numpy(table)
+        t_dev = t_cpu.to(dev)
+        for kind, (planes, t_hi, t_lo) in preds.items():
+            p_cpu = torch.from_numpy(np.ascontiguousarray(planes))
+            p_dev = p_cpu.to(dev)
+            scalars = np.array([n - 37, t_hi, t_lo], np.int32)  # ragged tail tile
+            for op in fs.OPS:
+                got = fs.filter_select_planes(p_dev, t_dev, scalars, op, kind, TILE)
+                want = fs.filter_select_planes_plain(p_cpu, t_cpu, scalars, op, kind, TILE)
+                rec.compare(got, want, f"n={n} d={d} {kind} {op}")
+        if n == MORSEL and d == 11:
+            p_dev = torch.from_numpy(np.ascontiguousarray(preds["i64"][0])).to(dev)
+            scalars = np.array([n, preds["i64"][1], preds["i64"][2]], np.int32)
+            _time_kernel(rec, lambda: fs.filter_select_planes(p_dev, t_dev, scalars, "ge", "i64", TILE))
+            rec.plain_ms = _time_ms(lambda: fs.filter_select_planes_plain(p_dev, t_dev, scalars, "ge", "i64", TILE))
+            rec.bound_ms = _bytes_bound_ms(4 * n * (2 + 2 * d) + 4 * (n // TILE))
+            rec.shape = f"N={n} P=2 D={d} tile={TILE}"
+        elif n == WIDE_N:
+            p_dev = torch.from_numpy(np.ascontiguousarray(preds["i64"][0])).to(dev)
+            scalars = np.array([n, preds["i64"][1], preds["i64"][2]], np.int32)
+            rec.wide(lambda: fs.filter_select_planes(p_dev, t_dev, scalars, "ge", "i64", TILE),
+                     4 * n * (2 + 2 * d) + 4 * (n // TILE), f"N={n} P=2 D={d}")
+    return rec
+
+
+def check_project(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels import project_arith as pa
+
+    rec = KernelRecord("project_tiles", "src/repro_torch/kernels/csrc/project_arith.cu",
+                       "src/repro/kernels/project_arith.py:75")
+    # the COOK's projection: temp_k = temp + 273.15 and dp = pressure * 0.5 -
+    # 1013.0 over (temp, pressure); s3 = station * 3 + 1 over (station,)
+    main_f = (("add", ("col", 0), ("lit", 273.15)), ("sub", ("mul", ("col", 1), ("lit", 0.5)), ("lit", 1013.0)))
+    main_i = (("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1)),)
+    # hazards: 0/0, inf-inf, NaN operands (one and both), division, denormals
+    hazard_f = (
+        ("div", ("col", 0), ("col", 1)),
+        ("sub", ("col", 0), ("col", 1)),
+        ("add", ("col", 1), ("col", 0)),
+        ("mul", ("col", 0), ("col", 1)),
+        ("div", ("sub", ("col", 0), ("lit", 1.5)), ("add", ("col", 1), ("lit", -2.0))),
+        ("mul", ("add", ("col", 0), ("mul", ("lit", 2.0), ("lit", 3.0))), ("col", 1)),
+    )
+    hazard_i = (("mul", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("lit", 2**31 - 1)), ("add", ("col", 1), ("col", 0)))
+    for n in (MORSEL, WIDE_N):
+        f = np.stack([_f32_specials(rng, n), _f32_specials(rng, n)], axis=1)
+        f[::5, 1] = 0.0
+        ii = rng.integers(-(2**31), 2**31, size=(n, 2), dtype=np.int64).astype(np.int32)
+        for table, descrs in ((f, main_f), (f, hazard_f), (ii[:, :1].copy(), main_i), (ii, hazard_i)):
+            t_cpu = torch.from_numpy(np.ascontiguousarray(table))
+            got = pa.project_tiles(t_cpu.to(dev), descrs, TILE)
+            want = pa.project_tiles_plain(t_cpu, descrs, TILE)
+            rec.compare((got,), (want,), f"n={n} {descrs}")
+        if n == MORSEL:
+            t_dev = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+            _time_kernel(rec, lambda: pa.project_tiles(t_dev, main_f, TILE))
+            rec.plain_ms = _time_ms(lambda: pa.project_tiles_plain(t_dev, main_f, TILE))
+            by_bytes = _bytes_bound_ms(4 * n * 2 + 4 * n * len(main_f))
+            by_ops = n * 3 / F32_FLOPS * 1e3  # one op for temp_k, two for dp
+            rec.bound_ms = max(by_bytes, by_ops)
+            rec.bound_by = "bytes" if by_bytes >= by_ops else "operations"
+            rec.shape = f"N={n} D=2 K=2 float32"
+        else:
+            t_dev = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+            rec.wide(lambda: pa.project_tiles(t_dev, main_f, TILE), 4 * n * 2 + 4 * n * len(main_f), f"N={n} D=2 K=2")
+    return rec
+
+
+def _skewed_groups(rng, n: int, g: int) -> np.ndarray:
+    w = 1.0 / (np.arange(g) + 1.0) ** 1.1
+    return rng.choice(g, size=n, p=w / w.sum()).astype(np.int32)
+
+
+def _limbs(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.int64)
+    cols = [((v >> (8 * k)) & 0xFF).astype(np.int32) for k in range(7)] + [(v >> 56).astype(np.int32)]
+    return np.stack(cols, axis=1)
+
+
+def check_segment_sum(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels import segment_reduce as sr
+
+    rec = KernelRecord("segment_sum_tiles", "src/repro_torch/kernels/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce.py:70")
+    # the COOK folds counts and sum(qc): 8 limb columns over 200 stations; the
+    # wide envelope two int64 columns (16 limbs) over 256 groups
+    for n, g, cols in ((MORSEL, STATIONS, 1), (WIDE_N, 256, 2)):
+        gidx = _skewed_groups(rng, n, g)
+        vals = [rng.integers(0, 4, n).astype(np.uint8)] if cols == 1 else [
+            rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64) for _ in range(cols)
+        ]
+        limbs = np.concatenate([_limbs(v) for v in vals], axis=1)
+        g_cpu, l_cpu = torch.from_numpy(gidx), torch.from_numpy(np.ascontiguousarray(limbs))
+        g_dev, l_dev = g_cpu.to(dev), l_cpu.to(dev)
+        n_rows = n - 29
+        got = sr.segment_sum_tiles(g_dev, l_dev, n_rows, g, TILE)
+        want = sr.segment_sum_tiles_plain(g_cpu, l_cpu, n_rows, g, TILE)
+        rec.compare(got, want, f"n={n} g={g} s={limbs.shape[1]}")
+        if n == MORSEL:
+            s = limbs.shape[1]
+            _time_kernel(rec, lambda: sr.segment_sum_tiles(g_dev, l_dev, n, g, TILE))
+            rec.plain_ms = _time_ms(lambda: sr.segment_sum_tiles_plain(g_dev, l_dev, n, g, TILE))
+            idx = g_dev.to(torch.int64)
+            rec.library_ms = _time_ms(
+                lambda: torch.zeros((g, s), dtype=torch.int32, device=dev).index_add_(0, idx, l_dev)
+            )
+            rec.bound_ms = _bytes_bound_ms(4 * n + 4 * n * s + 4 * g * s + 4 * g)
+            rec.shape = f"N={n} S={s} G={g}"
+        else:
+            s = limbs.shape[1]
+            rec.wide(lambda: sr.segment_sum_tiles(g_dev, l_dev, n, g, TILE), 4 * n + 4 * n * s + 4 * g * s + 4 * g,
+                     f"N={n} S={s} G={g}")
+    return rec
+
+
+def check_segment_minmax(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels import segment_reduce as sr
+
+    rec = KernelRecord("segment_minmax_tiles", "src/repro_torch/kernels/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce.py:121")
+    # the COOK folds min(pressure) (float32, one column) and max(ts) (two
+    # int32 word passes); the wide envelope four columns over 256 groups
+    for n, g, m in ((MORSEL, STATIONS, 1), (WIDE_N, 256, 4)):
+        gidx = _skewed_groups(rng, n, g)
+        fns = ("min", "max", "min", "max")[:m]
+        vf = np.stack([_f32_specials(rng, n) for _ in range(m)], axis=1)
+        vi = rng.integers(-(2**31), 2**31, size=(n, m), dtype=np.int64).astype(np.int32)
+        g_cpu = torch.from_numpy(gidx)
+        g_dev = g_cpu.to(dev)
+        for vals in (vf, vi):
+            for fn_set in (fns, tuple("max" if f == "min" else "min" for f in fns)):
+                v_cpu = torch.from_numpy(np.ascontiguousarray(vals))
+                got = sr.segment_minmax_tiles(g_dev, v_cpu.to(dev), n - 11, g, fn_set, TILE)
+                want = sr.segment_minmax_tiles_plain(g_cpu, v_cpu, n - 11, g, fn_set, TILE)
+                rec.compare((got,), (want,), f"n={n} g={g} {vals.dtype} {fn_set}")
+        if n == MORSEL:
+            v_dev = torch.from_numpy(np.ascontiguousarray(vf)).to(dev)
+            _time_kernel(rec, lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE))
+            rec.plain_ms = _time_ms(lambda: sr.segment_minmax_tiles_plain(g_dev, v_dev, n, g, fns, TILE))
+            idx = g_dev.to(torch.int64).unsqueeze(1).expand(n, m)
+            rec.library_ms = _time_ms(
+                lambda: torch.full((g, m), float("inf"), device=dev).scatter_reduce_(0, idx, v_dev, "amin")
+            )
+            rec.bound_ms = _bytes_bound_ms(4 * n + 4 * n * m + 4 * g * m)
+            rec.shape = f"N={n} M={m} G={g} float32"
+        else:
+            v_dev = torch.from_numpy(np.ascontiguousarray(vf)).to(dev)
+            rec.wide(lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE), 4 * n + 4 * n * m + 4 * g * m,
+                     f"N={n} M={m} G={g} float32")
+    return rec
+
+
+def time_morsel_copies(dev) -> dict:
+    """Host clock around a synchronised pageable H2D / D2H copy of one
+    main-path morsel (the filter's 11 int32 planes), as the backend does."""
+    import torch
+
+    host = np.zeros((MORSEL, 11), np.int32)
+    nbytes = host.nbytes
+    t_dev = torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    h2d, d2h = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        t_dev.cpu()
+        d2h.append(time.perf_counter() - t0)
+    h2d_ms = float(np.median(h2d) * 1e3)
+    d2h_ms = float(np.median(d2h) * 1e3)
+    return {
+        "bytes": nbytes,
+        "h2d_ms": h2d_ms,
+        "d2h_ms": d2h_ms,
+        "h2d_GBps": nbytes / h2d_ms / 1e6,
+        "d2h_GBps": nbytes / d2h_ms / 1e6,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: end to end through two servers
+# ---------------------------------------------------------------------------
+T0 = 1_700_000_000_000_000_000  # ts origin (ns); row i is stamped near T0 + i ms
+
+
+def t_cut(rows: int) -> int:
+    """The COOK keeps ts >= t_cut: about the last two thirds of the rows."""
+    return T0 + (rows // 3) * 1_000_000
+
+
+def write_observations(root: str, rows: int, parts: int, seed: int) -> int:
+    """Seeded station-observations table as a columnar dataset."""
+    from repro_torch.core.batch import RecordBatch
+    from repro_torch.core.sdf import StreamingDataFrame
+    from repro_torch.server import write_sdf_dataset
+
+    per = rows // parts
+    w = 1.0 / (np.arange(STATIONS) + 1.0) ** 1.1
+    p = w / w.sum()
+    probe = RecordBatch.from_pydict(
+        {
+            "station": np.zeros(1, np.int32),
+            "temp": np.zeros(1, np.float32),
+            "pressure": np.zeros(1, np.float32),
+            "ts": np.zeros(1, np.int64),
+            "value": np.zeros(1, np.float64),
+            "qc": np.zeros(1, np.uint8),
+        }
+    )
+
+    def gen():
+        for part in range(parts):
+            rng = np.random.default_rng([seed, part])
+            temp = (rng.standard_normal(per) * 12.0 + 8.0).astype(np.float32)
+            temp[rng.random(per) < 0.001] = np.nan
+            temp[rng.random(per) < 0.001] = -0.0
+            base = part * per
+            yield RecordBatch.from_pydict(
+                {
+                    "station": rng.choice(STATIONS, size=per, p=p).astype(np.int32),
+                    "temp": temp,
+                    "pressure": (rng.standard_normal(per) * 9.0 + 1013.0).astype(np.float32),
+                    "ts": T0 + (np.arange(base, base + per, dtype=np.int64) * 1_000_000) + rng.integers(0, 999_999, per),
+                    "value": rng.standard_normal(per) * 1e3,
+                    "qc": rng.integers(0, 4, per).astype(np.uint8),
+                }
+            )
+
+    return write_sdf_dataset(root, StreamingDataFrame(probe.schema, gen))
+
+
+def _column_bytes(batch) -> dict:
+    out = {}
+    for f, c in zip(batch.schema, batch.columns):
+        if f.dtype.is_varwidth:
+            out[f.name] = c.offsets.tobytes() + c.data.tobytes()
+        else:
+            out[f.name] = np.ascontiguousarray(c.values).tobytes()
+        if c.validity is not None:
+            out[f.name] += np.asarray(c.validity).tobytes()
+    return out
+
+
+def requests(uri: str, cut: int):
+    """(name, callable(client) -> reply) for each request of the run."""
+    from repro_torch.core.expr import col
+
+    def cook_agg(c):
+        return (
+            c.open(uri)
+            .project(
+                temp_k=col("temp") + 273.15,
+                dp=col("pressure") * 0.5 - 1013.0,
+                s3=col("station") * 3 + 1,
+                age=col("ts") - cut,
+            )
+            .filter(col("age") >= 0)  # ts >= cut, on a column the scan cannot see
+            .group_by("station")
+            .agg(n="count", q=("sum", "qc"), lo=("min", "pressure"), hi=("max", "ts"), m=("mean", "temp_k"))
+            .collect()
+        )
+
+    def cook_select(c):
+        return (
+            c.open(uri)
+            .project(s3=col("station") * 3 + 1)
+            .filter(col("s3") != 22)  # station != 7
+            .select("station", "value", "ts")
+            .collect()
+        )
+
+    return [
+        ("GET temp>0 [station,temp,ts]", lambda c: c.get(uri, columns=["station", "temp", "ts"], predicate=col("temp") > 0.0).collect()),
+        ("COOK project>filter>group_by.agg", cook_agg),
+        ("COOK project>filter>select", cook_select),
+    ]
+
+
+def run_requests(client, uri: str, cut: int, counters=None) -> list:
+    """Drive every request; returns [(name, reply, seconds)].  With
+    ``counters`` (the kernel launch counters) they are zeroed right before
+    the first request and left as they stand after the last."""
+    meta = {
+        "ping": client.ping(),
+        "list": client.list(scope="local"),
+        "describe": client.describe(uri, scope="local"),
+    }
+    out = [("PING/LIST/DESCRIBE", meta, 0.0)]
+    if counters is not None:
+        for c in counters.values():
+            c.reset()
+    for name, fn in requests(uri, cut):
+        t0 = time.perf_counter()
+        reply = fn(client)
+        out.append((name, reply, time.perf_counter() - t0))
+    return out
+
+
+def start_server(root: str, backend: str, device: str):
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.server import FairdServer
+
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    server = FairdServer(f"127.0.0.1:{port}", executor=ExecutorConfig(backend=backend, device=device, morsel_rows=262144))
+    server.catalog.register_path("obs", root)
+    server.serve_tcp(port=port)
+    return server, f"127.0.0.1:{port}"
+
+
+def profile_cook(client, uri: str, cut: int) -> dict:
+    """Where the torch server's time goes in the aggregate COOK: one more
+    run under ``torch.profiler`` (a cut one nanosecond later, so the plan
+    cache cannot answer it), device time split into our kernels, copies and
+    the rest, against the request's wall time."""
+    fn = dict(requests(uri, cut))["COOK project>filter>group_by.agg"]
+    times, wall = _device_times(lambda: fn(client))
+    ours = sum(v for k, v in times.items() if any(n in k for n in _OUR_KERNELS)) / 1e3
+    copies = sum(v for k, v in times.items() if "Memcpy" in k) / 1e3
+    other = sum(times.values()) / 1e3 - ours - copies
+    return {
+        "request": "COOK project>filter>group_by.agg (profiled)",
+        "wall_ms": wall * 1e3,
+        "kernels_ms": ours,
+        "memcpy_ms": copies,
+        "other_device_ms": other,
+        "device_busy_share": (ours + copies + other) / (wall * 1e3),
+        "top": sorted(((round(v / 1e3, 3), k[:60]) for k, v in times.items()), reverse=True)[:8],
+    }
+
+
+def end_to_end(device: str, rows: int, parts: int) -> tuple:
+    """Returns (per-request report, launch counts of the torch run, device
+    time breakdown of the profiled aggregate COOK)."""
+    from repro_torch.client import TcpNetwork
+    from repro_torch.kernels import ops
+
+    tmp = tempfile.mkdtemp(prefix="dacp_smoke_")
+    servers = []
+    try:
+        root = os.path.join(tmp, "obs")
+        t0 = time.perf_counter()
+        written = write_observations(root, rows, parts, SEED)
+        check(written == rows, f"wrote {written} rows, expected {rows}")
+        log(f"e2e: wrote {rows} rows in {parts} parts in {time.perf_counter() - t0:.3f} s")
+        torch_srv, torch_auth = start_server(root, "torch", device)
+        numpy_srv, numpy_auth = start_server(root, "numpy", "cpu")
+        servers = [torch_srv, numpy_srv]
+        net = TcpNetwork()
+        got = run_requests(net.client_for(torch_auth), f"dacp://{torch_auth}/obs", t_cut(rows), counters=ops.LAUNCHES)
+        launches = {name: c.value for name, c in ops.LAUNCHES.items()}
+        want = run_requests(net.client_for(numpy_auth), f"dacp://{numpy_auth}/obs", t_cut(rows))
+        breakdown = profile_cook(net.client_for(torch_auth), f"dacp://{torch_auth}/obs", t_cut(rows) + 1)
+        net.close_all()
+        report = []
+        meta_g, meta_w = got[0][1], want[0][1]
+        check(meta_g["describe"].get("schema") == meta_w["describe"].get("schema"), "DESCRIBE schemas differ")
+        check(
+            [e.get("name") for e in meta_g["list"].get("entries", [])] == [e.get("name") for e in meta_w["list"].get("entries", [])],
+            "LIST entries differ",
+        )
+        check(bool(meta_g["ping"]), "PING returned nothing")
+        for (name, g, secs), (_n2, w, secs_np) in zip(got[1:], want[1:]):
+            check(g.schema.to_json() == w.schema.to_json(), f"{name}: schemas differ")
+            check(g.num_rows == w.num_rows and g.num_rows > 0, f"{name}: {g.num_rows} rows vs {w.num_rows}")
+            gb, wb = _column_bytes(g), _column_bytes(w)
+            for col in gb:
+                check(gb[col] == wb[col], f"{name}: column {col} is not byte-identical to the numpy server's")
+            report.append(
+                {
+                    "request": name,
+                    "rows_out": g.num_rows,
+                    "torch_s": secs,
+                    "numpy_s": secs_np,
+                    "torch_rows_per_s": rows / secs,
+                    "numpy_rows_per_s": rows / secs_np,
+                }
+            )
+        agg = got[2][1]
+        check(agg.num_rows == STATIONS, f"COOK aggregate has {agg.num_rows} groups, expected {STATIONS}")
+        return report, launches, breakdown
+    finally:
+        for s in servers:
+            s.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        fail("src/repro_torch is not beside chip_smoke.py: run it from a checkout of the repository")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {kind}, {torch.cuda.device_count()} device(s), torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_s = build_kernels()
+    log(f"build: {build_s:.3f} s")
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    records = [
+        check_filter_select(dev, rng),
+        check_project(dev, rng),
+        check_segment_sum(dev, rng),
+        check_segment_minmax(dev, rng),
+    ]
+    for r in records:
+        log(f"kernel {r.name}: exact={r.exact} over {r.checks} checks, {r.shape}: {r.ms:.6f} ms "
+            f"(plain {r.plain_ms:.6f} ms, bound {r.bound_ms:.6f} ms)")
+    copies = time_morsel_copies(dev)
+    log("morsel copies: " + json.dumps(copies))
+
+    report, launches, breakdown = end_to_end("cuda", E2E_ROWS, E2E_PARTS)
+    for row in report:
+        log("e2e: " + json.dumps(row) + f" on {kind}")
+    log("e2e launches: " + json.dumps(launches))
+    log("e2e breakdown: " + json.dumps(breakdown))
+
+    bad = [r.name for r in records if not r.exact]
+    check(not bad, f"kernels disagree with their plain versions: {bad}")
+    idle = [name for name, n in launches.items() if n == 0]
+    check(not idle, f"kernels never launched on the main path: {idle}")
+    log(f"total: {time.perf_counter() - t_start:.3f} s")
+    log(card)
+    log(json.dumps({"kernels": [r.as_json(launches[r.name]) for r in records]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

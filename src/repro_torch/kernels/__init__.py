@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels for the data plane (Hopper, ``sm_90a``).
+
+    filter_select     — fused Filter+Select over int32 bit-planes
+    project_arith     — projection arithmetic as a postfix program per row
+    segment_reduce    — per-group limb sums, counts and min/max
+
+Importing this package builds nothing: the kernels compile at their first
+CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
+tensors on the CPU.
+"""
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import (
+    filter_select_planes,
+    project_tiles,
+    segment_minmax_tiles,
+    segment_sum_tiles,
+)
+
+__all__ = [
+    "ops",
+    "filter_select_planes",
+    "project_tiles",
+    "segment_sum_tiles",
+    "segment_minmax_tiles",
+]

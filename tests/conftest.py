@@ -67,3 +67,11 @@ def local_cluster(tmp_tree):
         net.register(s)
     net.add_replica("h2:3101", "h2b:3101")
     return net, s1, s2, s2b
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels); skips without one. On the card: "
+        "python -m pytest -m gpu tests/test_torch_gpu.py",
+    )

@@ -1,0 +1,169 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version (run on the CPU, bit for bit) at the widest morsel the backend hands
+it, and the torch backend on ``cuda`` against the reference numpy backend.
+
+Needs a CUDA card; skips without one.  On the card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import filter_select, project_arith, segment_reduce
+
+pytestmark = pytest.mark.gpu
+
+N = 262144  # SUM_ROW_CAP rows
+TILE = 256
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU form")
+    return torch.device("cuda", 0)
+
+
+def _bits(t) -> bytes:
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+def _f32(rng, n):
+    v = (rng.standard_normal(n) * 10).astype(np.float32)
+    v[::97] = -0.0
+    v[1::101] = np.nan
+    v[2::103] = np.array([0x7FA00001], np.uint32).view(np.float32)[0]
+    v[3::107] = np.inf
+    v[4::109] = -np.inf
+    v[5::113] = np.float32(1e-45)
+    return v
+
+
+@pytest.mark.parametrize("kind", filter_select.KINDS)
+@pytest.mark.parametrize("op", filter_select.OPS)
+def test_filter_select_kernel(dev, op, kind):
+    rng = np.random.default_rng(filter_select.OPS.index(op) * 3 + filter_select.KINDS.index(kind))
+    if kind == "f32":
+        pred = _f32(rng, N).view(np.int32).reshape(N, 1)
+        t_hi, t_lo = int(np.array([0.5], np.float32).view(np.int32)[0]), 0
+    elif kind == "i32":
+        pred = rng.integers(-50, 50, N).astype(np.int32).reshape(N, 1)
+        t_hi, t_lo = 3, 0
+    else:
+        v = rng.integers(-(2**63), 2**63 - 1, N, dtype=np.int64)
+        v[::7] = v[10]
+        pred = np.stack([(v >> 32).astype(np.int32), (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)], axis=1)
+        lo = (int(v[10]) & 0xFFFFFFFF) ^ 0x80000000
+        t_hi, t_lo = int(v[10]) >> 32, lo - 2**32 if lo >= 2**31 else lo
+    table = rng.integers(-(2**31), 2**31, size=(N, 8), dtype=np.int64).astype(np.int32)
+    scalars = np.array([N - 100, t_hi, t_lo], np.int32)
+    p, t = torch.from_numpy(pred), torch.from_numpy(table)
+    got = filter_select.filter_select_planes(p.to(dev), t.to(dev), scalars, op, kind, TILE)
+    want = filter_select.filter_select_planes_plain(p, t, scalars, op, kind, TILE)
+    assert filter_select.launches.value > 0
+    for g, w in zip(got, want):
+        assert _bits(g) == _bits(w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_project_kernel(dev, dtype):
+    rng = np.random.default_rng(3)
+    if dtype == "float32":
+        table = np.stack([_f32(rng, N), _f32(rng, N)], axis=1)
+        table[::5, 1] = 0.0
+        descrs = (
+            ("add", ("col", 0), ("lit", 273.15)),
+            ("sub", ("mul", ("col", 1), ("lit", 0.5)), ("lit", 1013.0)),
+            ("div", ("col", 0), ("col", 1)),
+            ("mul", ("sub", ("col", 0), ("col", 1)), ("add", ("col", 1), ("lit", 1e-3))),
+        )
+    else:
+        table = rng.integers(-(2**31), 2**31, size=(N, 2), dtype=np.int64).astype(np.int32)
+        descrs = (("mul", ("col", 0), ("col", 1)), ("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1)))
+    t = torch.from_numpy(table)
+    got = project_arith.project_tiles(t.to(dev), descrs, TILE)
+    want = project_arith.project_tiles_plain(t, descrs, TILE)
+    assert _bits(got) == _bits(want)
+
+
+@pytest.mark.parametrize("ngroups", [1, 200, 256])
+def test_segment_kernels(dev, ngroups):
+    rng = np.random.default_rng(ngroups)
+    gidx = rng.integers(0, ngroups, N).astype(np.int32)
+    limbs = rng.integers(-128, 256, size=(N, 16)).astype(np.int32)
+    vf = np.stack([_f32(rng, N) for _ in range(4)], axis=1)
+    vi = rng.integers(-(2**31), 2**31, size=(N, 4), dtype=np.int64).astype(np.int32)
+    g = torch.from_numpy(gidx)
+    got = segment_reduce.segment_sum_tiles(g.to(dev), torch.from_numpy(limbs).to(dev), N - 3, ngroups, TILE)
+    want = segment_reduce.segment_sum_tiles_plain(g, torch.from_numpy(limbs), N - 3, ngroups, TILE)
+    for a, b in zip(got, want):
+        assert _bits(a) == _bits(b)
+    fns = ("min", "max", "max", "min")
+    for vals in (vf, vi):
+        v = torch.from_numpy(vals)
+        got = segment_reduce.segment_minmax_tiles(g.to(dev), v.to(dev), N - 3, ngroups, fns, TILE)
+        want = segment_reduce.segment_minmax_tiles_plain(g, v, N - 3, ngroups, fns, TILE)
+        assert _bits(got) == _bits(want)
+
+
+def test_backend_on_cuda_matches_reference_numpy(dev):
+    """The torch backend on cuda through the executor, against the
+    reference numpy backend: filter+select, projection and aggregation."""
+    repro_executor = pytest.importorskip("repro.core.executor")
+    import repro.core.batch as rb
+    import repro.core.dag as rd
+    import repro.core.expr as rx
+    import repro.core.sdf as rs
+    import repro_torch.core.batch as pb
+    import repro_torch.core.dag as pd
+    import repro_torch.core.executor as pe
+    import repro_torch.core.expr as px
+    import repro_torch.core.sdf as ps
+    from repro_torch.core.backend import get_backend
+
+    rng = np.random.default_rng(9)
+    n = 20000
+    arrays = {
+        "k": rng.integers(0, 50, n).astype(np.int32),
+        "a": _f32(rng, n),
+        "b": (rng.standard_normal(n) * 3).astype(np.float32),
+        "i": rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+        "q": rng.integers(0, 4, n).astype(np.uint8),
+    }
+
+    def run(batch_mod, dag_mod, expr_mod, sdf_mod, exec_mod, **cfg):
+        col = expr_mod.col
+        batch = batch_mod.RecordBatch.from_pydict({k: v.copy() for k, v in arrays.items()})
+        outs = []
+        for chain in ("select", "agg"):
+            bld = dag_mod.Dag.build()
+            s = bld.source("dacp://h:1/d")
+            p = bld.add("project", {"exprs": {"c": col("a") * 0.5 - col("b"), "s3": col("k") * 3 + 1}, "keep": True}, [s])
+            f = bld.add("filter", {"predicate": col("s3") != 22}, [p])
+            if chain == "select":
+                out = bld.add("select", {"columns": ["k", "c", "i", "a"]}, [f])
+            else:
+                aggs = {"n": {"fn": "count"}, "s": {"fn": "sum", "column": "i"}, "lo": {"fn": "min", "column": "b"},
+                        "hi": {"fn": "max", "column": "i"}, "m": {"fn": "mean", "column": "c"}, "sq": {"fn": "sum", "column": "q"}}
+                out = bld.add("aggregate", {"keys": ["k"], "aggs": aggs}, [f])
+            dag = bld.finish(out)
+
+            def gen(batch=batch):
+                for st in range(0, n, 4096):
+                    yield batch.slice(st, st + 4096)
+
+            sdf = sdf_mod.StreamingDataFrame(batch.schema, gen)
+            config = exec_mod.ExecutorConfig(num_workers=2, morsel_rows=4096, **cfg)
+            with np.errstate(all="ignore"):
+                res = exec_mod.execute_parallel(dag, lambda node, sdf=sdf: sdf, config).collect()
+            outs.append({f.name: c.values.tobytes() for f, c in zip(res.schema, res.columns)})
+        return outs
+
+    bk = get_backend("torch", device="cuda")
+    before = bk.kernel_calls
+    got = run(pb, pd, px, ps, pe, backend="torch", device="cuda")
+    assert bk.kernel_calls > before
+    want = run(rb, rd, rx, rs, repro_executor, backend="numpy")
+    assert got == want
