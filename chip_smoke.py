@@ -9,19 +9,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``nvidia-smi`` gives them, builds the data-plane kernels from
      ``src/repro_torch/kernels/csrc`` and times the build;
   2. kernels — calls each kernel's wrapper on card tensors at the shapes
-     the main path hands it (one 65536-row morsel of the COOK below) and at
+     the main path hands it (one 65536-row morsel of the COOKs below) and at
      the backend's widest envelope (262144 rows, 256 groups), with seeded
-     inputs holding NaN payloads, ±0, ±inf and int64 extremes; holds every
-     result bit for bit against the plain PyTorch version run on the CPU
-     (tolerance 0) and times kernel, plain version (on the card) and the
-     one-call PyTorch yardstick with CUDA events; times the H2D / D2H copy
-     of one morsel;
+     inputs holding NaN payloads, ±0, ±inf, denormals and int64 extremes;
+     holds every result bit for bit against the plain PyTorch version run
+     on the CPU (tolerance 0) and times kernel, plain version (on the card)
+     and the one-call PyTorch yardstick with CUDA events.  The fused chain
+     kernel is checked in four configurations (the fused aggregate COOK's
+     morsel, the widest envelope, a streaming chain on an int64 predicate,
+     special values) and timed beside the four per-op kernels doing the
+     same morsel's work; times the pageable and the pinned H2D copy of one
+     morsel and its D2H copy, and one fused morsel's encode, staging and
+     fold on the host clock;
   3. end to end — writes a seeded 2^24-row station-observations table
      (16 columnar parts), serves it from two port ``FairdServer``s over TCP
      loopback (torch backend on cuda, numpy backend), runs PING, LIST,
-     DESCRIBE, a GET and two COOKs through the port's client on both, holds
-     every reply byte for byte against the numpy server's, and checks that
-     each of the four kernels launched during the torch server's run.
+     DESCRIBE, a GET, two per-op COOKs and two fused COOKs through the
+     port's client on both, holds every reply byte for byte against the
+     numpy server's, checks that each of the five kernels launched during
+     the torch server's run, that the fused COOKs went through the fused
+     kernel with staged (overlapped) uploads, and profiles one aggregate
+     COOK of each path.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -143,7 +151,7 @@ def _same(a, b) -> tuple:
     return False, float(np.nanmax(diff)) if np.isfinite(diff).any() else float("inf")
 
 
-_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_")
+_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_")
 
 
 def _device_times(fn) -> tuple:
@@ -214,6 +222,7 @@ class KernelRecord:
         self.shape = ""
         self.wide_ms = self.wide_bound_ms = None
         self.wide_shape = ""
+        self.extra: dict = {}
 
     def wide(self, fn, nbytes: int, shape: str) -> None:
         """Device time and byte bound at the backend's widest envelope."""
@@ -251,6 +260,7 @@ class KernelRecord:
             "wide_ms": self.wide_ms,
             "wide_bound_ms": self.wide_bound_ms,
             "wide_shape": self.wide_shape,
+            **self.extra,
         }
 
 
@@ -448,16 +458,192 @@ def check_segment_minmax(dev, rng) -> KernelRecord:
     return rec
 
 
+# the fused aggregate COOK's plan: filter p > 1013.0 on pressure, keys st,
+# n=count, sq=sum qc (limbs), s3s=sum station*3+1 (in-kernel csum),
+# lo=min pressure (f32), hi=max qc (i32), m=mean temp+273.15 (compacted + gidx)
+_TK = ("add", ("col", 0), ("lit", 273.15))
+_S3 = ("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1))
+_HAZARD_F = (
+    ("div", ("col", 0), ("col", 1)),
+    ("sub", ("col", 0), ("col", 1)),
+    ("add", ("col", 1), ("col", 0)),
+    ("mul", ("col", 0), ("col", 1)),
+    ("mul", ("add", ("col", 0), ("lit", 1.5)), ("col", 1)),
+)
+_HAZARD_I = (("mul", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("lit", 2**31 - 1)), ("add", ("col", 1), ("col", 0)))
+
+
+def _fused_cases(rng) -> list:
+    """(label, numpy inputs, static args) of the four configurations."""
+    f32_bits = lambda v: v.view(np.int32).reshape(-1, 1)  # noqa: E731
+    thr_1013 = int(np.array([1013.0], np.float32).view(np.int32)[0])
+    cases = []
+
+    # 1. the fused aggregate COOK's morsel (the shape the main path hands it)
+    n = MORSEL
+    station = _skewed_groups(rng, n, STATIONS)
+    pressure = (rng.standard_normal(n) * 9.0 + 1013.0).astype(np.float32)
+    qc = rng.integers(0, 4, n).astype(np.uint8)
+    temp = (rng.standard_normal(n) * 12.0 + 8.0).astype(np.float32)
+    temp[rng.random(n) < 0.001] = np.nan
+    temp[rng.random(n) < 0.001] = -0.0
+    z = np.zeros((n, 1), np.int32)
+    arrays = (np.array([n, thr_1013, 0, 0], np.int32), f32_bits(pressure), station, z, _limbs(qc),
+              pressure.reshape(n, 1), qc.astype(np.int32).reshape(n, 1), temp.reshape(n, 1), station.reshape(n, 1))
+    static = dict(op="gt", kind="f32", descrs_f=(_TK,), descrs_i=(_S3,), csums=(0,), fns_f=("min",), fns_i=("max",),
+                  with_gidx=True, segmented=True, ngroups=STATIONS)
+    cases.append(("main", arrays, static))
+
+    # 2. the widest envelope: SUM_ROW_CAP rows, 256 groups, every table wide
+    n = WIDE_N
+    gidx = _skewed_groups(rng, n, 256)
+    i32 = rng.integers(-50, 50, n).astype(np.int32)
+    wide_limbs = np.concatenate([_limbs(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)) for _ in range(2)], axis=1)
+    arrays = (np.array([n - 37, 3, 0, 0], np.int32), i32.reshape(n, 1), gidx, _bits32(rng, (n, 6)), wide_limbs,
+              (rng.standard_normal((n, 4)) * 40).astype(np.float32),
+              rng.integers(-(2**31), 2**31, size=(n, 4), dtype=np.int64).astype(np.int32),
+              (rng.standard_normal((n, 2)) * 3).astype(np.float32),
+              rng.integers(-(2**31), 2**31, size=(n, 2), dtype=np.int64).astype(np.int32))
+    static = dict(op="ge", kind="i32", descrs_f=_HAZARD_F[:3], descrs_i=_HAZARD_I[:2], csums=(0, 1),
+                  fns_f=("min", "max", "max", "min"), fns_i=("max", "min", "min", "max"), with_gidx=True,
+                  segmented=True, ngroups=256)
+    cases.append(("wide", arrays, static))
+
+    # 3. a streaming chain (no fold) on an int64 predicate: the fused select
+    #    COOK's layout [station | temp | ts hi, lo | value hi, lo] + temp_k
+    n = MORSEL
+    ts = T0 + np.arange(n, dtype=np.int64) * 1_000_000 + rng.integers(0, 999_999, n)
+    ts[:4] = [-(2**63), 2**63 - 1, 0, -1]
+    cut = int(ts[n // 3])
+    temp = _f32_specials(rng, n)
+    value = rng.standard_normal(n) * 1e3
+    pass_tbl = np.concatenate([station.reshape(n, 1), f32_bits(temp), _i64_words(ts),
+                               _i64_words(value.view(np.int64))], axis=1)
+    t_lo = _signed32((cut & 0xFFFFFFFF) ^ 0x80000000)
+    z = np.zeros((n, 1), np.int32)
+    arrays = (np.array([n - 5, cut >> 32, t_lo, 0], np.int32), _i64_words(ts), np.zeros(n, np.int32),
+              np.ascontiguousarray(pass_tbl), z, np.zeros((n, 1), np.float32), z, temp.reshape(n, 1), z)
+    static = dict(op="ge", kind="i64", descrs_f=(_TK,), descrs_i=(), csums=(), fns_f=("min",), fns_i=("min",),
+                  with_gidx=False, segmented=False, ngroups=8)
+    cases.append(("stream-i64", arrays, static))
+
+    # 4. special values everywhere: NaN payloads (one and both operands),
+    #    ±0, ±inf, denormals and int64 extremes, in every table
+    n = MORSEL
+    pred = _f32_specials(rng, n)
+    pass_tbl = np.concatenate([_bits32(rng, (n, 3)), _i64_words(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))],
+                              axis=1)
+    pass_tbl[:4, 3:5] = _i64_words(np.array([-(2**63), 2**63 - 1, 0, -1], np.int64))
+    af = np.stack([_f32_specials(rng, n), _f32_specials(rng, n)], axis=1)
+    af[::5, 1] = 0.0
+    ai = rng.integers(-(2**31), 2**31, size=(n, 2), dtype=np.int64).astype(np.int32)
+    arrays = (np.array([n - 11, int(np.array([0.5], np.float32).view(np.int32)[0]), 0, 0], np.int32),
+              f32_bits(pred), _skewed_groups(rng, n, 64), np.ascontiguousarray(pass_tbl),
+              _limbs(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)),
+              np.stack([_f32_specials(rng, n), _f32_specials(rng, n)], axis=1), ai[:, :1].copy(), af, ai)
+    static = dict(op="le", kind="f32", descrs_f=_HAZARD_F, descrs_i=_HAZARD_I, csums=(2, 0), fns_f=("min", "max"),
+                  fns_i=("max",), with_gidx=True, segmented=True, ngroups=64)
+    cases.append(("specials", arrays, static))
+    return cases
+
+
+def _fused_bytes(arrays, static) -> int:
+    """Bytes the function must move: every input table read once, ctab,
+    the counts and the group outputs written once."""
+    _sc, pred, gidx, pass_tbl, limb, mmf, mmi, af, ai = arrays
+    n = pass_tbl.shape[0]
+    read = sum(a.nbytes for a in (pred, gidx, pass_tbl, limb, mmf, mmi, af, ai))
+    dc = pass_tbl.shape[1] + len(static["descrs_f"]) + len(static["descrs_i"]) + int(static["with_gidx"])
+    ls = limb.shape[1] + 4 * len(static["csums"])
+    g = static["ngroups"]
+    return read + 4 * n * dc + 4 * (n // TILE) + 4 * g * (ls + 2 + mmf.shape[1] + mmi.shape[1])
+
+
+def _per_op_morsel(dev, arrays):
+    """The per-op kernels doing the main case's morsel: project temp_k and
+    s3, filter+select the five columns the fold reads, then the segment sum
+    (count, qc and s3 limbs) and the f32 / i32 min/max over the survivors.
+    Returns a function that launches them on device-resident inputs."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    scalars, pred, gidx, _z, limb_qc, mmf, mmi, af, ai = arrays
+    n = pred.shape[0]
+    tk = (af[:, 0] + np.float32(273.15)).astype(np.float32)
+    s3 = (ai[:, 0].astype(np.int64) * 3 + 1).astype(np.int32)
+    table = np.stack([ai[:, 0], mmf[:, 0].view(np.int32), mmi[:, 0], tk.view(np.int32), s3], axis=1)
+    keep = mmf[:, 0] > np.float32(1013.0)
+    n_sel = int(keep.sum())
+    g_sel = np.zeros(n, np.int32)
+    g_sel[:n_sel] = gidx[keep]
+    limbs = np.zeros((n, 16), np.int32)
+    limbs[:n_sel] = np.concatenate([limb_qc[keep], _limbs(s3[keep])], axis=1)
+    vf = np.zeros((n, 1), np.float32)
+    vf[:n_sel] = mmf[keep]
+    vi = np.zeros((n, 1), np.int32)
+    vi[:n_sel] = mmi[keep]
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in dict(
+        af=af, ai=ai, pred=pred, table=table, g=g_sel, limbs=limbs, vf=vf, vi=vi).items()}
+
+    def run():
+        ops.project_tiles(t["af"], (_TK,), TILE)
+        ops.project_tiles(t["ai"], (_S3,), TILE)
+        ops.filter_select_planes(t["pred"], t["table"], scalars[:3], "gt", "f32", TILE)
+        ops.segment_sum_tiles(t["g"], t["limbs"], n_sel, STATIONS, TILE)
+        ops.segment_minmax_tiles(t["g"], t["vf"], n_sel, STATIONS, ("min",), TILE)
+        ops.segment_minmax_tiles(t["g"], t["vi"], n_sel, STATIONS, ("max",), TILE)
+
+    return run
+
+
+def check_fused(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels import fused_pipeline as fp
+
+    rec = KernelRecord("fused_chain_tiles", "src/repro_torch/kernels/csrc/fused_chain.cu",
+                       "src/repro/kernels/fused_pipeline.py:182")
+    for label, arrays, static in _fused_cases(rng):
+        t_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[1:]]
+        t_dev = [t.to(dev) for t in t_cpu]
+        got = fp.fused_chain_tiles(arrays[0], *t_dev, **static, tile=TILE)
+        torch.cuda.synchronize()
+        want = fp.fused_chain_tiles_plain(arrays[0], *t_cpu, **static, tile=TILE)
+        rec.compare(got, want, f"{label}: {static['kind']} segmented={static['segmented']}")
+        n = arrays[3].shape[0]
+        shape = (f"N={n} P={arrays[1].shape[1]} Dp={arrays[3].shape[1]} L={arrays[4].shape[1]} "
+                 f"Mf={arrays[5].shape[1]} Mi={arrays[6].shape[1]} nf={len(static['descrs_f'])} "
+                 f"ni={len(static['descrs_i'])} csums={len(static['csums'])} G={static['ngroups']}")
+        if label == "main":
+            call = lambda t_dev=t_dev, arrays=arrays, static=static: fp.fused_chain_tiles(  # noqa: E731
+                arrays[0], *t_dev, **static, tile=TILE)
+            _time_kernel(rec, call)
+            rec.plain_ms = _time_ms(lambda: fp.fused_chain_tiles_plain(arrays[0], *t_dev, **static, tile=TILE))
+            rec.bound_ms = _bytes_bound_ms(_fused_bytes(arrays, static))
+            rec.shape = shape
+            per_op = _per_op_morsel(dev, arrays)
+            rec.extra["per_op_ms"] = _kernel_device_ms(per_op)
+            rec.extra["per_op_call_ms"] = _time_ms(per_op)
+        elif label == "wide":
+            rec.wide(lambda t_dev=t_dev, arrays=arrays, static=static: fp.fused_chain_tiles(
+                arrays[0], *t_dev, **static, tile=TILE), _fused_bytes(arrays, static), shape)
+    return rec
+
+
 def time_morsel_copies(dev) -> dict:
-    """Host clock around a synchronised pageable H2D / D2H copy of one
-    main-path morsel (the filter's 11 int32 planes), as the backend does."""
+    """Host clock around one main-path morsel (the filter's 11 int32
+    planes) crossing PCIe: a synchronised pageable H2D copy and D2H copy, as
+    the per-op path does, and a pinned ``non_blocking`` H2D copy followed by
+    a synchronise, as the fused path stages."""
     import torch
 
     host = np.zeros((MORSEL, 11), np.int32)
+    pinned = torch.from_numpy(host).pin_memory()
     nbytes = host.nbytes
     t_dev = torch.from_numpy(host).to(dev)
     torch.cuda.synchronize()
-    h2d, d2h = [], []
+    h2d, d2h, h2d_pinned = [], [], []
     for _ in range(20):
         t0 = time.perf_counter()
         torch.from_numpy(host).to(dev)
@@ -466,15 +652,68 @@ def time_morsel_copies(dev) -> dict:
         t0 = time.perf_counter()
         t_dev.cpu()
         d2h.append(time.perf_counter() - t0)
-    h2d_ms = float(np.median(h2d) * 1e3)
-    d2h_ms = float(np.median(d2h) * 1e3)
-    return {
-        "bytes": nbytes,
-        "h2d_ms": h2d_ms,
-        "d2h_ms": d2h_ms,
-        "h2d_GBps": nbytes / h2d_ms / 1e6,
-        "d2h_GBps": nbytes / d2h_ms / 1e6,
-    }
+        t0 = time.perf_counter()
+        pinned.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        h2d_pinned.append(time.perf_counter() - t0)
+    out = {"bytes": nbytes}
+    for name, samples in (("h2d", h2d), ("d2h", d2h), ("h2d_pinned", h2d_pinned)):
+        ms = float(np.median(samples) * 1e3)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_GBps"] = nbytes / ms / 1e6
+    return out
+
+
+def time_fused_morsel(dev) -> dict:
+    """Host clock (median of 20) around the fused aggregate COOK's plan on
+    one main-path morsel: encoding its kernel inputs into pinned tensors,
+    staging them (encode + the ``non_blocking`` copy issued), and a fold
+    (launch, copies back, partial GroupState) on staged and on unstaged
+    inputs, each ending in a synchronise."""
+    import torch
+
+    from repro_torch.core.backend import get_backend, plan_fused_chain
+    from repro_torch.core.batch import RecordBatch
+    from repro_torch.core.expr import col
+    from repro_torch.core.operators import project_schema
+
+    rng = np.random.default_rng(SEED + 1)
+    n = MORSEL
+    batch = RecordBatch.from_pydict({
+        "station": _skewed_groups(rng, n, STATIONS),
+        "temp": (rng.standard_normal(n) * 12.0 + 8.0).astype(np.float32),
+        "pressure": (rng.standard_normal(n) * 9.0 + 1013.0).astype(np.float32),
+        "qc": rng.integers(0, 4, n).astype(np.uint8),
+    })
+    exprs = {"st": col("station"), "p": col("pressure"), "q": col("qc"), "tk": col("temp") + 273.15,
+             "s3": col("station") * 3 + 1}
+    schema = project_schema(batch.schema, exprs, False)
+    aggs = {"n": {"fn": "count"}, "sq": {"fn": "sum", "column": "q"}, "s3s": {"fn": "sum", "column": "s3"},
+            "lo": {"fn": "min", "column": "p"}, "hi": {"fn": "max", "column": "q"}, "m": {"fn": "mean", "column": "tk"}}
+    plan = plan_fused_chain([("project", (exprs, schema)), ("filter", (col("p") > 1013.0,))], batch.schema,
+                            agg=(["st"], aggs, "full", schema), backend=get_backend("torch", device=dev))
+    check(plan is not None, "the fused aggregate COOK's chain did not plan")
+
+    def median_ms(fn) -> float:
+        samples = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        return float(np.median(samples[3:]) * 1e3)
+
+    def staged_fold():
+        plan.stage(batch)
+        plan.fold(batch)
+
+    out = {"rows": n, "encode_pinned_ms": median_ms(lambda: plan._encode(batch, pin=True))}
+    out["stage_ms"] = median_ms(lambda: plan.stage(batch))  # each call replaces the batch's entry
+    plan._take_staged(batch)
+    out["fold_unstaged_ms"] = median_ms(lambda: plan.fold(batch))
+    out["stage_and_fold_ms"] = median_ms(staged_fold)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -541,8 +780,13 @@ def _column_bytes(batch) -> dict:
     return out
 
 
-def requests(uri: str, cut: int):
-    """(name, callable(client) -> reply) for each request of the run."""
+def requests(uri: str, cut: int, thr: float = 1013.0):
+    """(name, callable(client) -> reply) for each request of the run.  The
+    two per-op COOKs stay on the per-op path (an int64 projection, a wide
+    max and a filter on a computed column); the two fused COOKs rename
+    source columns with a ``keep=False`` project, so their filter reads a
+    renamed source column that is neither sunk into the scan nor swapped
+    below the project, and the planner fuses the whole chain."""
     from repro_torch.core.expr import col
 
     def cook_agg(c):
@@ -569,30 +813,63 @@ def requests(uri: str, cut: int):
             .collect()
         )
 
+    def cook_fused_select(c):
+        return (
+            c.open(uri)
+            .project(keep=False, st=col("station"), t=col("temp"), tk=col("temp") + 273.15, ts=col("ts"),
+                     v=col("value"))
+            .filter(col("t") > 0.0)
+            .collect()
+        )
+
+    def cook_fused_agg(c):
+        return (
+            c.open(uri)
+            .project(keep=False, st=col("station"), p=col("pressure"), q=col("qc"), tk=col("temp") + 273.15,
+                     s3=col("station") * 3 + 1)
+            .filter(col("p") > thr)
+            .group_by("st")
+            .agg(n="count", sq=("sum", "q"), s3s=("sum", "s3"), lo=("min", "p"), hi=("max", "q"), m=("mean", "tk"))
+            .collect()
+        )
+
     return [
         ("GET temp>0 [station,temp,ts]", lambda c: c.get(uri, columns=["station", "temp", "ts"], predicate=col("temp") > 0.0).collect()),
         ("COOK project>filter>group_by.agg", cook_agg),
         ("COOK project>filter>select", cook_select),
+        ("COOK fused project>filter>select", cook_fused_select),
+        ("COOK fused project>filter>group_by.agg", cook_fused_agg),
     ]
 
 
-def run_requests(client, uri: str, cut: int, counters=None) -> list:
-    """Drive every request; returns [(name, reply, seconds)].  With
+def run_requests(client, uri: str, cut: int, counters=None, server=None) -> list:
+    """Drive every request; returns [(name, reply, seconds, path)].  With
     ``counters`` (the kernel launch counters) they are zeroed right before
-    the first request and left as they stand after the last."""
+    the first request and left as they stand after the last; ``path`` then
+    holds each request's fused-kernel launches and, with ``server``, its
+    COOK's executor counters (fused launches, staged transfers)."""
     meta = {
         "ping": client.ping(),
         "list": client.list(scope="local"),
         "describe": client.describe(uri, scope="local"),
     }
-    out = [("PING/LIST/DESCRIBE", meta, 0.0)]
+    out = [("PING/LIST/DESCRIBE", meta, 0.0, {})]
     if counters is not None:
         for c in counters.values():
             c.reset()
     for name, fn in requests(uri, cut):
+        before = counters["fused_chain_tiles"].value if counters is not None else 0
         t0 = time.perf_counter()
         reply = fn(client)
-        out.append((name, reply, time.perf_counter() - t0))
+        secs = time.perf_counter() - t0
+        path = {}
+        if counters is not None:
+            path["fused_kernel_launches"] = counters["fused_chain_tiles"].value - before
+        if server is not None and name.startswith("COOK"):
+            st = server.engine.executor_stats()
+            path["fused_launches"] = st.get("fused_launches", 0)
+            path["transfers_overlapped"] = st.get("transfers_overlapped", 0)
+        out.append((name, reply, secs, path))
     return out
 
 
@@ -612,30 +889,33 @@ def start_server(root: str, backend: str, device: str):
     return server, f"127.0.0.1:{port}"
 
 
-def profile_cook(client, uri: str, cut: int) -> dict:
-    """Where the torch server's time goes in the aggregate COOK: one more
-    run under ``torch.profiler`` (a cut one nanosecond later, so the plan
-    cache cannot answer it), device time split into our kernels, copies and
-    the rest, against the request's wall time."""
-    fn = dict(requests(uri, cut))["COOK project>filter>group_by.agg"]
+def profile_cook(client, server, uri: str, name: str, cut: int, thr: float) -> dict:
+    """Where the torch server's time goes in one aggregate COOK: one more
+    run under ``torch.profiler`` (a cut or threshold the main run did not
+    use, so the plan cache cannot answer it), device time split into our
+    kernels, copies and the rest, against the request's wall time."""
+    fn = dict(requests(uri, cut, thr))[name]
     times, wall = _device_times(lambda: fn(client))
+    st = server.engine.executor_stats()
     ours = sum(v for k, v in times.items() if any(n in k for n in _OUR_KERNELS)) / 1e3
     copies = sum(v for k, v in times.items() if "Memcpy" in k) / 1e3
     other = sum(times.values()) / 1e3 - ours - copies
     return {
-        "request": "COOK project>filter>group_by.agg (profiled)",
+        "request": f"{name} (profiled)",
         "wall_ms": wall * 1e3,
         "kernels_ms": ours,
         "memcpy_ms": copies,
         "other_device_ms": other,
         "device_busy_share": (ours + copies + other) / (wall * 1e3),
+        "fused_launches": st.get("fused_launches", 0),
+        "transfers_overlapped": st.get("transfers_overlapped", 0),
         "top": sorted(((round(v / 1e3, 3), k[:60]) for k, v in times.items()), reverse=True)[:8],
     }
 
 
 def end_to_end(device: str, rows: int, parts: int) -> tuple:
     """Returns (per-request report, launch counts of the torch run, device
-    time breakdown of the profiled aggregate COOK)."""
+    time breakdowns of the profiled aggregate COOKs, per-op and fused)."""
     from repro_torch.client import TcpNetwork
     from repro_torch.kernels import ops
 
@@ -651,10 +931,16 @@ def end_to_end(device: str, rows: int, parts: int) -> tuple:
         numpy_srv, numpy_auth = start_server(root, "numpy", "cpu")
         servers = [torch_srv, numpy_srv]
         net = TcpNetwork()
-        got = run_requests(net.client_for(torch_auth), f"dacp://{torch_auth}/obs", t_cut(rows), counters=ops.LAUNCHES)
+        cut = t_cut(rows)
+        torch_uri = f"dacp://{torch_auth}/obs"
+        got = run_requests(net.client_for(torch_auth), torch_uri, cut, counters=ops.LAUNCHES, server=torch_srv)
         launches = {name: c.value for name, c in ops.LAUNCHES.items()}
-        want = run_requests(net.client_for(numpy_auth), f"dacp://{numpy_auth}/obs", t_cut(rows))
-        breakdown = profile_cook(net.client_for(torch_auth), f"dacp://{torch_auth}/obs", t_cut(rows) + 1)
+        want = run_requests(net.client_for(numpy_auth), f"dacp://{numpy_auth}/obs", cut)
+        tc = net.client_for(torch_auth)
+        breakdowns = [
+            profile_cook(tc, torch_srv, torch_uri, "COOK project>filter>group_by.agg", cut + 1, 1013.0),
+            profile_cook(tc, torch_srv, torch_uri, "COOK fused project>filter>group_by.agg", cut, 1013.5),
+        ]
         net.close_all()
         report = []
         meta_g, meta_w = got[0][1], want[0][1]
@@ -664,12 +950,18 @@ def end_to_end(device: str, rows: int, parts: int) -> tuple:
             "LIST entries differ",
         )
         check(bool(meta_g["ping"]), "PING returned nothing")
-        for (name, g, secs), (_n2, w, secs_np) in zip(got[1:], want[1:]):
+        for (name, g, secs, path), (_n2, w, secs_np, _p2) in zip(got[1:], want[1:]):
             check(g.schema.to_json() == w.schema.to_json(), f"{name}: schemas differ")
             check(g.num_rows == w.num_rows and g.num_rows > 0, f"{name}: {g.num_rows} rows vs {w.num_rows}")
             gb, wb = _column_bytes(g), _column_bytes(w)
             for col in gb:
                 check(gb[col] == wb[col], f"{name}: column {col} is not byte-identical to the numpy server's")
+            if "fused" in name:
+                check(path["fused_kernel_launches"] > 0 and path["fused_launches"] > 0,
+                      f"{name}: the planner did not fuse it ({path})")
+                check(path["transfers_overlapped"] > 0, f"{name}: no morsel was staged ({path})")
+            else:
+                check(path["fused_kernel_launches"] == 0, f"{name}: left the per-op path ({path})")
             report.append(
                 {
                     "request": name,
@@ -678,11 +970,14 @@ def end_to_end(device: str, rows: int, parts: int) -> tuple:
                     "numpy_s": secs_np,
                     "torch_rows_per_s": rows / secs,
                     "numpy_rows_per_s": rows / secs_np,
+                    **path,
                 }
             )
-        agg = got[2][1]
-        check(agg.num_rows == STATIONS, f"COOK aggregate has {agg.num_rows} groups, expected {STATIONS}")
-        return report, launches, breakdown
+        for i in (2, 5):
+            check(got[i][1].num_rows == STATIONS, f"{got[i][0]} has {got[i][1].num_rows} groups, expected {STATIONS}")
+        check(breakdowns[1]["fused_launches"] > 0 and breakdowns[1]["transfers_overlapped"] > 0,
+              f"the profiled fused COOK did not stage through the fused kernel: {breakdowns[1]}")
+        return report, launches, breakdowns
     finally:
         for s in servers:
             s.shutdown()
@@ -717,18 +1012,24 @@ def main() -> None:
         check_project(dev, rng),
         check_segment_sum(dev, rng),
         check_segment_minmax(dev, rng),
+        check_fused(dev, rng),
     ]
     for r in records:
         log(f"kernel {r.name}: exact={r.exact} over {r.checks} checks, {r.shape}: {r.ms:.6f} ms "
             f"(plain {r.plain_ms:.6f} ms, bound {r.bound_ms:.6f} ms)")
+    fused = records[-1]
+    log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
+        f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call)")
     copies = time_morsel_copies(dev)
     log("morsel copies: " + json.dumps(copies))
+    log("fused morsel on the host clock: " + json.dumps(time_fused_morsel(dev)))
 
-    report, launches, breakdown = end_to_end("cuda", E2E_ROWS, E2E_PARTS)
+    report, launches, breakdowns = end_to_end("cuda", E2E_ROWS, E2E_PARTS)
     for row in report:
         log("e2e: " + json.dumps(row) + f" on {kind}")
     log("e2e launches: " + json.dumps(launches))
-    log("e2e breakdown: " + json.dumps(breakdown))
+    for b in breakdowns:
+        log("e2e breakdown: " + json.dumps(b))
 
     bad = [r.name for r in records if not r.exact]
     check(not bad, f"kernels disagree with their plain versions: {bad}")

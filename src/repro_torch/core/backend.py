@@ -49,9 +49,18 @@ Dispatchable ops:
                     counted in ``TorchBackend.f64_folds``); ≤ 256 groups per
                     morsel
 
-``get_backend("auto")`` resolves to torch.  The whole-chain fused kernel
-(``fused_chain_tiles``) is not ported yet: ``plan_fused_chain`` returns None
-and every morsel takes the per-op path.
+``get_backend("auto")`` resolves to torch.
+
+Whole-chain fused pipelines: ``plan_fused_chain`` compiles an eligible
+filter → project → segment-fold chain (the reference's eligibility rules)
+into a :class:`FusedChainPlan` that runs each morsel as ONE
+``fused_chain_tiles`` launch on the plan's device — the backend's, or the
+CUDA index ``ExecutorConfig.devices`` binds it to.  On a CUDA device the
+plan stages the next morsel's kernel inputs while the current one computes:
+pinned host tensors, ``non_blocking`` H2D copies on a side stream, fenced
+by an event the launch stream waits on.  Build, copy and launch failures
+raise; only the host-side envelope checks, made before any launch, send a
+morsel back to the per-op path.
 """
 
 from __future__ import annotations
@@ -67,7 +76,9 @@ from repro_torch import device as device_mod
 from repro_torch.core.batch import Column, RecordBatch
 from repro_torch.core.env import env_str
 from repro_torch.core.expr import Expr
+from repro_torch.kernels import fused_pipeline
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.filter_select import _pred_mask
 from repro_torch.kernels.project_arith import fits as _program_fits
 
 __all__ = [
@@ -79,6 +90,7 @@ __all__ = [
     "BACKENDS",
     "FUSED_INELIGIBLE",
     "plan_fused_chain",
+    "FusedChainPlan",
 ]
 
 
@@ -398,6 +410,11 @@ def _tc_filter(bk: TorchBackend, batch: RecordBatch, predicate: Expr):
 # -- project arithmetic ------------------------------------------------------
 _ARITH_F32 = {"add", "sub", "mul", "div"}
 _ARITH_I32 = {"add", "sub", "mul"}  # int div/mod promote to float64 in numpy
+# numpy's float32 + - * / loops return the FIRST of two NaN operands on
+# arrays of 16 elements or fewer, and the second for + and * on longer ones,
+# the rule the kernels apply at any length (numpy 2.0.2, x86).  float32
+# arithmetic that numpy would run on so few rows is left to numpy.
+_NUMPY_SHORT_LOOP = 16
 
 
 def _contraction_safe(op: str, a, b) -> bool:
@@ -429,6 +446,27 @@ def _is_pow2_f32(v) -> bool:
     return v32 != 0.0 and math.isfinite(v32) and abs(math.frexp(v32)[0]) == 0.5
 
 
+def _lit_value(v, group: str):
+    """A literal's value in kernel arithmetic of ``group`` ("float32" |
+    "int32"), or None where numpy would promote: weak scalars (and <=32-bit
+    float scalars) keep f32 arithmetic; an int64 scalar or an integer
+    outside int32 would promote to int64 (or raise) in numpy.  A NaN
+    literal is left to numpy too: against a NaN column element numpy's
+    choice between the two depends on the element's place in its loop."""
+    if isinstance(v, (bool, np.bool_)):
+        return None
+    if group == "float32":
+        if isinstance(v, (int, float)) or (isinstance(v, np.floating) and v.dtype.itemsize <= 4):
+            return None if math.isnan(float(v)) else float(v)
+        return None
+    if isinstance(v, (int, np.integer)) and not isinstance(v, np.uint64):
+        vi = int(v)
+        if isinstance(v, np.int64) or not (-(2**31) <= vi <= 2**31 - 1):
+            return None
+        return vi
+    return None
+
+
 def _arith_descr(e, batch: RecordBatch, group: str, col_idx: dict):
     """Lower an Expr subtree to a kernel descriptor, interning column
     indices into ``col_idx``.  Returns None when any node falls outside the
@@ -446,20 +484,8 @@ def _arith_descr(e, batch: RecordBatch, group: str, col_idx: dict):
             col_idx[name] = len(col_idx)
         return ("col", col_idx[name])
     if e.op == "lit":
-        v = e.args[0]
-        if isinstance(v, (bool, np.bool_)):
-            return None
-        if group == "float32":
-            # weak scalars (and <=32-bit float scalars) keep f32 arithmetic
-            if isinstance(v, (int, float)) or (isinstance(v, np.floating) and v.dtype.itemsize <= 4):
-                return ("lit", float(v))
-            return None
-        if isinstance(v, (int, np.integer)) and not isinstance(v, np.uint64):
-            vi = int(v)
-            if isinstance(v, np.int64) or not (-(2**31) <= vi <= 2**31 - 1):
-                return None  # would promote to int64 (or raise) in numpy
-            return ("lit", vi)
-        return None
+        v = _lit_value(e.args[0], group)
+        return None if v is None else ("lit", v)
     allowed = _ARITH_F32 if group == "float32" else _ARITH_I32
     if e.op not in allowed or len(e.args) != 2:
         return None
@@ -485,6 +511,8 @@ def _tc_project(bk: TorchBackend, batch: RecordBatch, exprs: dict, out_schema):
     for name, e in exprs.items():
         f = out_schema.field(name)
         if f.dtype.name not in ("float32", "int32"):
+            continue
+        if f.dtype.name == "float32" and batch.num_rows <= _NUMPY_SHORT_LOOP:
             continue
         group = f.dtype.name
         col_idx = groups.setdefault(group, ({}, []))[0]
@@ -748,22 +776,703 @@ def _tc_segment_reduce(bk: TorchBackend, gidx, ngroups, specs, n_rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# whole-chain fused pipelines
+# whole-chain fused pipelines: one launch per morsel
 # ---------------------------------------------------------------------------
-# Sentinel a fused plan returns when a morsel falls outside its envelope; the
-# executor then runs the per-op path for that morsel.
+# Sentinel returned by FusedChainPlan.run/.fold when THIS morsel falls
+# outside the compiled envelope (validity mask appeared, row/group caps
+# exceeded, non-finite or -0.0 float32 min/max input, NaN arithmetic that
+# numpy would run on a short array); the caller runs the per-op path for
+# that morsel only.  It is decided on the host before any launch.
 FUSED_INELIGIBLE = object()
+
+_FLOAT_NAMES = {"float16", "float32", "float64"}
+_TORCH_DT = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
+
+
+def _lower_pred(pred, mapping: dict, src_schema):
+    """Lower a filter predicate against SOURCE column names.  Returns
+    ``(op, kind, t_hi_bits, t_lo, src_name)`` or None."""
+    if not (
+        isinstance(pred, Expr)
+        and pred.op in _CMP_OPS
+        and isinstance(pred.args[0], Expr)
+        and pred.args[0].op == "col"
+        and isinstance(pred.args[1], Expr)
+        and pred.args[1].op == "lit"
+    ):
+        return None
+    m = mapping.get(pred.args[0].args[0])
+    if m is None or m[0] != "src":
+        return None
+    sname = m[1]
+    dtn = src_schema.field(sname).dtype.name
+    if dtn not in _PRED_KINDS:
+        return None
+    norm = _normalize_threshold(pred.args[1].args[0], dtn, pred.op)
+    if norm is None:
+        return None
+    kind, op, t_hi, t_lo = norm
+    t_hi_bits = int(np.array([t_hi], np.float32).view(np.int32)[0]) if kind == "f32" else int(t_hi)
+    return op, kind, t_hi_bits, int(t_lo), sname
+
+
+def _lower_arith_named(e, mapping: dict, src_schema, group: str):
+    """Lower an Expr to a descriptor tree over SOURCE column names.
+    Computed-of-computed inlines the earlier tree when the group matches:
+    the stored f32/i32 column value IS the in-kernel subtree value (each op
+    rounds in the group dtype either way), so inlining is exact."""
+    if not isinstance(e, Expr):
+        return None
+    if e.op == "col":
+        m = mapping.get(e.args[0])
+        if m is None:
+            return None
+        if m[0] == "src":
+            if src_schema.field(m[1]).dtype.name != group:
+                return None
+            return ("col", m[1])
+        return m[2] if m[1] == group else None
+    if e.op == "lit":
+        v = _lit_value(e.args[0], group)
+        return None if v is None else ("lit", v)
+    allowed = _ARITH_F32 if group == "float32" else _ARITH_I32
+    if e.op not in allowed or len(e.args) != 2:
+        return None
+    a = _lower_arith_named(e.args[0], mapping, src_schema, group)
+    if a is None:
+        return None
+    b = _lower_arith_named(e.args[1], mapping, src_schema, group)
+    if b is None:
+        return None
+    if group == "float32" and not _contraction_safe(e.op, a, b):
+        return None
+    return (e.op, a, b)
+
+
+def _intern_tree(tree, idx: dict):
+    """Replace source column names in a descriptor tree with table indices."""
+    if tree[0] == "col":
+        name = tree[1]
+        if name not in idx:
+            idx[name] = len(idx)
+        return ("col", idx[name])
+    if tree[0] == "lit":
+        return tree
+    return (tree[0], _intern_tree(tree[1], idx), _intern_tree(tree[2], idx))
 
 
 def plan_fused_chain(specs: list, in_schema, agg=None, backend=None):
-    """The whole-chain plan for one pipeline, or None (→ the per-op path).
+    """Compile a pipeline's op-spec chain into a :class:`FusedChainPlan`
+    (one ``fused_chain_tiles`` launch per morsel), or None when any link
+    falls outside the kernel envelope (→ the per-op path runs unchanged).
 
-    The reference compiles eligible filter → project → segment-fold chains
-    into one ``fused_chain_tiles`` launch per morsel (``FusedChainPlan``).
-    That kernel is the port's next slice; until it lands this returns None
-    for every chain, so each morsel runs the per-op kernels."""
-    return None
+    ``specs`` is the executor's ``[(kind, args), ...]`` chain.  Eligible
+    chains are any combination of at most one ``filter`` (predicate
+    ``col <cmp> lit`` on a float32/int32/int64 source column), ``select``,
+    and ``project`` (f32/i32 arithmetic or cast-free renames) — evaluated
+    symbolically against SOURCE columns, so the kernel reads the original
+    morsel regardless of where the filter sits in the chain.  With ``agg``
+    (``(keys, aggs, mode, in_schema)``) the plan also folds the per-morsel
+    partial aggregate in the same launch: counts, integer sums (8-bit-limb
+    passthrough / 4-limb in-kernel for computed int32), f32 + narrow-int
+    min/max, and float sums via compacted planes + the host's f64 fold.
+    Float-keyed aggregates are ineligible (the pre-filter factorization
+    could pick a different -0.0/NaN representative than the reference's
+    post-filter one); wide min/max and var-width outputs are ineligible.
 
+    Eligibility is the reference's.  Two host limits of the CUDA kernel are
+    added, both decided here: each dtype's descriptor trees must fit one
+    postfix program, and the segment fold's accumulators for the group cap
+    must fit a block's shared memory (``fused_pipeline.fits``)."""
+    if backend is None or getattr(backend, "name", None) != "torch" or in_schema is None:
+        return None
+    mapping = {f.name: ("src", f.name) for f in in_schema}
+    cur = in_schema
+    filt = None
+    f32_after_filter = False  # numpy evaluates some float32 tree on the filtered rows
+    for kind_, args in specs:
+        if kind_ == "filter":
+            if filt is not None:
+                return None
+            filt = _lower_pred(args[0], mapping, in_schema)
+            if filt is None:
+                return None
+        elif kind_ == "select":
+            cols = list(args[0])
+            if any(c not in mapping for c in cols):
+                return None
+            mapping = {c: mapping[c] for c in cols}
+            cur = cur.select(cols)
+        elif kind_ == "project":
+            exprs, out_schema = args
+            new_map = {}
+            for f in out_schema:
+                e = exprs.get(f.name)
+                if e is None:
+                    m = mapping.get(f.name)
+                    if m is None:
+                        return None
+                    new_map[f.name] = m
+                    continue
+                if isinstance(e, Expr) and e.op == "col":
+                    m = mapping.get(e.args[0])
+                    if m is None:
+                        return None
+                    src_dt = in_schema.field(m[1]).dtype.name if m[0] == "src" else m[1]
+                    if src_dt != f.dtype.name:
+                        return None  # dtype-coercing rename: outside the kernel
+                    new_map[f.name] = m
+                    continue
+                if f.dtype.name not in ("float32", "int32"):
+                    return None
+                tree = _lower_arith_named(e, mapping, in_schema, f.dtype.name)
+                if tree is None or tree[0] in ("col", "lit"):
+                    return None
+                new_map[f.name] = ("arith", f.dtype.name, tree)
+                f32_after_filter |= filt is not None and f.dtype.name == "float32"
+            mapping = new_map
+            cur = out_schema
+        else:
+            return None  # map / probe break the fusable chain
+    if filt is None and agg is None:
+        return None
+    if not cur.fields:
+        return None
+
+    # -- assemble the kernel input/output layout --------------------------
+    f_trees: dict = {}  # name-tree -> index among f32 computed columns
+    i_trees: dict = {}
+    pass_fields: list = []  # (src name, dtype, plane start, plane count)
+    pass_pos = 0
+
+    def _computed(m):
+        _tag, group, tree = m
+        trees = f_trees if group == "float32" else i_trees
+        if tree not in trees:
+            trees[tree] = len(trees)
+        return ("f32" if group == "float32" else "i32", trees[tree])
+
+    def _pass_ref(sname, dtype):
+        nonlocal pass_pos
+        for s, dt, start, k in pass_fields:
+            if s == sname:
+                return ("pass", start, k, dt)
+        k = _plane_count(dtype.name)
+        pass_fields.append((sname, dtype, pass_pos, k))
+        ref = ("pass", pass_pos, k, dtype)
+        pass_pos += k
+        return ref
+
+    out_decode = None
+    key_srcs: list = []
+    gcnt_states: list = []
+    limb_srcs: list = []
+    csum_states: list = []
+    mmf: list = []
+    mmi: list = []
+    fsums: list = []
+    if agg is None:
+        out_decode = []
+        for f in cur:
+            m = mapping[f.name]
+            if m[0] == "src":
+                if f.dtype.is_varwidth:
+                    return None
+                out_decode.append((f, _pass_ref(m[1], f.dtype)))
+            else:
+                out_decode.append((f, _computed(m)))
+    else:
+        keys, aggs, mode, agg_schema = agg
+        for k in keys:
+            m = mapping.get(k)
+            if m is None or m[0] != "src":
+                return None
+            if in_schema.field(m[1]).dtype.name in _FLOAT_NAMES:
+                return None
+            key_srcs.append((k, m[1]))
+
+        def _fsum_ref(m):
+            if m[0] == "src":
+                dt = in_schema.field(m[1]).dtype
+                return None if dt.is_varwidth else _pass_ref(m[1], dt)
+            return _computed(m)
+
+        for out, spec in aggs.items():
+            fn = spec["fn"]
+            if fn == "count":
+                if mode == "final":
+                    m = mapping.get(out)
+                    if m is None or m[0] != "src":
+                        return None
+                    limb_srcs.append((out, m[1]))
+                else:
+                    gcnt_states.append(out)
+            elif fn == "mean":
+                psrc = f"{out}__psum" if mode == "final" else spec.get("column")
+                m = mapping.get(psrc)
+                if m is None:
+                    return None
+                r = _fsum_ref(m)
+                if r is None:
+                    return None
+                fsums.append((f"{out}__psum", r))
+                if mode == "final":
+                    m2 = mapping.get(f"{out}__pcnt")
+                    if m2 is None or m2[0] != "src":
+                        return None
+                    limb_srcs.append((f"{out}__pcnt", m2[1]))
+                else:
+                    gcnt_states.append(f"{out}__pcnt")
+            elif fn == "sum":
+                src = out if mode == "final" else spec.get("column")
+                m = mapping.get(src)
+                if m is None:
+                    return None
+                if m[0] == "src":
+                    dt = in_schema.field(m[1]).dtype.np_dtype
+                    if dt.kind in "iub":
+                        limb_srcs.append((out, m[1]))
+                    elif dt.kind == "f":
+                        fsums.append((out, _pass_ref(m[1], in_schema.field(m[1]).dtype)))
+                    else:
+                        return None
+                elif m[1] == "int32":
+                    csum_states.append((out, _computed(m)[1]))
+                else:
+                    fsums.append((out, _computed(m)))
+            elif fn in ("min", "max"):
+                src = out if mode == "final" else spec.get("column")
+                m = mapping.get(src)
+                if m is None or m[0] != "src":
+                    return None
+                dt = in_schema.field(m[1]).dtype.np_dtype
+                if dt == np.float32:
+                    mmf.append((out, fn, m[1]))
+                elif dt.kind == "b" or (dt.kind == "i" and dt.itemsize <= 4) or (dt.kind == "u" and dt.itemsize <= 2):
+                    mmi.append((out, fn, m[1]))
+                else:
+                    return None
+            else:
+                return None
+
+    af_idx: dict = {}
+    ai_idx: dict = {}
+    descrs_f = tuple(_intern_tree(t, af_idx) for t, _j in sorted(f_trees.items(), key=lambda kv: kv[1]))
+    descrs_i = tuple(_intern_tree(t, ai_idx) for t, _j in sorted(i_trees.items(), key=lambda kv: kv[1]))
+    limb_cols = max(1, _SUM_LIMBS * len(limb_srcs))
+    csums = tuple(idx for _state, idx in csum_states)
+    g_cap = _SEG_GROUP_CAP if agg is not None else 8
+    if not fused_pipeline.fits(descrs_f, descrs_i, csums, limb_cols, max(1, len(mmf)), max(1, len(mmi)), g_cap):
+        return None  # the CUDA kernel's launch limits, decided before any launch
+    af_cols = [s for s, _ in sorted(af_idx.items(), key=lambda kv: kv[1])]
+    ai_cols = [s for s, _ in sorted(ai_idx.items(), key=lambda kv: kv[1])]
+    checked = {s for s, _dt, _p, _k in pass_fields} | set(af_cols) | set(ai_cols)
+    checked |= {s for _st, s in limb_srcs} | {s for _st, _fn, s in mmf} | {s for _st, _fn, s in mmi}
+    if filt is not None:
+        checked.add(filt[4])
+    return FusedChainPlan(
+        backend,
+        filt=filt,
+        out_schema=cur if agg is None else None,
+        out_decode=out_decode,
+        agg=None if agg is None else (list(agg[0]), dict(agg[1]), agg[2], agg[3]),
+        key_srcs=key_srcs,
+        gcnt_states=gcnt_states,
+        limb_srcs=limb_srcs,
+        csum_states=csum_states,
+        mmf=mmf,
+        mmi=mmi,
+        fsums=fsums,
+        pass_fields=pass_fields,
+        pass_width=pass_pos,
+        descrs_f=descrs_f,
+        descrs_i=descrs_i,
+        af_cols=af_cols,
+        ai_cols=ai_cols,
+        checked_cols=sorted(checked),
+        f32_after_filter=f32_after_filter,
+    )
+
+
+class FusedChainPlan:
+    """Runtime for a compiled device-resident pipeline (see
+    :func:`plan_fused_chain`).  ``run`` streams one morsel through the
+    filter/project chain; ``fold`` additionally produces the per-morsel
+    partial ``GroupState`` — byte-identical to the reference per-op fold.
+    ``stage`` pre-uploads a morsel's kernel inputs (double buffering: the
+    H2D transfer of morsel *i+1* overlaps the compute of morsel *i*);
+    staged buffers are torn down by ``clear_staged`` on pipeline exit or
+    cancel.  Per-morsel envelope violations return ``FUSED_INELIGIBLE``."""
+
+    def __init__(
+        self,
+        backend,
+        *,
+        filt,
+        out_schema,
+        out_decode,
+        agg,
+        key_srcs,
+        gcnt_states,
+        limb_srcs,
+        csum_states,
+        mmf,
+        mmi,
+        fsums,
+        pass_fields,
+        pass_width,
+        descrs_f,
+        descrs_i,
+        af_cols,
+        ai_cols,
+        checked_cols,
+        f32_after_filter=False,
+    ):
+        self._bk = backend
+        self._tile = backend.tile
+        if filt is None:
+            self._op, self._kind, self._t_hi, self._t_lo, self._pred_src = "gt", "none", 0, 0, None
+        else:
+            self._op, self._kind, self._t_hi, self._t_lo, self._pred_src = filt
+        self._out_schema = out_schema
+        self._out_decode = out_decode
+        if agg is None:
+            self._agg_keys = self._aggs = self._mode = self._agg_schema = None
+        else:
+            self._agg_keys, self._aggs, self._mode, self._agg_schema = agg
+        self._key_srcs = key_srcs
+        self._gcnt_states = gcnt_states
+        self._limb_srcs = limb_srcs
+        self._csum_states = csum_states
+        self._mmf = mmf
+        self._mmi = mmi
+        self._fsums = fsums
+        self._pass_fields = pass_fields
+        self._dp = max(1, pass_width)
+        self._limb_base = max(1, _SUM_LIMBS * len(limb_srcs))
+        self._descrs_f = descrs_f
+        self._descrs_i = descrs_i
+        self._nf = len(descrs_f)
+        self._csums = tuple(idx for _state, idx in csum_states)
+        self._fns_f = tuple(fn for _s, fn, _c in mmf) or ("min",)
+        self._fns_i = tuple(fn for _s, fn, _c in mmi) or ("min",)
+        self._af_cols = af_cols
+        self._ai_cols = ai_cols
+        self._with_gidx = bool(fsums)
+        self._gidx_off = self._dp + len(descrs_f) + len(descrs_i)
+        self._checked_cols = checked_cols
+        self._f32_after_filter = f32_after_filter
+        self._sizer = None
+        self._dev_idx = None
+        self._dev = None
+        self._side = None  # the plan's staging stream on a CUDA device
+        self._dev_lock = threading.Lock()
+        self._staged: dict = {}
+        self._stage_lock = threading.Lock()
+        self._stage_closed = False
+
+    # -- executor wiring ----------------------------------------------------
+    def bind(self, sizer, device_index=None) -> None:
+        """Attach the pipeline's stat sink and (optional) CUDA device pin."""
+        self._sizer = sizer
+        self._dev_idx = device_index
+
+    def _bump(self, counter: str, k: int = 1) -> None:
+        if self._sizer is not None:
+            self._sizer.bump(counter, k)
+
+    def _device(self) -> torch.device:
+        """The plan's device: the backend's, or ``cuda:<index>`` when the
+        executor pinned an index.  An index this host lacks raises."""
+        with self._dev_lock:
+            if self._dev is None:
+                if self._dev_idx is None:
+                    self._dev = self._bk.device
+                else:
+                    count = torch.cuda.device_count()
+                    if not 0 <= self._dev_idx < count:
+                        raise RuntimeError(
+                            f"CUDA device index {self._dev_idx} was asked for (ExecutorConfig.devices / "
+                            f"DACP_DEVICES), but this host has {count} CUDA device(s)"
+                        )
+                    self._dev = torch.device("cuda", self._dev_idx)
+            return self._dev
+
+    def _side_stream(self, dev: torch.device):
+        with self._dev_lock:
+            if self._side is None:
+                self._side = torch.cuda.Stream(device=dev)
+            return self._side
+
+    # -- per-morsel envelope ------------------------------------------------
+    def _pad(self, n: int) -> int:
+        return -(-n // self._tile) * self._tile
+
+    def _morsel_ok(self, batch: RecordBatch) -> bool:
+        n = batch.num_rows
+        if n == 0 or n > kernel_ops.SUM_ROW_CAP:
+            return False
+        for name in self._checked_cols:
+            if batch.column(name).validity is not None:
+                return False
+        return True
+
+    def _short_nan_arith(self, batch: RecordBatch) -> bool:
+        """Whether numpy would run float32 arithmetic on NaN inputs over at
+        most ``_NUMPY_SHORT_LOOP`` rows — the morsel's, or the survivors'
+        when a float32 tree follows the filter — where its choice between
+        two NaN operands differs from the kernel's.  Without a NaN input
+        every NaN operand carries the same default bits, so the choice
+        cannot show."""
+        if not self._nf or not any(np.isnan(batch.column(s).values).any() for s in self._af_cols):
+            return False
+        rows = batch.num_rows
+        if self._f32_after_filter and self._kind != "none":
+            planes = _col_planes(batch.column(self._pred_src).values, batch.schema.field(self._pred_src).dtype.name)
+            pred = torch.from_numpy(np.ascontiguousarray(np.stack(planes, axis=1)))
+            rows = int(_pred_mask(pred, self._t_hi, self._t_lo, self._op, self._kind).sum())
+        return rows <= _NUMPY_SHORT_LOOP
+
+    # -- double-buffered uploads ---------------------------------------------
+    def stage(self, batch: RecordBatch) -> None:
+        """Begin the upload of ``batch``'s kernel inputs.  On a CUDA device
+        they are encoded into pinned host tensors and copied with
+        ``non_blocking`` on the plan's side stream, so the copy overlaps the
+        previous morsel's kernel; an event marks its end.  On the CPU the
+        encoded tensors are kept as they are.  run/fold pops the staged
+        inputs by batch identity."""
+        if self._stage_closed or not self._morsel_ok(batch):
+            return
+        dev = self._device()
+        event = None
+        if dev.type == "cuda":
+            host = self._encode(batch, pin=True)
+            side = self._side_stream(dev)
+            with torch.cuda.stream(side):
+                put = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+                event = torch.cuda.Event()
+                event.record(side)
+        else:
+            put = self._encode(batch)
+        with self._stage_lock:
+            if self._stage_closed:  # raced a CANCEL teardown: drop, don't leak
+                return
+            self._staged[id(batch)] = (batch.num_rows, put, event)
+
+    def _take_staged(self, batch: RecordBatch):
+        with self._stage_lock:
+            entry = self._staged.pop(id(batch), None)
+        if entry is None or entry[0] != batch.num_rows:
+            return None
+        return entry[1], entry[2]
+
+    def clear_staged(self) -> None:
+        """Drop every in-flight staged buffer and refuse new ones (pipeline
+        exit / CANCEL): a worker racing the teardown inside the source lock
+        must not re-stage after the sweep."""
+        with self._stage_lock:
+            self._stage_closed = True
+            self._staged.clear()
+
+    @property
+    def staged_count(self) -> int:
+        with self._stage_lock:
+            return len(self._staged)
+
+    def _inputs(self, batch: RecordBatch, staged, dev: torch.device) -> dict:
+        """The morsel's kernel inputs on ``dev``: the staged ones, once the
+        launch stream has waited for their copy, or a fresh encode."""
+        if staged is None:
+            arrs = self._encode(batch)
+            return arrs if dev.type == "cpu" else {k: v.to(dev) for k, v in arrs.items()}
+        arrs, event = staged
+        if event is not None:
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_event(event)
+            for t in arrs.values():
+                t.record_stream(cur)  # the allocator must not reuse them before the launch ends
+        return arrs
+
+    # -- host-side encode / decode -------------------------------------------
+    def _encode(self, batch: RecordBatch, pin: bool = False) -> dict:
+        n = batch.num_rows
+        n_pad = self._pad(n)
+        sch = batch.schema
+        views: dict = {}
+
+        def table(name, width, np_dt):
+            t = torch.zeros((n_pad, max(1, width)), dtype=_TORCH_DT[np.dtype(np_dt)], pin_memory=pin)
+            views[name] = t
+            return t.numpy()
+
+        if self._kind == "none":
+            table("pred", 1, np.int32)
+        else:
+            planes = _col_planes(batch.column(self._pred_src).values, sch.field(self._pred_src).dtype.name)
+            pred = table("pred", len(planes), np.int32)
+            for j, p in enumerate(planes):
+                pred[:n, j] = p
+        pass_tbl = table("pass", self._dp, np.int32)
+        for s, dtype, start, _k in self._pass_fields:
+            for j, p in enumerate(_col_planes(batch.column(s).values, dtype.name)):
+                pass_tbl[:n, start + j] = p
+        limb = table("limb", self._limb_base, np.int32)
+        for i, (_state, s) in enumerate(self._limb_srcs):
+            for k, plane in enumerate(_sum_limbs(np.asarray(batch.column(s).values))):
+                limb[:n, _SUM_LIMBS * i + k] = plane
+        mmf = table("mmf", len(self._mmf), np.float32)
+        for j, (_state, _fn, s) in enumerate(self._mmf):
+            mmf[:n, j] = batch.column(s).values
+        mmi = table("mmi", len(self._mmi), np.int32)
+        for j, (_state, _fn, s) in enumerate(self._mmi):
+            mmi[:n, j] = np.asarray(batch.column(s).values).astype(np.int32)
+        af = table("af", len(self._af_cols), np.float32)
+        for j, s in enumerate(self._af_cols):
+            af[:n, j] = batch.column(s).values
+        ai = table("ai", len(self._ai_cols), np.int32)
+        for j, s in enumerate(self._ai_cols):
+            ai[:n, j] = batch.column(s).values
+        return views
+
+    def _compact(self, ctab: np.ndarray, counts: np.ndarray) -> np.ndarray:
+        t = self._tile
+        parts = [ctab[i * t : i * t + int(c)] for i, c in enumerate(counts) if c]
+        return np.concatenate(parts) if parts else ctab[:0]
+
+    def _decode_ref(self, compact: np.ndarray, ref):
+        tag = ref[0]
+        if tag == "pass":
+            _t, start, k, dtype = ref
+            return _planes_to_values(compact[:, start : start + k], dtype)
+        off = self._dp + ref[1] if tag == "f32" else self._dp + self._nf + ref[1]
+        col = np.ascontiguousarray(compact[:, off])
+        return col.view(np.float32) if tag == "f32" else col
+
+    def _launch(self, arrs: dict, gidx: torch.Tensor, n: int, segmented: bool, ngroups: int):
+        scalars = np.asarray([n, self._t_hi, self._t_lo, 0], np.int32)
+        return kernel_ops.fused_chain_tiles(
+            scalars,
+            arrs["pred"],
+            gidx,
+            arrs["pass"],
+            arrs["limb"],
+            arrs["mmf"],
+            arrs["mmi"],
+            arrs["af"],
+            arrs["ai"],
+            op=self._op,
+            kind=self._kind,
+            descrs_f=self._descrs_f,
+            descrs_i=self._descrs_i,
+            csums=self._csums,
+            fns_f=self._fns_f,
+            fns_i=self._fns_i,
+            with_gidx=self._with_gidx,
+            segmented=segmented,
+            ngroups=ngroups,
+            tile=self._tile,
+        )
+
+    # -- streaming chain ------------------------------------------------------
+    def run(self, batch: RecordBatch):
+        """filter → project → select in one launch.  Returns the output
+        morsel, None (fully filtered), or ``FUSED_INELIGIBLE``."""
+        staged = self._take_staged(batch)
+        if not self._morsel_ok(batch) or self._short_nan_arith(batch):
+            return FUSED_INELIGIBLE
+        dev = self._device()
+        arrs = self._inputs(batch, staged, dev)
+        gidx = torch.zeros(self._pad(batch.num_rows), dtype=torch.int32, device=dev)
+        out = self._launch(arrs, gidx, batch.num_rows, segmented=False, ngroups=8)
+        counts = out[1].cpu().numpy()
+        self._bump("fused_launches")
+        if staged is not None:
+            self._bump("transfers_overlapped")
+        if int(counts.sum()) == 0:
+            return None
+        compact = self._compact(out[0].cpu().numpy(), counts)
+        cols = []
+        for f, ref in self._out_decode:
+            vals = self._decode_ref(compact, ref)
+            cols.append(Column(f.dtype, values=vals) if ref[0] == "pass" else Column.from_values(f.dtype, vals))
+        return RecordBatch(self._out_schema, cols)
+
+    # -- aggregate fold --------------------------------------------------------
+    def fold(self, batch: RecordBatch):
+        """Per-morsel partial aggregate in one launch.  Returns a
+        ``GroupState`` byte-identical to the reference per-op fold over the
+        filtered morsel, None (no surviving rows), or ``FUSED_INELIGIBLE``.
+        Group ids come from factorizing the PRE-filter morsel; the kernel's
+        per-group minimum surviving row index reorders the survivors into
+        first-seen-filtered order, matching the reference interning."""
+        staged = self._take_staged(batch)
+        if not self._morsel_ok(batch) or self._short_nan_arith(batch):
+            return FUSED_INELIGIBLE
+        for _state, fn, s in self._mmf:
+            # the reference refuses non-finite float32 min/max inputs; the
+            # port also refuses -0.0, as its per-op path does
+            if _mm_eligible(batch.column(s).values, fn) is None:
+                return FUSED_INELIGIBLE
+        from repro_torch.core.operators import GroupState
+        from repro_torch.core.schema import Field, Schema
+
+        keys = [k for k, _s in self._key_srcs]
+        if all(k == s for k, s in self._key_srcs):
+            kb = batch
+        else:
+            fields = [Field(k, batch.schema.field(s).dtype) for k, s in self._key_srcs]
+            kb = RecordBatch(Schema(fields), [batch.column(s) for _k, s in self._key_srcs])
+        tmp = GroupState(keys, {}, self._mode, kb.schema, vectorized=True)
+        gidx_full = tmp._factorize(kb)
+        ng = len(tmp.gids)
+        if ng == 0 or ng > _SEG_GROUP_CAP:
+            return FUSED_INELIGIBLE
+        g_pad = max(8, -(-ng // 8) * 8)
+        dev = self._device()
+        arrs = self._inputs(batch, staged, dev)
+        n = batch.num_rows
+        g32 = np.zeros(self._pad(n), np.int32)
+        g32[:n] = gidx_full
+        out = self._launch(arrs, torch.from_numpy(g32).to(dev), n, segmented=True, ngroups=g_pad)
+        ctab, counts = out[0], out[1]
+        gsum, gcnt, gmmf, gmmi, gfirst = (t.cpu().numpy() for t in out[2:])
+        self._bump("fused_launches")
+        if staged is not None:
+            self._bump("transfers_overlapped")
+        gcnt_v = gcnt[:ng]
+        alive = np.flatnonzero(gcnt_v > 0)
+        if alive.size == 0:
+            return None
+        perm = alive[np.argsort(gfirst[:ng][alive], kind="stable")]
+        st = GroupState(
+            self._agg_keys, self._aggs, self._mode, self._agg_schema, vectorized=True, backend=self._bk
+        )
+        st.key_rows = [tmp.key_rows[g] for g in perm]
+        st.gids = {kt: i for i, kt in enumerate(st.key_rows)}
+        acc: dict = {}
+        for state in self._gcnt_states:
+            acc[state] = gcnt_v[perm].astype(np.int64)
+        for i, (state, _s) in enumerate(self._limb_srcs):
+            acc[state] = _limbs_to_int64(gsum[:, _SUM_LIMBS * i : _SUM_LIMBS * (i + 1)][perm])
+        base = self._limb_base
+        for j, (state, _idx) in enumerate(self._csum_states):
+            s4 = gsum[perm, base + 4 * j : base + 4 * (j + 1)].astype(np.int64)
+            acc[state] = s4[:, 0] + (s4[:, 1] << 8) + (s4[:, 2] << 16) + (s4[:, 3] << 24)
+        for j, (state, _fn, _s) in enumerate(self._mmf):
+            acc[state] = gmmf[perm, j].astype(np.float64)
+        for j, (state, _fn, _s) in enumerate(self._mmi):
+            acc[state] = gmmi[perm, j].astype(np.int64)
+        if self._fsums:
+            compact = self._compact(ctab.cpu().numpy(), counts.cpu().numpy())
+            g_sel = compact[:, self._gidx_off]
+            for state, ref in self._fsums:
+                vals = np.asarray(self._decode_ref(compact, ref), np.float64)
+                accf = np.zeros(ng, np.float64)
+                np.add.at(accf, g_sel, vals)
+                acc[state] = accf[perm]
+        for name, (_init, dt) in st._state_specs().items():
+            st.acc[name] = np.ascontiguousarray(np.asarray(acc[name], dt))
+        return st
 
 # ---------------------------------------------------------------------------
 # backend selection

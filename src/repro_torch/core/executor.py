@@ -162,8 +162,8 @@ class ExecutorConfig:
                   round-robin their device-resident launches/staged uploads
                   across (None = ``device``; env ``DACP_DEVICES`` as a
                   comma-separated list, validated with warn + fallback).
-                  Unused until the fused chain plan is ported: the torch
-                  backend's ``plan_fused_chain`` returns None.
+                  Each fused plan stages its morsels to and launches on
+                  ``cuda:<index>``; an index the host lacks raises.
     """
 
     num_workers: int = field(default_factory=default_workers)

@@ -1,7 +1,8 @@
 """Runtime lock-order recorder (``DACP_LOCKCHECK=1``).
 
 Patches ``threading.Lock``/``RLock``/``Condition`` so every lock *created
-by repro code* is tracked: each thread keeps a stack of held locks, and
+by repro_torch code* (a frame whose file lies under ``/repro_torch/``) is
+tracked: each thread keeps a stack of held locks, and
 acquiring B while A is held records the edge ``A -> B`` under the same
 canonical node names the static analyzer uses (``ClassName.attr`` for
 ``self.X = threading.Lock()`` sites, ``stem.func.var`` for function
@@ -14,7 +15,7 @@ accumulates).  CI feeds the dump to
 ``python -m tools.dacpcheck --runtime-graph`` which unions it with the
 static graph before cycle detection.
 
-Locks created outside repro frames (stdlib ``queue.Queue`` internals,
+Locks created outside repro_torch frames (stdlib ``queue.Queue`` internals,
 pytest, logging) pass through untracked, so overhead lands only on the
 locks we care about.
 """
@@ -93,7 +94,7 @@ def _name_from_frame(frame, kind: str) -> str:
 
 def _repro_frame(frame) -> bool:
     fn = frame.f_code.co_filename.replace("\\", "/")
-    return "/repro/" in fn and "/tools/" not in fn
+    return "/repro_torch/" in fn and "/tools/" not in fn
 
 
 class _TrackedLock:

@@ -3,6 +3,8 @@
     filter_select     — fused Filter+Select over int32 bit-planes
     project_arith     — projection arithmetic as a postfix program per row
     segment_reduce    — per-group limb sums, counts and min/max
+    fused_pipeline    — filter → project → compaction → segment fold in
+                        one launch per morsel
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
@@ -12,6 +14,7 @@ tensors on the CPU.
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (
     filter_select_planes,
+    fused_chain_tiles,
     project_tiles,
     segment_minmax_tiles,
     segment_sum_tiles,
@@ -23,4 +26,5 @@ __all__ = [
     "project_tiles",
     "segment_sum_tiles",
     "segment_minmax_tiles",
+    "fused_chain_tiles",
 ]

@@ -27,8 +27,8 @@ from pathlib import Path
 __all__ = ["NVCC_FLAGS", "SOURCES", "LaunchCounter", "build", "check", "check_tensor", "library", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("filter_select.cu", "project_arith.cu", "segment_reduce.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("filter_select.cu", "project_arith.cu", "segment_reduce.cu", "fused_chain.cu")
+HEADERS = ("common.cuh", "dataplane.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -54,6 +54,13 @@ _SIGNATURES = {
     "dacp_project_tiles": (_P, _I, _L, _I, _P, _I, _P, _I, _P, _I, _P),
     "dacp_segment_sum": (_P, _P, _I, _I, _I, _P, _P, _P),
     "dacp_segment_minmax": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "dacp_fused_chain": (
+        (_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I)  # tables and widths
+        + (_L, _I, _I, _I, _I, _I, _I)  # N, tile, n_rows, t_hi, t_lo, op, kind
+        + (_P, _I, _P, _I, _I) * 2  # f32 and i32 programs
+        + (_P, _I, _P, _P, _I, _I, _I, _I)  # csums, fns, with_gidx, segmented, G, tiles per block
+        + (_P,) * 8  # seven outputs and the stream
+    ),
 }
 
 _lock = threading.Lock()

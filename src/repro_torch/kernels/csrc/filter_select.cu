@@ -20,37 +20,12 @@
 // TPU kernel compacts with a one-hot (tile × tile) integer matmul on the
 // MXU; here a stable block prefix sum gives each survivor its slot:
 // __ballot_sync + __popc within each warp, then the warp totals through
-// shared memory.  `op` and `kind` are template parameters (18 instances,
+// shared memory (dacp_block_slot in dataplane.cuh, shared with
+// fused_chain.cu).  `op` and `kind` are template parameters (18 instances,
 // built once) and the thresholds are kernel arguments, so a new literal
 // never rebuilds anything.  CUDA float compares have IEEE NaN and ±0
 // semantics, like the bitcast compare of the TPU kernel.
-#include "common.cuh"
-
-enum { OP_LT = 0, OP_LE = 1, OP_GT = 2, OP_GE = 3, OP_EQ = 4, OP_NE = 5 };
-enum { KIND_F32 = 0, KIND_I32 = 1, KIND_I64 = 2 };
-
-template <int OP, typename T>
-__device__ __forceinline__ bool cmp(T a, T b) {
-  if (OP == OP_LT) return a < b;
-  if (OP == OP_LE) return a <= b;
-  if (OP == OP_GT) return a > b;
-  if (OP == OP_GE) return a >= b;
-  if (OP == OP_EQ) return a == b;
-  return a != b;
-}
-
-// int64 compare on two int32 words; lo / t_lo carry the low word with its
-// sign bit flipped, so a signed compare is the unsigned low-word compare.
-template <int OP>
-__device__ __forceinline__ bool cmp64(int32_t hi, int32_t lo, int32_t t_hi, int32_t t_lo) {
-  if (OP == OP_EQ) return hi == t_hi && lo == t_lo;
-  if (OP == OP_NE) return hi != t_hi || lo != t_lo;
-  const bool lt = hi < t_hi || (hi == t_hi && lo < t_lo);
-  if (OP == OP_LT) return lt;
-  if (OP == OP_GE) return !lt;
-  const bool gt = hi > t_hi || (hi == t_hi && lo > t_lo);
-  return OP == OP_GT ? gt : !gt;
-}
+#include "dataplane.cuh"
 
 template <int OP, int KIND>
 __global__ void filter_select_kernel(const int32_t* __restrict__ pred, int P, const int32_t* __restrict__ table,
@@ -62,35 +37,13 @@ __global__ void filter_select_kernel(const int32_t* __restrict__ pred, int P, co
   const int64_t base = (int64_t)blockIdx.x * tile;
   const int64_t row = base + t;
 
-  bool m = false;
-  if (row < n_rows) {
-    const int32_t* p = pred + row * P;
-    if (KIND == KIND_F32) {
-      m = cmp<OP, float>(__int_as_float(p[0]), __int_as_float(t_hi));
-    } else if (KIND == KIND_I32) {
-      m = cmp<OP, int32_t>(p[0], t_hi);
-    } else {
-      m = cmp64<OP>(p[0], p[1] ^ INT32_MIN, t_hi, t_lo);
-    }
-  }
-
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, m);
-  const int before = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_total[warp] = __popc(ballot);
-  __syncthreads();
-  int offset = 0;
-  int total = 0;
-  for (int w = 0; w < (tile >> 5); ++w) {
-    const int c = warp_total[w];
-    offset += (w < warp) ? c : 0;
-    total += c;
-  }
+  const bool m = row < n_rows && dacp_pred<OP, KIND>(pred + row * P, t_hi, t_lo);
+  int total;
+  const int slot = dacp_block_slot(m, warp_total, &total);
 
   if (m) {
     const int32_t* src = table + row * D;
-    int32_t* dst = out + (base + offset + before) * D;
+    int32_t* dst = out + (base + slot) * D;
     for (int d = 0; d < D; ++d) dst[d] = src[d];
   }
   if (t >= total) {

@@ -6,13 +6,14 @@ device it launches the hand-written kernel (built from ``csrc/`` at first
 use) or raises; on the CPU it runs the kernel's plain PyTorch version.
 ``LAUNCHES`` maps each wrapper to its thread-safe launch counter.
 
-``fused_chain_tiles`` and the model-zoo kernels are not ported yet.
+The model-zoo kernels are not ported yet.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels import filter_select, project_arith, segment_reduce
+from repro_torch.kernels import filter_select, fused_pipeline, project_arith, segment_reduce
 from repro_torch.kernels.filter_select import filter_select_planes
+from repro_torch.kernels.fused_pipeline import fused_chain_tiles
 from repro_torch.kernels.project_arith import project_tiles
 from repro_torch.kernels.segment_reduce import SUM_ROW_CAP, segment_minmax_tiles, segment_sum_tiles
 
@@ -21,6 +22,7 @@ __all__ = [
     "project_tiles",
     "segment_sum_tiles",
     "segment_minmax_tiles",
+    "fused_chain_tiles",
     "SUM_ROW_CAP",
     "LAUNCHES",
 ]
@@ -30,4 +32,5 @@ LAUNCHES = {
     "project_tiles": project_arith.launches,
     "segment_sum_tiles": segment_reduce.sum_launches,
     "segment_minmax_tiles": segment_reduce.minmax_launches,
+    "fused_chain_tiles": fused_pipeline.launches,
 }

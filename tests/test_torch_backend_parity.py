@@ -284,6 +284,20 @@ def test_project_denormals_and_nan_payloads_parity():
     _assert_byte_identical(got, want)
 
 
+@pytest.mark.parametrize("rows,dispatch", [(10, False), (16, False), (17, True), (300, True)])
+def test_project_both_nan_operands_match_numpy_at_any_length(rows, dispatch):
+    """numpy returns the first of two NaN operands on arrays of ≤ 16
+    elements and the second (add, mul) on longer ones; the kernel applies
+    the long rule, so float32 projections of ≤ 16 rows stay on numpy."""
+    a = np.full(rows, np.array([0x7FA00001], np.uint32).view(np.float32)[0])
+    b = np.full(rows, np.array([0xFFB00002], np.uint32).view(np.float32)[0])
+    with np.errstate(invalid="ignore"):
+        got, want = _op_parity(
+            {"a": a, "b": b}, _project_call(lambda c: {"s": c("a") + c("b"), "p": c("a") * c("b")}), dispatch
+        )
+    _assert_byte_identical(got, want)
+
+
 def test_project_int32_wraps_like_numpy():
     a = np.asarray([2**31 - 1, -(2**31), 65536, -7] * 70, np.int32)
     got, want = _op_parity(

@@ -1,7 +1,8 @@
 """The port's framework-neutral modules are copies of the reference's with
 only the import prefix rewritten (``repro.`` → ``repro_torch.``).  The
-ported modules — the compute backend, the executor's device binding and
-the env help text — are the only exemptions, so every other difference
+ported modules — the compute backend, the executor's device binding, the
+env help text and the lock recorder's frame filter — are the only
+exemptions, so every other difference
 from the reference shows up here."""
 
 import re
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-PORTED = {"core/backend.py", "core/executor.py", "core/env.py"}
+PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py"}
 COPIED = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for p in (SRC / "repro_torch").rglob("*.py")

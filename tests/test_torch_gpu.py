@@ -167,3 +167,145 @@ def test_backend_on_cuda_matches_reference_numpy(dev):
     assert bk.kernel_calls > before
     want = run(rb, rd, rx, rs, repro_executor, backend="numpy")
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the fused chain kernel and its staged plan
+# ---------------------------------------------------------------------------
+def _smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("label", ["main", "wide", "stream-i64", "specials"])
+def test_fused_chain_kernel(dev, label):
+    """The four configurations ``chip_smoke.py`` checks: the fused aggregate
+    COOK's morsel, the widest envelope, a streaming int64-predicate chain
+    and special values in every table."""
+    from repro_torch.kernels import fused_pipeline
+
+    cases = {lb: (arrays, static) for lb, arrays, static in _smoke()._fused_cases(np.random.default_rng(5))}
+    arrays, static = cases[label]
+    t_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[1:]]
+    got = fused_pipeline.fused_chain_tiles(arrays[0], *(t.to(dev) for t in t_cpu), **static, tile=TILE)
+    want = fused_pipeline.fused_chain_tiles_plain(arrays[0], *t_cpu, **static, tile=TILE)
+    assert fused_pipeline.launches.value > 0
+    for g, w in zip(got, want):
+        assert _bits(g) == _bits(w)
+
+
+def _fused_plans(n=65536):
+    """A streaming and an aggregate fused plan on the cuda backend over one
+    morsel of station observations."""
+    from repro_torch.core.backend import get_backend, plan_fused_chain
+    from repro_torch.core.batch import RecordBatch
+    from repro_torch.core.expr import col
+    from repro_torch.core.operators import project_schema
+
+    rng = np.random.default_rng(12)
+    batch = RecordBatch.from_pydict({
+        "station": rng.integers(0, 200, n).astype(np.int32),
+        "temp": _f32(rng, n),
+        "pressure": (rng.standard_normal(n) * 9 + 1013).astype(np.float32),
+        "ts": rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+        "qc": rng.integers(0, 4, n).astype(np.uint8),
+    })
+    bk = get_backend("torch", device="cuda")
+    exprs = {"tk": col("temp") + 273.15, "s3": col("station") * 3 + 1}
+    proj = ("project", (exprs, project_schema(batch.schema, exprs, True)))
+    sch = project_schema(batch.schema, exprs, True)
+    stream = plan_fused_chain([proj, ("filter", (col("temp") > 0.0,))], batch.schema, backend=bk)
+    aggs = {"n": {"fn": "count"}, "sq": {"fn": "sum", "column": "qc"}, "s3s": {"fn": "sum", "column": "s3"},
+            "lo": {"fn": "min", "column": "pressure"}, "hi": {"fn": "max", "column": "qc"},
+            "m": {"fn": "mean", "column": "tk"}}
+    agg = plan_fused_chain([proj, ("filter", (col("pressure") > 1013.0,))], batch.schema,
+                           agg=(["station"], aggs, "full", sch), backend=bk)
+    assert stream is not None and agg is not None
+    return batch, stream, agg
+
+
+def _state_bytes(st):
+    return [tuple(st.key_rows)] + [st.acc[k].tobytes() for k in sorted(st.acc)]
+
+
+def test_fused_staged_run_matches_unstaged(dev):
+    """A morsel staged through pinned memory and the side stream gives the
+    same bytes as the same morsel uploaded at launch time."""
+    batch, stream, agg = _fused_plans()
+    plain = stream.run(batch)
+    stream.stage(batch)
+    assert stream.staged_count == 1
+    staged = stream.run(batch)
+    assert stream.staged_count == 0
+    assert [c.values.tobytes() for c in staged.columns] == [c.values.tobytes() for c in plain.columns]
+    st_plain = agg.fold(batch)
+    agg.stage(batch)
+    st_staged = agg.fold(batch)
+    assert _state_bytes(st_staged) == _state_bytes(st_plain)
+
+
+def test_fused_launch_with_a_bad_argument_raises(dev, monkeypatch):
+    """A launch the C entry point refuses raises: the plan does not turn it
+    into FUSED_INELIGIBLE."""
+    from repro_torch.kernels import fused_pipeline
+
+    batch, _stream, agg = _fused_plans(4096)
+    monkeypatch.setattr(fused_pipeline, "TILES_PER_BLOCK", 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        agg.fold(batch)
+
+
+def test_fused_plans_round_robin_over_devices(dev, monkeypatch):
+    """``ExecutorConfig.devices`` binds each fused plan to a CUDA index in
+    turn; plans on every card give the bytes of the numpy backend."""
+    import repro_torch.core.backend as port_backend
+    import repro_torch.core.batch as pb
+    import repro_torch.core.dag as pd
+    import repro_torch.core.executor as pe
+    import repro_torch.core.expr as px
+    import repro_torch.core.sdf as ps
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA cards")
+    bound = []
+    orig_bind = port_backend.FusedChainPlan.bind
+
+    def spy_bind(self, sizer, device_index=None):
+        bound.append(device_index)
+        return orig_bind(self, sizer, device_index)
+
+    monkeypatch.setattr(port_backend.FusedChainPlan, "bind", spy_bind)
+    rng = np.random.default_rng(21)
+    n = 40000
+    batch = pb.RecordBatch.from_pydict({"x": _f32(rng, n), "k": rng.integers(0, 50, n).astype(np.int32),
+                                        "v": rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)})
+    col = px.col
+    bld = pd.Dag.build()
+    s = bld.source("dacp://h:1/d")
+    f = bld.add("filter", {"predicate": col("x") > 0.25}, [s])
+    p = bld.add("project", {"exprs": {"y": col("x") * 0.5}, "keep": True}, [f])
+    dag = bld.finish(bld.add("aggregate", {"keys": ["k"], "aggs": {"n": {"fn": "count"}, "s": {"fn": "sum", "column": "v"},
+                                                                   "m": {"fn": "mean", "column": "y"}}}, [p]))
+
+    def run(**cfg):
+        def gen():
+            for st in range(0, n, 4096):
+                yield batch.slice(st, st + 4096)
+
+        stats = pe.ExecutorStats()
+        config = pe.ExecutorConfig(num_workers=2, morsel_rows=4096, **cfg)
+        res = pe.execute_parallel(dag, lambda node: ps.StreamingDataFrame(batch.schema, gen), config, stats=stats)
+        res = res.collect()
+        return [c.values.tobytes() for c in res.columns], stats.progress()["fused_launches"]
+
+    want, _ = run(backend="numpy")
+    for _ in range(count):
+        got, fused = run(backend="torch", device="cuda", devices=tuple(range(count)))
+        assert got == want and fused > 0
+    assert set(bound) == set(range(count))
