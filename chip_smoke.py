@@ -20,7 +20,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      special values) and timed beside the four per-op kernels doing the
      same morsel's work; times the pageable and the pinned H2D copy of one
      morsel and its D2H copy, and one fused morsel's encode, staging and
-     fold on the host clock;
+     fold on the host clock.  The two attention kernels are held to their
+     plain versions within tests/test_kernels.py's tolerances (float32
+     3e-5, bfloat16 2e-2) at the serving shapes of phase 4, at ragged
+     shapes, in float32 and at head dims 32 and 256, and timed beside their
+     plain versions and ``F.scaled_dot_product_attention``;
   3. end to end — writes a seeded 2^24-row station-observations table
      (16 columnar parts), serves it from two port ``FairdServer``s over TCP
      loopback (torch backend on cuda, numpy backend), runs PING, LIST,
@@ -29,7 +33,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      numpy server's, checks that each of the five kernels launched during
      the torch server's run, that the fused COOKs went through the fused
      kernel with staged (overlapped) uploads, and profiles one aggregate
-     COOK of each path.
+     COOK of each path;
+  4. serving — granite-3-8b at full width (40 layers, d_model 4096, GQA
+     32/8, head_dim 128, bfloat16, random weights drawn on the card from a
+     seeded ``torch.Generator``): a port ``FairdServer`` over TCP tokenizes
+     a seeded prompt corpus in place (``training_dag``), the model prefills
+     4 prompts of 1024 byte tokens through ``flash_attention`` and greedily
+     decodes 32 tokens through ``decode_attention`` (exactly 40 and 40 × 32
+     launches), then holds the kernel path's prefill logits and 4
+     teacher-forced decode steps against the plain path's on the same
+     weights and tokens, and profiles a prefill and a decode step.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -57,6 +70,7 @@ E2E_ROWS = 1 << 24
 E2E_PARTS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 tensor cores
 WARMUP = 5
 REPS = 50
 SEED = 20261016
@@ -151,13 +165,16 @@ def _same(a, b) -> tuple:
     return False, float(np.nanmax(diff)) if np.isfinite(diff).any() else float("inf")
 
 
-_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_")
+_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_", "flash_attn",
+                "decode_attn")
 
 
-def _device_times(fn) -> tuple:
+def _device_times(fn, host: dict | None = None) -> tuple:
     """Run ``fn`` once under ``torch.profiler``; returns ({event name:
     device microseconds}, wall seconds) over the CUDA-side events (kernels,
-    memcpys, memsets) it traced."""
+    memcpys, memsets) it traced.  With ``host``, also fills it with {event
+    name: self host microseconds} of the host-side events (operators and
+    CUDA runtime calls)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -171,6 +188,8 @@ def _device_times(fn) -> tuple:
     out: dict = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
+            if host is not None:
+                host[e.key] = host.get(e.key, 0.0) + float(e.self_cpu_time_total)
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -213,7 +232,9 @@ class KernelRecord:
         self.name = name
         self.source = source
         self.replaces = replaces
-        self.exact = True
+        self.exact = True  # bit-identical to the plain version in every check
+        self.agrees = True  # within the tolerance in every check
+        self.tolerance = "exact"
         self.max_abs_err = 0.0
         self.checks = 0
         self.ms = self.call_ms = self.plain_ms = self.bound_ms = self.library_ms = None
@@ -236,8 +257,25 @@ class KernelRecord:
             self.checks += 1
             self.max_abs_err = max(self.max_abs_err, err)
             if not same:
-                self.exact = False
+                self.exact = self.agrees = False
                 log(f"MISMATCH {self.name}: {what}")
+
+    def compare_close(self, got, want, rtol: float, atol: float, what: str) -> None:
+        """Hold ``got`` to ``want`` within |got - want| <= atol + rtol |want|
+        (numpy's allclose), elementwise in float32."""
+        g = got.detach().float().cpu().numpy()
+        w = want.detach().float().cpu().numpy()
+        self.checks += 1
+        if g.shape != w.shape or not np.isfinite(g).all():
+            self.exact = self.agrees = False
+            log(f"MISMATCH {self.name}: {what}: shape {g.shape} vs {w.shape} or non-finite output")
+            return
+        err = np.abs(g - w)
+        self.max_abs_err = max(self.max_abs_err, float(err.max()))
+        self.exact = self.exact and g.tobytes() == w.tobytes()
+        if not (err <= atol + rtol * np.abs(w)).all():
+            self.agrees = False
+            log(f"MISMATCH {self.name}: {what}: max |err| {float(err.max())} beyond atol {atol} + rtol {rtol}")
 
     def as_json(self, launches: int) -> dict:
         return {
@@ -247,6 +285,8 @@ class KernelRecord:
             "replaces": self.replaces,
             "launches": launches,
             "exact": self.exact,
+            "agrees": self.agrees,
+            "tolerance": self.tolerance,
             "checks": self.checks,
             "max_abs_err": self.max_abs_err,
             "ms": self.ms,
@@ -631,6 +671,107 @@ def check_fused(dev, rng) -> KernelRecord:
     return rec
 
 
+# the serving shapes of phase 4: granite-3-8b at batch 4, 1024-token prompts
+# (one layer's prefill attention) and the first of 32 decode steps
+SERVE_BATCH = 4
+SERVE_PROMPT = 1024
+SERVE_NEW = 32
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 3e-5}  # tests/test_kernels.py:14-15, as rtol and atol
+
+
+def _attn_inputs(rng, dev, dtype, *shapes):
+    import torch
+
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype) for sh in shapes]
+
+
+def _sdpa_ms(q, k, v, causal: bool) -> float:
+    """Time of one ``F.scaled_dot_product_attention`` call on the same
+    inputs: q (B, H, S, hd), k/v (B, KV, T, hd), grouped heads."""
+    import torch
+    import torch.nn.functional as F
+
+    major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+    if (major, minor) >= (2, 5):
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True))
+    g = q.shape[1] // k.shape[1]  # older PyTorch: expand the kv heads outside the timed call
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+
+
+def check_flash(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    rec = KernelRecord("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:74")
+    rec.tolerance = "rtol=atol=2e-2 bfloat16, 3e-5 float32 (tests/test_kernels.py)"
+    b, kv, g, hd = SERVE_BATCH, 8, 4, 128
+    cases = [  # (label, B, KV, G, S, T, hd, dtype, causal)
+        ("serving", b, kv, g, SERVE_PROMPT, SERVE_PROMPT, hd, torch.bfloat16, True),
+        ("ragged", b, kv, g, 1000, 1000, hd, torch.bfloat16, True),
+        ("f32", 1, 2, 2, 200, 200, 64, torch.float32, True),
+        ("f32-full", 2, 1, 3, 77, 130, 64, torch.float32, False),
+        ("hd32", 2, 2, 1, 65, 65, 32, torch.float32, True),
+        ("hd256", 1, 1, 8, 300, 300, 256, torch.bfloat16, True),
+    ]
+    for label, bb, nk, gg, s, t, d, dtype, causal in cases:
+        q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, s, d), (bb, nk, t, d), (bb, nk, t, d))
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        rec.compare_close(got, flash_attention_plain(q, k, v, causal=causal), tol, tol, label)
+        if label == "serving":
+            _time_kernel(rec, lambda: flash_attention(q, k, v, causal=True))
+            rec.plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+            rec.library_ms = _sdpa_ms(q.reshape(bb, nk * gg, s, d), k, v, causal=True)
+            nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read once, o written once
+            flops = 4 * bb * nk * gg * s * t * d / 2  # QK^T and PV, half of them below the diagonal
+            by_bytes, by_ops = _bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3
+            rec.bound_ms, rec.bound_by = max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
+            rec.shape = f"B={bb} KV={nk} G={gg} S=T={s} hd={d} bfloat16 causal"
+            rec.extra["tflops"] = flops / (rec.ms * 1e-3) / 1e12
+    return rec
+
+
+def check_decode(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain, split_plan
+
+    rec = KernelRecord("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                       "src/repro/kernels/decode_attention.py:64")
+    rec.tolerance = "rtol=atol=2e-2 bfloat16, 3e-5 float32 (tests/test_kernels.py)"
+    t_max = SERVE_PROMPT + SERVE_NEW
+    cases = [  # (label, B, KV, G, T, length, hd, dtype)
+        ("serving", SERVE_BATCH, 8, 4, t_max, SERVE_PROMPT + 1, 128, torch.bfloat16),
+        ("serving-last", SERVE_BATCH, 8, 4, t_max, t_max, 128, torch.bfloat16),
+        ("ragged", SERVE_BATCH, 8, 4, 1000, 17, 128, torch.bfloat16),
+        ("f32", 2, 2, 4, 1000, 999, 64, torch.float32),
+        ("hd32-g1", 3, 2, 1, 70, 1, 32, torch.float32),
+        ("hd256-g32", 1, 2, 32, 300, 129, 256, torch.bfloat16),
+    ]
+    for label, bb, nk, gg, t, length, d, dtype in cases:
+        q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d))
+        got = decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        rec.compare_close(got, decode_attention_plain(q, k, v, length), tol, tol, label)
+        if label == "serving":
+            _time_kernel(rec, lambda: decode_attention(q, k, v, length))
+            rec.plain_ms = _time_ms(lambda: decode_attention_plain(q, k, v, length))
+            rec.library_ms = _sdpa_ms(q.reshape(bb, nk * gg, 1, d), k[:, :, :length], v[:, :, :length], causal=False)
+            nbytes = 2 * (2 * bb * nk * length * d + 2 * q.numel())  # k, v below length; q; o
+            flops = 4 * bb * nk * gg * length * d
+            by_bytes, by_ops = _bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3
+            rec.bound_ms, rec.bound_by = max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
+            rec.shape = f"B={bb} KV={nk} G={gg} T={t} length={length} hd={d} bfloat16"
+            rec.extra["splits"] = split_plan(bb * nk, length, torch.cuda.get_device_properties(dev).multi_processor_count)
+            rec.extra["GBps"] = nbytes / (rec.ms * 1e-3) / 1e9
+    return rec
+
+
 def time_morsel_copies(dev) -> dict:
     """Host clock around one main-path morsel (the filter's 11 int32
     planes) crossing PCIe: a synchronised pageable H2D copy and D2H copy, as
@@ -985,6 +1126,156 @@ def end_to_end(device: str, rows: int, parts: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: serve granite-3-8b at full width from DACP prompts
+# ---------------------------------------------------------------------------
+SERVE_ARCH = "granite-3-8b"
+# kernel path against plain path, max |Δ logits| over max |logits|: each of
+# the 40 layers rounds its attention output (and p) to bfloat16 (8 bits of
+# mantissa, 3.9e-3) at other places on the two paths; taken as independent,
+# about sqrt(2 · 40) of those roundings add up, 3.5e-2
+SERVE_LOGIT_TOL = 5e-2
+
+
+def _rel_err(a, b, vocab: int) -> float:
+    """max |a - b| over max |b|, on the real vocabulary (the padded tail
+    holds the -1e9 mask on both paths)."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def serve_lm(dev, counters) -> tuple:
+    """Phase 4.  Returns (its report, the launch counts of the served run):
+    ``counters`` (the kernel launch counters) are zeroed right before the
+    served prefill + decode and read right after it."""
+    import torch
+
+    import repro_torch.data  # noqa: F401  registers tokenize_and_pack for the server in this process
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.data import write_token_corpus
+    from repro_torch.launch.serve import dacp_prompts, greedy_generate
+    from repro_torch.models import attention, build
+    from repro_torch.server import FairdServer
+
+    import socket
+
+    tmp = tempfile.mkdtemp(prefix="dacp_serve_")
+    server = None
+    try:
+        write_token_corpus(os.path.join(tmp, "prompts.jsonl"), docs=SERVE_BATCH, seed=SEED)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        server = FairdServer(f"127.0.0.1:{port}", executor=ExecutorConfig(device="cuda"))
+        server.catalog.register_path("prompts", tmp)
+        server.serve_tcp(port=port)
+        t0 = time.perf_counter()
+        prompts = dacp_prompts(f"dacp://127.0.0.1:{port}/prompts/prompts.jsonl", SERVE_BATCH, SERVE_PROMPT)
+        cook_s = time.perf_counter() - t0
+    finally:
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(prompts.shape == (SERVE_BATCH, SERVE_PROMPT), f"prompt COOK gave {prompts.shape}")
+    check(int(prompts.min()) >= 0 and int(prompts.max()) <= 258, "prompt ids outside the byte tokenizer's 0-258")
+
+    cfg = get_config(SERVE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.dtype) ==
+          (40, 4096, 32, 8, 128, "bfloat16"), f"{SERVE_ARCH} is not at full width: {cfg}")
+    kern, plain = build(cfg), build(cfg, attention.PLAIN)
+    t0 = time.perf_counter()
+    params = kern.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.from_numpy(prompts).to(dev)
+    greedy_generate(kern, params, tokens[:, :64], 2)  # warm-up: cuBLAS handles, allocator pools
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    out = greedy_generate(kern, params, tokens, SERVE_NEW)
+    launches = {name: c.value for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill made {launches['flash_attention']} flash launches, expected {cfg.n_layers}")
+    check(launches["decode_attention"] == cfg.n_layers * SERVE_NEW,
+          f"decode made {launches['decode_attention']} launches, expected {cfg.n_layers * SERVE_NEW}")
+    check(out["ids"].shape == (SERVE_BATCH, SERVE_NEW + 1), f"ids {out['ids'].shape}")
+    check(bool(torch.isfinite(out["prefill_logits"].float()).all()), "non-finite prefill logits")
+    check(out["cache"]["index"] == SERVE_PROMPT + SERVE_NEW, f"cache index {out['cache']['index']}")
+    del out["cache"]
+
+    # the kernel path against the plain path: same weights, same tokens
+    k_logits, k_cache = kern.prefill(params, {"tokens": tokens}, SERVE_PROMPT + SERVE_NEW)
+    p_logits, p_cache = plain.prefill(params, {"tokens": tokens}, SERVE_PROMPT + SERVE_NEW)
+    errs = [_rel_err(k_logits, p_logits, cfg.vocab_size)]
+    agree = [(k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean().item()]
+    ids = torch.from_numpy(out["ids"]).to(dev, torch.int32)
+    for i in range(4):  # teacher-forced: both paths take the served greedy ids
+        k_logits, k_cache = kern.decode_step(params, ids[:, i : i + 1], k_cache)
+        p_logits, p_cache = plain.decode_step(params, ids[:, i : i + 1], p_cache)
+        errs.append(_rel_err(k_logits, p_logits, cfg.vocab_size))
+        agree.append((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean().item())
+    check(max(errs) <= SERVE_LOGIT_TOL,
+          f"kernel-path logits differ from the plain path's by {max(errs)} of max |logit| (limit {SERVE_LOGIT_TOL})")
+    del k_cache, p_cache
+
+    # where the time goes: one prefill and one decode step under the profiler
+    host_p, host_d = {}, {}
+    prof_prefill, wall_p = _device_times(lambda: kern.prefill(params, {"tokens": tokens}, SERVE_PROMPT + SERVE_NEW),
+                                         host_p)
+    cache = kern.prefill(params, {"tokens": tokens}, SERVE_PROMPT + SERVE_NEW)[1]
+    prof_decode, wall_d = _device_times(lambda: kern.decode_step(params, ids[:, :1], cache), host_d)
+    del cache, params
+    torch.cuda.empty_cache()
+
+    def split(times, wall, host):
+        total = sum(times.values()) / 1e3
+        attn = sum(v for k, v in times.items() if "flash_attn" in k or "decode_attn" in k) / 1e3
+        return {"wall_ms": wall * 1e3, "device_ms": total, "attention_kernels_ms": attn,
+                "device_busy_share": total / (wall * 1e3),
+                "top": sorted(((round(v / 1e3, 3), k[:70]) for k, v in times.items()), reverse=True)[:6],
+                "host_self_ms": sum(host.values()) / 1e3,
+                "host_top": sorted(((round(v / 1e3, 3), k[:50]) for k, v in host.items()), reverse=True)[:10]}
+
+    new_tok = SERVE_BATCH * SERVE_NEW
+    return {
+        "arch": SERVE_ARCH,
+        "params": n_params,
+        "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT,
+        "new_tokens": SERVE_NEW,
+        "prompt_cook_s": cook_s,
+        "init_s": init_s,
+        "prefill_ms": out["prefill_s"] * 1e3,
+        "decode_ms_per_token": out["decode_s"] / SERVE_NEW * 1e3,
+        "decode_tokens_per_s": new_tok / out["decode_s"],
+        "output_tokens_per_s": new_tok / (out["prefill_s"] + out["decode_s"]),
+        "peak_memory_gb": peak / 1e9,
+        "launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
+        "logit_rel_err": errs,
+        "logit_rel_tol": SERVE_LOGIT_TOL,
+        "argmax_agreement": agree,
+        "first_ids": out["ids"][:, :8].tolist(),
+        "profile_prefill": split(prof_prefill, wall_p, host_p),
+        "profile_decode_step": split(prof_decode, wall_d, host_d),
+    }, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     try:
         import torch
@@ -1005,6 +1296,8 @@ def main() -> None:
     build_s = build_kernels()
     log(f"build: {build_s:.3f} s")
 
+    from repro_torch.kernels import ops
+
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     records = [
@@ -1013,11 +1306,14 @@ def main() -> None:
         check_segment_sum(dev, rng),
         check_segment_minmax(dev, rng),
         check_fused(dev, rng),
+        check_flash(dev, rng),
+        check_decode(dev, rng),
     ]
     for r in records:
-        log(f"kernel {r.name}: exact={r.exact} over {r.checks} checks, {r.shape}: {r.ms:.6f} ms "
-            f"(plain {r.plain_ms:.6f} ms, bound {r.bound_ms:.6f} ms)")
-    fused = records[-1]
+        log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
+            f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
+            f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
+    fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
         f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call)")
     copies = time_morsel_copies(dev)
@@ -1030,8 +1326,17 @@ def main() -> None:
     log("e2e launches: " + json.dumps(launches))
     for b in breakdowns:
         log("e2e breakdown: " + json.dumps(b))
+    dataplane = ("filter_select_planes", "project_tiles", "segment_sum_tiles", "segment_minmax_tiles",
+                 "fused_chain_tiles")
+    idle = [name for name in dataplane if launches[name] == 0]
+    check(not idle, f"kernels never launched on the data-plane path: {idle}")
 
-    bad = [r.name for r in records if not r.exact]
+    serving, serve_launches = serve_lm(dev, ops.LAUNCHES)
+    log("serve: " + json.dumps(serving) + f" on {kind}")
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] = serve_launches[name]
+
+    bad = [r.name for r in records if not r.agrees]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     idle = [name for name, n in launches.items() if n == 0]
     check(not idle, f"kernels never launched on the main path: {idle}")

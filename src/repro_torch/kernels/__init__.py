@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels for the data plane (Hopper, ``sm_90a``).
+"""Hand-written CUDA kernels of the port (Hopper, ``sm_90a``).
 
     filter_select     — fused Filter+Select over int32 bit-planes
     project_arith     — projection arithmetic as a postfix program per row
     segment_reduce    — per-group limb sums, counts and min/max
     fused_pipeline    — filter → project → compaction → segment fold in
                         one launch per morsel
+    flash_attention   — causal or full GQA attention (prefill)
+    decode_attention  — one query token against a KV cache (decode)
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
@@ -13,7 +15,9 @@ tensors on the CPU.
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (
+    decode_attention,
     filter_select_planes,
+    flash_attention,
     fused_chain_tiles,
     project_tiles,
     segment_minmax_tiles,
@@ -27,4 +31,6 @@ __all__ = [
     "segment_sum_tiles",
     "segment_minmax_tiles",
     "fused_chain_tiles",
+    "flash_attention",
+    "decode_attention",
 ]

@@ -1,4 +1,4 @@
-"""Build and load the data-plane CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into an object file, all
 at once in parallel, and the objects link into one shared library with a
@@ -27,8 +27,15 @@ from pathlib import Path
 __all__ = ["NVCC_FLAGS", "SOURCES", "LaunchCounter", "build", "check", "check_tensor", "library", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("filter_select.cu", "project_arith.cu", "segment_reduce.cu", "fused_chain.cu")
-HEADERS = ("common.cuh", "dataplane.cuh")
+SOURCES = (
+    "filter_select.cu",
+    "project_arith.cu",
+    "segment_reduce.cu",
+    "fused_chain.cu",
+    "flash_attention.cu",
+    "decode_attention.cu",
+)
+HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -43,7 +50,7 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
-LIB_NAME = "libdacp_dataplane.so"
+LIB_NAME = "libdacp_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +68,10 @@ _SIGNATURES = {
         + (_P, _I, _P, _P, _I, _I, _I, _I)  # csums, fns, with_gidx, segmented, G, tiles per block
         + (_P,) * 8  # seven outputs and the stream
     ),
+    # q, k, v, o, dtype, B, KV, G, S, T, hd, causal, strides, stream
+    "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, strides, m, l, acc partials, stream
+    "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,110 @@
+"""Flash attention (causal or full, GQA) — the port of
+``repro.kernels.flash_attention``.
+
+    q (B, KV, G, S, hd), k/v (B, KV, T, hd) -> (B, KV, G, S, hd) in q's type
+
+Scores in float32 times ``hd**-0.5``; causal masks ``qpos < kpos`` with
+-1e30; softmax in float32; p rounded to v's type before the PV product.  Any
+S and T (the TPU kernel needs both to divide its tiles).
+
+For a CUDA tensor the wrapper launches the hand-written kernel
+``csrc/flash_attention.cu`` (float32 or bfloat16, hd 32/64/128/256, any
+strides with a contiguous head dim — the model passes permuted views of its
+projections without copying, and the output takes q's memory layout) or
+raises; for a CPU tensor it runs ``flash_attention_plain``.  The CUDA
+kernel is bound by operations: it runs its products in float32 on the CUDA
+cores, one block per (b·kv, g, 64 query rows) looping over 32-row kv tiles
+staged in shared memory (see the source for the design).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "flash_attention_plain", "launches"]
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = _build.LaunchCounter("flash_attention")
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    """Plain PyTorch version: the same function, with the (S, T) scores
+    materialised."""
+    hd = q.shape[-1]
+    s, t = q.shape[3], k.shape[2]
+    scores = torch.einsum("bngsh,bnth->bngst", q.float(), k.float()) * hd**-0.5
+    if causal:
+        keep = torch.arange(s, device=q.device)[:, None] >= torch.arange(t, device=q.device)[None, :]
+        scores = scores.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngst,bnth->bngsh", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def check_inputs(name: str, q, k, v, q_ndim: int) -> None:
+    """Validate attention inputs for a CUDA launch: one device, one dtype the
+    kernel takes, a supported head dim, contiguous head dims and matching
+    (B, KV, T, hd) shapes."""
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {what} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != (q_ndim if what == "q" else 4):
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}")
+        if t.numel() == 0:
+            raise ValueError(f"{name}: {what} is empty")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {what} must have a contiguous head dim (stride {t.stride()})")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {hd}")
+    b, kv = q.shape[:2]
+    if k.shape != v.shape or tuple(k.shape[:2]) != (b, kv) or k.shape[3] != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match k {tuple(k.shape)} / v {tuple(v.shape)}")
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: int = 512):
+    """q: (B, KV, G, S, hd); k/v: (B, KV, T, hd) -> (B, KV, G, S, hd).
+
+    ``block_q`` and ``block_k`` keep the signature of
+    ``repro.kernels.ops.flash_attention``; they size the TPU kernel's tiles
+    and change nothing here (the CUDA kernel's tiles are 64 × 32)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    check_inputs("flash_attention", q, k, v, 5)
+    b, kv, g, s, hd = q.shape
+    t = k.shape[2]
+    out = torch.empty_like(q)  # q's layout when q is a permuted dense view
+    strides = np.asarray([*q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4]], np.int64)
+    rc = _build.library().dacp_flash_attention(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        out.data_ptr(),
+        DTYPE_CODES[q.dtype],
+        b,
+        kv,
+        g,
+        s,
+        t,
+        hd,
+        int(bool(causal)),
+        strides.ctypes.data,
+        _build.stream_of(q),
+    )
+    _build.check(rc, "flash_attention")
+    launches.bump()
+    return out

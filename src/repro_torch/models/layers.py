@@ -1,0 +1,187 @@
+"""Model substrate of the port: the reference's layers on torch tensors
+(the port of ``repro.models.layers``).
+
+Parameters are nested dicts of tensors with the reference's names and
+shapes — ``wq["w"]`` is (d, h, hd), ``embed["table"]`` is (V, d) — so the
+reference's weights carry over by name (``models.convert``).  The
+reference's logical sharding axes have no counterpart on one card: the
+``*_init`` functions return the parameters alone.  Weights are drawn from
+an explicit ``torch.Generator`` with the reference's standard deviations
+(its ``jax.random`` bits cannot be reproduced, so tests convert weights).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "ACT",
+    "Dtypes",
+    "apply_rope",
+    "dense_apply",
+    "dense_init",
+    "embed_tokens",
+    "embedding_init",
+    "logits_apply",
+    "mlp_apply",
+    "mlp_init",
+    "norm_apply",
+    "norm_init",
+    "rope_freqs",
+    "torch_dtype",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` / ``param_dtype`` string."""
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}; expected one of {sorted(_DTYPES)}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class Dtypes:
+    param: torch.dtype
+    act: torch.dtype
+
+    @staticmethod
+    def from_cfg(cfg) -> "Dtypes":
+        return Dtypes(param=torch_dtype(cfg.param_dtype), act=torch_dtype(cfg.dtype))
+
+
+ACT = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+    """N(0, std²) drawn in float32 on the generator's device, then cast."""
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense
+# ---------------------------------------------------------------------------
+def dense_init(gen, shape, axes, dtype, bias_axis=None, scale=None) -> dict:
+    """General dense weight: ``shape``/``axes`` are aligned tuples; the axes
+    named "embed" make the fan-in, as in the reference."""
+    fan_in = int(np.prod([s for s, a in zip(shape, axes) if a == "embed"])) or shape[0]
+    std = scale if scale is not None else fan_in**-0.5
+    params = {"w": _normal(gen, tuple(shape), std, dtype)}
+    if bias_axis is not None:
+        out_dims = tuple(s for s, a in zip(shape, axes) if a in bias_axis)
+        params["b"] = torch.zeros(out_dims, dtype=dtype, device=gen.device)
+    return params
+
+
+def dense_apply(params, x, contract: str):
+    """einsum-style apply.  ``contract`` like 'bsd,dh->bsh'."""
+    y = torch.einsum(contract, x, params["w"].to(x.dtype))
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def norm_init(d: int, kind: str, dtype, device) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device), "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def norm_apply(params, x, kind: str, eps: float = 1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
+    return {"table": _normal(gen, (vocab, d), d**-0.5, dtype)}
+
+
+def embed_tokens(params, tokens, act_dtype):
+    # gather, then cast: the rows the reference takes from the cast table
+    return F.embedding(tokens, params["table"]).to(act_dtype)
+
+
+def logits_apply(emb_params, x, real_vocab: int):
+    """Tied (or untied) output head with padded-vocab masking."""
+    table = emb_params["table"].to(x.dtype)
+    logits = x @ table.t()
+    if table.shape[0] != real_vocab:
+        logits[..., real_vocab:] = -1e9
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# MLP (plain or gated)
+# ---------------------------------------------------------------------------
+def mlp_init(gen, d: int, d_ff: int, glu: bool, dtype, bias: bool = False) -> dict:
+    params = {"up": dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype, bias_axis=("ffn",) if bias else None)}
+    if glu:
+        params["gate"] = dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype)
+    params["down"] = dense_init(
+        gen, (d_ff, d), ("ffn", "embed"), dtype, bias_axis=("embed",) if bias else None, scale=d_ff**-0.5
+    )
+    return params
+
+
+def mlp_apply(params, x, act: str, glu: bool):
+    h = dense_apply(params["up"], x, "bsd,df->bsf")
+    if glu:
+        g = dense_apply(params["gate"], x, "bsd,df->bsf")
+        h = ACT[act](g) * h
+    else:
+        h = ACT[act](h)
+    return dense_apply(params["down"], h, "bsf,fd->bsd")
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (partial-rotary supported)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, rotary_frac: float, theta: float, device=None):
+    """(inverse frequencies float32 (rot/2,), rot): the first ``rot`` dims of
+    each head rotate.  Computed in float64 on ``device`` itself, as the
+    reference computes them in numpy: a host array copied to the card would
+    make every layer's call wait for the card's queue to drain."""
+    rot = int(head_dim * rotary_frac) // 2 * 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float64, device=device) / rot))
+    return inv.float(), rot
+
+
+def apply_rope(x, positions, inv_freq, rot: int):
+    """x: (B, S, H, hd); positions: (B, S) or (S,).  cos and sin are taken
+    in float32 and cast to x's type, as in the reference."""
+    if rot == 0:
+        return x
+    ang = positions.float()[..., None] * inv_freq  # (B, S, rot/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    while cos.dim() < x.dim():  # broadcast over the head dim
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2 :]
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated, xp], dim=-1) if rot < x.shape[-1] else rotated

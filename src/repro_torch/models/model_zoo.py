@@ -1,0 +1,51 @@
+"""Unified model API of the port, for decoder-only configurations with the
+``attn`` block pattern (the port of ``repro.models.model_zoo``).
+
+    api = build(cfg)
+    params        = api.init(generator, device)
+    logits, aux   = api.forward(params, batch)
+    last, cache   = api.prefill(params, batch, max_seq)
+    logits, cache = api.decode_step(params, token, cache)
+
+Encoder-decoder configurations come with ``encdec`` (ROADMAP Queue 1 item
+9e); training (``loss_fn``) with item 10; ``input_specs`` and
+``input_axes`` with the dry-run (item 12).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import lm
+
+__all__ = ["ModelApi", "build"]
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    cfg: ArchConfig
+    init: Callable
+    forward: Callable
+    prefill: Callable
+    decode_step: Callable
+    make_decode_cache: Callable
+
+
+def build(cfg: ArchConfig, kernels: attn.AttentionKernels = attn.KERNELS) -> ModelApi:
+    """The model's functions bound to ``cfg``; ``kernels`` picks the attention
+    functions (``attention.PLAIN`` holds the kernels against their plain
+    versions on the card)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with encdec (ROADMAP Queue 1 item 9e)")
+    lm.check_supported(cfg)
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device=None: lm.init(cfg, generator, device),
+        forward=lambda p, batch: lm.forward(p, batch["tokens"], cfg, kernels),
+        prefill=lambda p, batch, max_seq: lm.prefill(p, batch["tokens"], cfg, max_seq, kernels),
+        decode_step=lambda p, tok, cache: lm.decode_step(p, tok, cache, cfg, kernels),
+        make_decode_cache=lambda b, m, dt, device=None: lm.make_decode_cache(cfg, b, m, dt, device),
+    )

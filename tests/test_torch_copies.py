@@ -3,19 +3,25 @@ only the import prefix rewritten (``repro.`` → ``repro_torch.``).  The
 ported modules — the compute backend, the executor's device binding, the
 env help text and the lock recorder's frame filter — are the only
 exemptions, so every other difference
-from the reference shows up here."""
+from the reference shows up here.  ``client/torch_adapter.py`` is the
+port's own counterpart of ``client/jax_adapter.py``; its numpy-only
+helpers are held to the reference's."""
 
+import inspect
 import re
 from pathlib import Path
 
 import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+COPIED_DIRS = ("core", "transport", "server", "client", "configs", "data")
 PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py"}
+PORT_ONLY = {"client/torch_adapter.py"}
 COPIED = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for p in (SRC / "repro_torch").rglob("*.py")
-    if p.parts[len((SRC / "repro_torch").parts)] in ("core", "transport", "server", "client")
+    if p.parts[len((SRC / "repro_torch").parts)] in COPIED_DIRS
+    and str(p.relative_to(SRC / "repro_torch")) not in PORT_ONLY
 )
 
 
@@ -26,7 +32,7 @@ def _rewrite(text: str) -> str:
 def test_the_data_plane_is_all_there():
     ref = {
         str(p.relative_to(SRC / "repro"))
-        for d in ("core", "transport", "server", "client")
+        for d in COPIED_DIRS
         for p in (SRC / "repro" / d).rglob("*.py")
     }
     assert ref - {"client/jax_adapter.py"} == set(COPIED)
@@ -43,3 +49,12 @@ def test_copy_differs_only_in_the_prefix(rel):
 def test_ported_modules_carry_no_reference_prefix(rel):
     text = (SRC / "repro_torch" / rel).read_text()
     assert not re.search(r"\brepro\.", text), f"{rel} still names the reference package"
+
+
+@pytest.mark.parametrize("name", ["batch_to_arrays", "tokens_from_blob_column", "PrefetchIterator"])
+def test_torch_adapter_keeps_the_reference_numpy_helpers(name):
+    jax_adapter = pytest.importorskip("repro.client.jax_adapter")
+    from repro_torch.client import torch_adapter
+
+    ref = inspect.getsource(getattr(jax_adapter, name))
+    assert inspect.getsource(getattr(torch_adapter, name)) == _rewrite(ref)

@@ -309,3 +309,150 @@ def test_fused_plans_round_robin_over_devices(dev, monkeypatch):
         got, fused = run(backend="torch", device="cuda", devices=tuple(range(count)))
         assert got == want and fused > 0
     assert set(bound) == set(range(count))
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels and the dense LM on them
+# ---------------------------------------------------------------------------
+def _attn_tol(dtype):
+    # tests/test_kernels.py's tolerances: bfloat16 rounds p and the output
+    # to 8 bits of mantissa, float32 differs only in the order of the sums
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=3e-5, atol=3e-5)
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize(
+    "b,kv,g,s,t,hd,dtype,causal",
+    [
+        (4, 8, 4, 1024, 1024, 128, torch.bfloat16, True),  # granite-3-8b prefill, one layer
+        (2, 2, 2, 1000, 1000, 128, torch.bfloat16, True),  # ragged tiles
+        (1, 2, 3, 77, 77, 64, torch.float32, True),
+        (2, 1, 4, 5, 130, 32, torch.float32, False),
+        (1, 1, 8, 200, 200, 256, torch.float32, True),
+        (1, 1, 8, 200, 200, 256, torch.bfloat16, False),
+        (2, 2, 2, 256, 256, 64, torch.float32, False),
+    ],
+)
+def test_flash_attention_kernel(dev, b, kv, g, s, t, hd, dtype, causal):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import launches as flash_launches
+
+    rng = np.random.default_rng(s * 7 + hd)
+    q = _randn(rng, (b, kv, g, s, hd), dtype, dev)
+    k = _randn(rng, (b, kv, t, hd), dtype, dev)
+    v = _randn(rng, (b, kv, t, hd), dtype, dev)
+    before = flash_launches.value
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_launches.value == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_flash_attention_kernel_takes_the_models_strided_views(dev):
+    """q as the model hands it, a (B, KV, G, S, hd) view of (B, S, KV, G, hd)
+    memory, k and v as views of a larger cache: the output takes q's
+    layout and matches the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    rng = np.random.default_rng(11)
+    b, s, kv, g, hd, t_max = 2, 300, 2, 4, 128, 512
+    q = _randn(rng, (b, s, kv, g, hd), torch.bfloat16, dev).permute(0, 2, 3, 1, 4)
+    cache = _randn(rng, (2, b, kv, t_max, hd), torch.bfloat16, dev)
+    k, v = cache[0, :, :, :s], cache[1, :, :, :s]
+    got = flash_attention(q, k, v, causal=True)
+    assert got.stride() == q.stride()
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize(
+    "b,kv,g,t,length,hd,dtype",
+    [
+        (4, 8, 4, 1056, 1025, 128, torch.bfloat16),  # granite-3-8b, first decode step
+        (4, 8, 4, 1056, 1056, 128, torch.bfloat16),
+        (2, 2, 4, 1000, 17, 64, torch.float32),
+        (1, 1, 1, 1000, 1000, 128, torch.float32),
+        (2, 3, 32, 300, 129, 256, torch.bfloat16),
+        (3, 2, 8, 64, 1, 32, torch.float32),
+    ],
+)
+def test_decode_attention_kernel(dev, b, kv, g, t, length, hd, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.decode_attention import launches as decode_launches
+
+    rng = np.random.default_rng(t + length)
+    q = _randn(rng, (b, kv, g, hd), dtype, dev)
+    k = _randn(rng, (b, kv, t, hd), dtype, dev)
+    v = _randn(rng, (b, kv, t, hd), dtype, dev)
+    before = decode_launches.value
+    got = decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert decode_launches.value == before + 1
+    want = decode_attention_plain(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_decode_attention_kernel_length_zero_is_zero(dev):
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q = torch.ones((1, 1, 4, 64), device=dev)
+    k = torch.ones((1, 1, 64, 64), device=dev)
+    assert torch.count_nonzero(decode_attention(q, k, k, 0)).item() == 0
+
+
+def test_lm_kernel_path_matches_plain_path_on_the_card(dev):
+    """Reduced granite-3-8b in float32 on the card: prefill and three decode
+    steps through the kernels against the same model through the plain
+    versions, with exactly one flash launch per layer per prefill and one
+    decode launch per layer per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, build
+
+    cfg = get_config("granite-3-8b").reduced()
+    kern, plain = build(cfg), build(cfg, attention.PLAIN)
+    params = kern.init(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 259, (3, 45)).astype(np.int32)).to(dev)
+    for c in ops.LAUNCHES.values():
+        c.reset()
+    got, cache_k = kern.prefill(params, {"tokens": tokens[:, :40]}, 48)
+    assert ops.LAUNCHES["flash_attention"].value == cfg.n_layers
+    want, cache_p = plain.prefill(params, {"tokens": tokens[:, :40]}, 48)
+    assert ops.LAUNCHES["flash_attention"].value == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        tok = tokens[:, 40 + i : 41 + i]
+        got, cache_k = kern.decode_step(params, tok, cache_k)
+        want, cache_p = plain.decode_step(params, tok, cache_p)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert ops.LAUNCHES["decode_attention"].value == 3 * cfg.n_layers
+    torch.testing.assert_close(cache_k["k"], cache_p["k"], rtol=1e-5, atol=1e-5)
+
+
+def test_torch_feed_stages_batches_on_the_card(dev, tmp_path):
+    """TorchFeed on cuda gives the CPU feed's batches, on the card."""
+    import repro_torch.data  # noqa: F401  registers tokenize_and_pack
+    from repro_torch.client import LocalNetwork
+    from repro_torch.client.torch_adapter import TorchFeed
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.data import training_dag, write_token_corpus
+    from repro_torch.server import FairdServer
+
+    write_token_corpus(str(tmp_path / "c.jsonl"), docs=12, seed=3)
+    net = LocalNetwork()
+    srv = FairdServer("h:1", executor=ExecutorConfig(device="cpu"))
+    srv.catalog.register_path("c", str(tmp_path))
+    net.register(srv)
+    client = net.client_for("h:1")
+    dag = training_dag("dacp://h:1/c/c.jsonl", seq_len=32, batch_rows=4)
+    cpu = list(TorchFeed(lambda: client.cook(dag), "tokens", 33, 4, device="cpu"))
+    gpu = list(TorchFeed(lambda: client.cook(dag), "tokens", 33, 4, device=dev))
+    assert len(cpu) == len(gpu) == 3
+    for a, b in zip(cpu, gpu):
+        assert b["tokens"].device.type == "cuda"
+        assert torch.equal(a["tokens"], b["tokens"].cpu()) and torch.equal(a["labels"], b["labels"].cpu())

@@ -1,0 +1,174 @@
+"""The port's serving path on the CPU against the reference's: prompts
+written to a corpus, tokenized in place by a ``FairdServer`` running
+``training_dag``, read back by the feed, prefilled and greedily decoded.
+
+The port's side is a port ``FairdServer`` over TCP, ``TorchFeed(device=
+"cpu")`` and the port's model; the reference's side is the reference
+``FairdServer``, ``JaxFeed`` and ``repro.models``, with the same weights
+carried over.  Token batches must be equal; greedy ids must be equal (both
+compute in float32, where the two models' logits agree to about 5e-6,
+far below the gap between the top two logits on these inputs).
+"""
+
+import socket
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.data  # noqa: F401  registers the reference's tokenize_and_pack
+import repro_torch.data  # noqa: F401  registers the port's tokenize_and_pack
+from repro.client import TcpNetwork as RefTcpNetwork
+from repro.client.jax_adapter import JaxFeed
+from repro.configs import get_config as ref_config
+from repro.models import build as ref_build
+from repro.server import FairdServer as RefFairdServer
+from repro_torch.client import TcpNetwork
+from repro_torch.client.torch_adapter import TorchFeed
+from repro_torch.configs import get_config
+from repro_torch.core.executor import ExecutorConfig
+from repro_torch.data import training_dag, write_token_corpus
+from repro_torch.launch import serve
+from repro_torch.models import build
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.server import FairdServer
+
+DOCS = 10
+PROMPT = 24
+NEW = 8
+
+
+def _port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("prompts")
+    write_token_corpus(str(root / "prompts.jsonl"), docs=DOCS, seed=11)
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def servers(corpus):
+    """(port server authority, reference server authority), both over TCP."""
+    pa, ra = _port(), _port()
+    port_srv = FairdServer(f"127.0.0.1:{pa}", executor=ExecutorConfig(device="cpu"))
+    ref_srv = RefFairdServer(f"127.0.0.1:{ra}")
+    for srv, p in ((port_srv, pa), (ref_srv, ra)):
+        srv.catalog.register_path("prompts", corpus)
+        srv.serve_tcp(port=p)
+    yield f"127.0.0.1:{pa}", f"127.0.0.1:{ra}"
+    port_srv.shutdown()
+    ref_srv.shutdown()
+
+
+def _uri(auth):
+    return f"dacp://{auth}/prompts/prompts.jsonl"
+
+
+@pytest.mark.parametrize("global_batch,drop", [(4, True), (3, False)])
+def test_torch_feed_matches_jax_feed(servers, global_batch, drop):
+    port_auth, ref_auth = servers
+    pnet, rnet = TcpNetwork(), RefTcpNetwork()
+    try:
+        pc, rc = pnet.client_for(port_auth), rnet.client_for(ref_auth)
+        pdag = training_dag(_uri(port_auth), seq_len=32, batch_rows=4)
+        rdag = repro.data.training_dag(_uri(ref_auth), seq_len=32, batch_rows=4)
+        got = list(TorchFeed(lambda: pc.cook(pdag), "tokens", 33, global_batch, drop_remainder=drop, device="cpu"))
+        want = list(JaxFeed(lambda: rc.cook(rdag), "tokens", 33, global_batch, drop_remainder=drop))
+    finally:
+        pnet.close_all()
+        rnet.close_all()
+    assert len(got) == len(want) == (DOCS // global_batch if drop else -(-DOCS // global_batch))
+    for g, w in zip(got, want):
+        for name in ("tokens", "labels"):
+            assert g[name].dtype == torch.int32 and g[name].device.type == "cpu"
+            np.testing.assert_array_equal(g[name].numpy(), np.asarray(w[name]))
+
+
+def test_greedy_ids_match_reference_serving(servers):
+    """Reduced granite-3-8b served end to end: the prompts each package's
+    server tokenizes are equal, and port prefill + decode from the
+    reference's converted weights give the reference serving path's ids."""
+    port_auth, ref_auth = servers
+    prompts = serve.dacp_prompts(_uri(port_auth), 4, PROMPT)
+    rnet = RefTcpNetwork()
+    try:
+        from repro.client.jax_adapter import tokens_from_blob_column
+
+        rdag = repro.data.training_dag(_uri(ref_auth), seq_len=PROMPT - 1, batch_rows=4)
+        batches = list(rnet.client_for(ref_auth).cook(rdag).iter_batches())  # the whole stream, as dacp_prompts reads it
+        ref_prompts = tokens_from_blob_column(batches[0], "tokens", PROMPT)
+    finally:
+        rnet.close_all()
+    np.testing.assert_array_equal(prompts, ref_prompts)
+
+    rcfg = ref_config("granite-3-8b").reduced()
+    rapi = ref_build(rcfg)
+    rparams, _ = rapi.init(jax.random.PRNGKey(0))
+    max_seq = PROMPT + NEW
+    logits, cache = jax.jit(lambda p, b: rapi.prefill(p, b, max_seq))(rparams, {"tokens": jnp.asarray(ref_prompts)})
+    decode = jax.jit(rapi.decode_step)
+    cur = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+    want = [np.asarray(cur)]
+    for _ in range(NEW):
+        logits, cache = decode(rparams, cur, cache)
+        cur = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        want.append(np.asarray(cur))
+    want = np.concatenate(want, axis=1)
+
+    cfg = get_config("granite-3-8b").reduced()
+    api = build(cfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, rparams), cfg, "cpu")
+    out = serve.greedy_generate(api, params, torch.from_numpy(prompts), NEW)
+    assert out["ids"].shape == (4, NEW + 1)
+    np.testing.assert_array_equal(out["ids"], want)
+    assert out["cache"]["index"] == max_seq
+
+
+def test_serve_launcher_reads_prompts_from_a_faird(servers, capsys):
+    port_auth, _ = servers
+    out = serve.main(["--device", "cpu", "--arch", "qwen1.5-0.5b", "--batch", "2", "--prompt-len", "16",
+                      "--new-tokens", "3", "--prompts", _uri(port_auth)])
+    printed = capsys.readouterr().out
+    assert "arch=qwen1.5-0.5b" in printed and "device=cpu" in printed and "ms/tok" in printed
+    assert out["ids"].shape == (2, 4)
+
+
+def test_serve_launcher_random_prompts(capsys):
+    out = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--new-tokens", "2"])
+    assert out["ids"].shape == (2, 3) and "prefill(8)" in capsys.readouterr().out
+
+
+def test_torch_feed_refuses_a_mesh_and_defaults_to_the_card():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        TorchFeed(lambda: None, "tokens", 8, 2, mesh=object())
+    if torch.cuda.is_available():
+        assert TorchFeed(lambda: None, "tokens", 8, 2).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchFeed(lambda: None, "tokens", 8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--batch", "1", "--prompt-len", "4", "--new-tokens", "1"])
+
+
+def test_serve_decode_torch_example_runs_on_the_cpu():
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, str(root / "examples" / "serve_decode_torch.py"), "--device", "cpu", "--requests", "2",
+         "--prompt-len", "16", "--new-tokens", "3"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "request batch: (2, 16) on cpu" in res.stdout and "cache index: 19" in res.stdout
