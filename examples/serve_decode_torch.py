@@ -1,11 +1,11 @@
 """Serving example of the PyTorch port: batched prefill + greedy decode with
-a KV cache, on the port's attention kernels.
+a decode cache, on the port's kernels (attention; Mamba2's ``ssd_scan`` for
+``--arch zamba2-1.2b``; ``mlstm_chunk`` for ``--arch xlstm-125m``).
 
 Prompts arrive as rows of a DACP SDF (the request queue is itself a
 streaming data frame); the port's ``faird`` tokenizes them in place over
 TCP; ``TorchFeed`` brings the token batch to the device; the model prefills
-the batch through ``flash_attention`` and decodes N new tokens per request
-through ``decode_attention``.
+the batch and decodes N new tokens per request.
 
     PYTHONPATH=src python examples/serve_decode_torch.py                 # on the card
     PYTHONPATH=src python examples/serve_decode_torch.py --device cpu    # plain versions
@@ -84,9 +84,12 @@ def main(argv=None):
     host_prompts = prompts.cpu().numpy()
     for i, ids in enumerate(out["ids"]):
         print(f"req{i}: prompt={tok.decode(host_prompts[i])[:40]!r}... completion_ids={ids[:8].tolist()}...")
-    print(f"decode steps: {args.new_tokens} | cache index: {out['cache']['index']} | "
+    cache = out["cache"]
+    index = (cache["kv"] if "kv" in cache else cache)["index"]  # zamba2 keeps it with its shared block's cache
+    launched = ", ".join(f"{name} {c.value}" for name, c in ops.LAUNCHES.items() if c.value)
+    print(f"decode steps: {args.new_tokens} | cache index: {index} | "
           f"prefill {out['prefill_s'] * 1e3:.1f} ms, decode {out['decode_s'] / args.new_tokens * 1e3:.2f} ms/token | "
-          f"kernel launches: flash {ops.LAUNCHES['flash_attention'].value}, decode {ops.LAUNCHES['decode_attention'].value}")
+          f"kernel launches: {launched or 'none (plain versions on the cpu)'}")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,10 @@
                         one launch per morsel
     flash_attention   — causal or full GQA attention (prefill)
     decode_attention  — one query token against a KV cache (decode)
+    ssd_scan          — the Mamba2 SSD chunk scan, returning the final state
+    mlstm_chunk       — the chunkwise mLSTM, returning the final (C, n, m)
+
+Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here.
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
@@ -19,9 +23,11 @@ from repro_torch.kernels.ops import (
     filter_select_planes,
     flash_attention,
     fused_chain_tiles,
+    mlstm_chunk,
     project_tiles,
     segment_minmax_tiles,
     segment_sum_tiles,
+    ssd_scan,
 )
 
 __all__ = [
@@ -33,4 +39,6 @@ __all__ = [
     "fused_chain_tiles",
     "flash_attention",
     "decode_attention",
+    "ssd_scan",
+    "mlstm_chunk",
 ]

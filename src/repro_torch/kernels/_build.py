@@ -34,8 +34,10 @@ SOURCES = (
     "fused_chain.cu",
     "flash_attention.cu",
     "decode_attention.cu",
+    "ssd_scan.cu",
+    "mlstm_chunk.cu",
 )
-HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh")
+HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -72,6 +74,10 @@ _SIGNATURES = {
     "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, strides, m, l, acc partials, stream
     "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, stream
+    "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, stream
+    "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -4,26 +4,43 @@ of ``repro.kernels.ops``.
 Each takes torch tensors and returns tensors on their device: on a CUDA
 device it launches the hand-written kernel (built from ``csrc/`` at first
 use) or raises; on the CPU it runs the kernel's plain PyTorch version.
-``LAUNCHES`` maps each wrapper to its thread-safe launch counter.
+``LAUNCHES`` maps each wrapper to its thread-safe launch counter.  Every
+TPU kernel of ``repro.kernels`` has its wrapper here.
 
-``ssd_scan`` and ``mlstm_chunk`` are not ported yet (ROADMAP Queue 2).
+``ssd_scan`` and ``mlstm_chunk`` return their final state beside y (the
+TPU kernels return y alone), because the model's prefill hands it to the
+decode cache.
+
+The model zoo calls its four kernels through a ``ModelKernels`` bundle:
+``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
+versions), which holds the kernels against their plain versions on the
+card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 from repro_torch.kernels import filter_select, fused_pipeline, project_arith, segment_reduce
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.decode_attention import launches as _decode_launches
 from repro_torch.kernels.filter_select import filter_select_planes
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention import launches as _flash_launches
 from repro_torch.kernels.fused_pipeline import fused_chain_tiles
+from repro_torch.kernels.mlstm_chunk import launches as _mlstm_launches
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.project_arith import project_tiles
 from repro_torch.kernels.segment_reduce import SUM_ROW_CAP, segment_minmax_tiles, segment_sum_tiles
+from repro_torch.kernels.ssd_scan import launches as _ssd_launches
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 __all__ = [
     "flash_attention",
     "decode_attention",
+    "ssd_scan",
+    "mlstm_chunk",
     "filter_select_planes",
     "project_tiles",
     "segment_sum_tiles",
@@ -31,6 +48,9 @@ __all__ = [
     "fused_chain_tiles",
     "SUM_ROW_CAP",
     "LAUNCHES",
+    "KERNELS",
+    "PLAIN",
+    "ModelKernels",
 ]
 
 LAUNCHES = {
@@ -41,4 +61,20 @@ LAUNCHES = {
     "fused_chain_tiles": fused_pipeline.launches,
     "flash_attention": _flash_launches,
     "decode_attention": _decode_launches,
+    "ssd_scan": _ssd_launches,
+    "mlstm_chunk": _mlstm_launches,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelKernels:
+    """The four kernel functions the model zoo calls."""
+
+    flash_attention: Callable
+    decode_attention: Callable
+    ssd_scan: Callable
+    mlstm_chunk: Callable
+
+
+KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan, mlstm_chunk)
+PLAIN = ModelKernels(flash_attention_plain, decode_attention_plain, ssd_scan_plain, mlstm_chunk_plain)

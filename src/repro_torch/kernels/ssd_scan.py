@@ -1,0 +1,153 @@
+"""Mamba2 SSD chunk scan — the port of ``repro.kernels.ssd_scan``.
+
+    x (b, s, h, p), dt (b, s, h) f32, A (h,) f32 < 0, B/C (b, s, n)
+        -> y (b, s, h, p) f32, S_final (b, h, p, n) f32
+
+The recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_tᵀ, y_t = h_t C_t,
+computed chunk by chunk (length ``chunk``): within a chunk in its quadratic
+(attention-like) form, across chunks through the f32 (p, n) state.  The TPU
+kernel returns y only; the port also returns the final state, the contract
+of ``repro.kernels.ref.ssd_scan_ref``, because prefill hands it to the
+decode cache.  Any S: a ragged tail chunk is shorter (the reference model
+pads it with dt = 0, which leaves the state unchanged and adds nothing).
+
+For a CUDA tensor the wrapper launches the hand-written kernel
+``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32
+or 64; chunk at most 256) or raises; for a CPU tensor it runs
+``ssd_scan_plain``.  The CUDA kernel is bound by operations on the CUDA
+cores: one block per (b, h) walks the chunks in order with the state in
+shared memory, and tiles each chunk's (L, L) matrix into 64 × 64 blocks
+that it never holds whole (see the source).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "launches", "ssd_scan", "ssd_scan_plain"]
+
+MAX_CHUNK = 256  # one chunk row per thread of the CUDA kernel's block
+P_DIMS = (32, 64)
+N_DIMS = (16, 32, 64)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = _build.LaunchCounter("ssd_scan")
+
+
+def _segsum(x):
+    """x (..., L) -> (..., L, L): out[i, j] = sum_{j<k<=i} x_k for i >= j, -inf above."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    keep = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    return out.masked_fill(~keep, float("-inf"))
+
+
+def ssd_scan_plain(x, dt, A, B, C, chunk: int = 256):
+    """Plain PyTorch version: ``repro.models.ssm._ssd_chunked`` in torch,
+    with the (L, L) decay matrix of every chunk materialised."""
+    b, s, nh, p = x.shape
+    n = B.shape[-1]
+    l = min(chunk, s)
+    s_orig = s
+    if s % l:
+        pad = l - s % l  # dt = 0: decay 1, contribution 0, state unchanged
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+        s += pad
+    c = s // l
+    xc = x.reshape(b, c, l, nh, p).float()
+    dtc = dt.reshape(b, c, l, nh).float()
+    Bc = B.reshape(b, c, l, n).float()
+    Cc = C.reshape(b, c, l, n).float()
+    dA = (dtc * A.float()[None, None, None, :]).permute(0, 1, 3, 2)  # (b, c, h, l)
+    dA_cs = torch.cumsum(dA, dim=-1)
+
+    # 1. within each chunk
+    L = torch.exp(_segsum(dA))  # (b, c, h, l, l)
+    scores = torch.einsum("bcln,bcmn->bclm", Cc, Bc)
+    M = scores[:, :, None] * L
+    xdt = xc * dtc[..., None]
+    y_diag = torch.einsum("bchlm,bcmhp->bclhp", M, xdt)
+
+    # 2. each chunk's own contribution to the state at its end
+    r = torch.exp(dA_cs[..., -1:] - dA_cs)  # (b, c, h, l)
+    states = torch.einsum("bcln,bchl,bclhp->bchpn", Bc, r, xdt)
+
+    # 3. the state across chunks
+    chunk_decay = torch.exp(dA_cs[..., -1])  # (b, c, h)
+    S = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for ci in range(c):
+        prev.append(S)
+        S = S * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)  # (b, c, h, p, n): the state before each chunk
+
+    # 4. the state before a chunk, read by each of its rows
+    q = torch.exp(dA_cs).permute(0, 1, 3, 2)  # (b, c, l, h)
+    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, prev_states, q)
+    y = (y_diag + y_off).reshape(b, s, nh, p)[:, :s_orig]
+    return y, S
+
+
+def _check(x, dt, A, B, C, chunk: int) -> None:
+    """Validate the inputs of a CUDA launch; raise on what the kernel does not take."""
+    _build.check_tensor(x, "ssd_scan: x", x.dtype, x.device, 4)
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"ssd_scan takes float32 or bfloat16 x/B/C, got {x.dtype}")
+    _build.check_tensor(B, "ssd_scan: B", x.dtype, x.device, 3)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    for what, t, dtype, shape in (
+        ("dt", dt, torch.float32, (b, s, h)),
+        ("A", A, torch.float32, (h,)),
+        ("B", B, x.dtype, (b, s, n)),
+        ("C", C, x.dtype, (b, s, n)),
+    ):
+        _build.check_tensor(t, f"ssd_scan: {what}", dtype, x.device, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssd_scan: {what} has shape {tuple(t.shape)}, expected {shape}")
+    if p not in P_DIMS or n not in N_DIMS:
+        raise ValueError(f"ssd_scan takes p in {P_DIMS} and n in {N_DIMS}, got p={p} n={n}")
+    if x.numel() == 0 or chunk < 1:
+        raise ValueError(f"ssd_scan: empty input {tuple(x.shape)} or chunk {chunk}")
+    if min(chunk, s) > MAX_CHUNK:
+        raise ValueError(f"ssd_scan's CUDA kernel takes chunks of at most {MAX_CHUNK} rows, got {chunk}")
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int = 256):
+    """x (b, s, h, p); dt (b, s, h) f32; A (h,) f32; B/C (b, s, n), x's type
+    -> (y (b, s, h, p) f32, S_final (b, h, p, n) f32)."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
+    _check(x, dt, A, B, C, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    S_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    rc = _build.library().dacp_ssd_scan(
+        x.data_ptr(),
+        dt.data_ptr(),
+        A.data_ptr(),
+        B.data_ptr(),
+        C.data_ptr(),
+        y.data_ptr(),
+        S_final.data_ptr(),
+        DTYPE_CODES[x.dtype],
+        b,
+        s,
+        h,
+        p,
+        n,
+        min(chunk, s),
+        _build.stream_of(x),
+    )
+    _build.check(rc, "ssd_scan")
+    launches.bump()
+    return y, S_final

@@ -1,10 +1,13 @@
-"""Serving launcher of the port: batched prefill + greedy decode for a dense
-attention model, on an explicit device.
+"""Serving launcher of the port: batched prefill + greedy decode for any
+configuration the port's model zoo builds (dense attention, zamba2, xlstm),
+on an explicit device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \
         --batch 4 --prompt-len 64 --new-tokens 32                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --full \
         --prompts dacp://127.0.0.1:3101/prompts/prompts.jsonl     # prompts from a faird
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \
+        --batch 4 --prompt-len 1024 --new-tokens 32               # Mamba2 + shared attention
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
 with 0.

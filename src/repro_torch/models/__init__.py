@@ -1,5 +1,5 @@
-"""Model zoo of the port: decoder-only dense attention LMs on the port's
-attention kernels."""
+"""Model zoo of the port: decoder-only LMs — dense attention, zamba2
+(Mamba2 + shared attention) and xLSTM — on the port's kernels."""
 
 from repro_torch.models.model_zoo import ModelApi, build
 

@@ -7,10 +7,11 @@ the TPU-target twin.  The port calls its kernels on the model path itself:
 full-sequence attention is ``kernels.ops.flash_attention`` and decode is
 ``kernels.ops.decode_attention``, which compute the same function (a
 float32 softmax under the same causal and length masks).  ``cfg.attn_impl``
-chooses no other path here.  Each entry point takes ``kernels``, the pair
-of functions to call: ``KERNELS`` (the wrappers: CUDA kernels on the card,
-their plain versions on the CPU) unless the caller passes ``PLAIN`` to hold
-the kernels against their plain versions on the card.
+chooses no other path here.  Each entry point takes ``kernels``, the
+model's kernel bundle (``kernels.ops.ModelKernels``, re-exported here):
+``KERNELS`` (the wrappers: CUDA kernels on the card, their plain versions
+on the CPU) unless the caller passes ``PLAIN`` to hold the kernels against
+their plain versions on the card.
 
 Shapes: x (B, S, D); q (B, S, KV, G, hd); k/v (B, S, KV, hd).  The port's
 KV cache is (layers, B, KV, T, hd), the kernels' layout, where the
@@ -21,29 +22,12 @@ place.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable
-
 import torch
 
-from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ops import KERNELS, PLAIN, ModelKernels
 from repro_torch.models.layers import apply_rope, dense_init, norm_apply, rope_freqs
 
-__all__ = ["KERNELS", "PLAIN", "AttentionKernels", "attn_apply", "attn_decode", "attn_init", "make_cache"]
-
-
-@dataclasses.dataclass(frozen=True)
-class AttentionKernels:
-    """The two attention functions a model calls."""
-
-    flash_attention: Callable
-    decode_attention: Callable
-
-
-KERNELS = AttentionKernels(ops.flash_attention, ops.decode_attention)
-PLAIN = AttentionKernels(flash_attention_plain, decode_attention_plain)
+__all__ = ["KERNELS", "PLAIN", "ModelKernels", "attn_apply", "attn_decode", "attn_init", "make_cache"]
 
 
 def attn_init(gen, cfg, dtype) -> dict:

@@ -3,8 +3,11 @@
 The port keeps the reference's parameter names and shapes, so a reference
 parameter tree — as numpy arrays, for example
 ``jax.tree.map(np.asarray, params)`` — becomes the port's by a rename of
-array type.  The KV caches differ in layout: the reference's is (layers, B,
-T, KV, hd), the port's (layers, B, KV, T, hd), the kernels' layout.
+array type; each array keeps its float type (the reference keeps the
+Mamba2 ``A_log``, ``D`` and ``dt_bias`` in float32 under a bfloat16
+parameter type).  The KV caches differ in layout: the reference's is
+(layers, B, T, KV, hd), the port's (layers, B, KV, T, hd), the kernels'
+layout.  The Mamba2 and xLSTM states have the reference's layout.
 """
 
 from __future__ import annotations
@@ -20,18 +23,20 @@ __all__ = ["cache_to_reference", "params_from_numpy"]
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``: bfloat16 and float32 arrays keep their type,
+    other float types become ``dtype``."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
-        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype)
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(device)
+    t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=None if t.dtype == torch.float32 else dtype)
 
 
 def params_from_numpy(tree, cfg, device=None) -> dict:
     """The reference's parameter tree (nested dicts and lists of numpy
-    arrays) as the port's parameters on ``device``, in ``cfg.param_dtype``.
-    Both packages then compute the same function."""
+    arrays) as the port's parameters on ``device``; float types other than
+    bfloat16 and float32 become ``cfg.param_dtype``.  Both packages then
+    compute the same function."""
     lm.check_supported(cfg)
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, {cfg.name} has {cfg.n_layers}")
@@ -48,11 +53,29 @@ def params_from_numpy(tree, cfg, device=None) -> dict:
     return conv(tree)
 
 
-def cache_to_reference(cache) -> dict:
-    """A port KV cache as numpy arrays in the reference's layout:
-    k and v (layers, B, T, KV, hd) in float32, index int32."""
+def _np(t) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+def _kv_to_reference(kv) -> dict:
     return {
-        "k": cache["k"].permute(0, 1, 3, 2, 4).float().cpu().numpy(),
-        "v": cache["v"].permute(0, 1, 3, 2, 4).float().cpu().numpy(),
-        "index": np.int32(cache["index"]),
+        "k": _np(kv["k"].permute(0, 1, 3, 2, 4)),
+        "v": _np(kv["v"].permute(0, 1, 3, 2, 4)),
+        "index": np.int32(kv["index"]),
     }
+
+
+def cache_to_reference(cache) -> dict:
+    """A port decode cache as numpy arrays (float32, index int32) in the
+    reference's layout: for ``attn`` {k, v (layers, B, T, KV, hd), index};
+    for ``zamba2`` {ssm: {ssm, conv_x, conv_B, conv_C}, kv: {k, v, index}};
+    for ``xlstm`` {xlstm: one state dict per layer, index}."""
+    if "ssm" in cache:
+        return {"ssm": {k: _np(v) for k, v in cache["ssm"].items()}, "kv": _kv_to_reference(cache["kv"])}
+    if "xlstm" in cache:
+
+        def conv(node):
+            return {k: conv(v) for k, v in node.items()} if isinstance(node, dict) else _np(node)
+
+        return {"xlstm": [conv(st) for st in cache["xlstm"]], "index": np.int32(cache["index"])}
+    return _kv_to_reference(cache)

@@ -22,6 +22,7 @@ __all__ = [
     "ACT",
     "Dtypes",
     "apply_rope",
+    "causal_conv_silu",
     "dense_apply",
     "dense_init",
     "embed_tokens",
@@ -31,7 +32,9 @@ __all__ = [
     "mlp_init",
     "norm_apply",
     "norm_init",
+    "normal",
     "rope_freqs",
+    "softplus",
     "torch_dtype",
 ]
 
@@ -63,9 +66,27 @@ ACT = {
 }
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
     """N(0, std²) drawn in float32 on the generator's device, then cast."""
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * std).to(dtype)
+
+
+def softplus(x):
+    """``jax.nn.softplus``'s form, log1p(exp(-|x|)) + max(x, 0), exact for
+    every x (``F.softplus`` returns x itself above a threshold)."""
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp(min=0)
+
+
+def causal_conv_silu(x, w, state=None):
+    """Depthwise causal conv then SiLU, the front of the Mamba2 and xLSTM
+    blocks.  x (B, S, C), w (K, C); with ``state`` (B, K-1, C) it streams
+    (decode).  Returns (y, the last K-1 raw inputs: the next state)."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i : i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
+    return F.silu(y), (xp[:, -(k - 1) :, :] if k > 1 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +97,7 @@ def dense_init(gen, shape, axes, dtype, bias_axis=None, scale=None) -> dict:
     named "embed" make the fan-in, as in the reference."""
     fan_in = int(np.prod([s for s, a in zip(shape, axes) if a == "embed"])) or shape[0]
     std = scale if scale is not None else fan_in**-0.5
-    params = {"w": _normal(gen, tuple(shape), std, dtype)}
+    params = {"w": normal(gen, tuple(shape), std, dtype)}
     if bias_axis is not None:
         out_dims = tuple(s for s, a in zip(shape, axes) if a in bias_axis)
         params["b"] = torch.zeros(out_dims, dtype=dtype, device=gen.device)
@@ -117,7 +138,7 @@ def norm_apply(params, x, kind: str, eps: float = 1e-6):
 # embeddings / logits
 # ---------------------------------------------------------------------------
 def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
-    return {"table": _normal(gen, (vocab, d), d**-0.5, dtype)}
+    return {"table": normal(gen, (vocab, d), d**-0.5, dtype)}
 
 
 def embed_tokens(params, tokens, act_dtype):

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the ``attn`` block pattern — the port of
-``repro.models.lm`` for dense attention models.
+"""Decoder-only LM for the ``attn``, ``zamba2`` and ``xlstm`` block
+patterns — the port of ``repro.models.lm``.
 
     init(cfg, generator, device)                   -> params
     forward(params, tokens, cfg)                   -> (logits, aux)
@@ -7,12 +7,20 @@
     decode_step(params, token, cache, cfg)         -> (logits, cache)
     make_decode_cache(cfg, batch, max_seq, dtype, device)
 
-Attention runs through the port's kernels (``models.attention``).  MoE
-layers and the ``zamba2`` and ``xlstm`` block patterns come with their own
-slices and raise ``NotImplementedError`` here.  There is no sharding, remat
-or ZeRO-3 gather: they have no meaning on one card in eager PyTorch.
-Training (``loss_fn``) comes with ``optim/`` and ``train/`` (ROADMAP Queue 1
-item 10).
+Each entry point takes ``kernels``, the bundle of the four kernel functions
+the blocks call (``kernels.ops.KERNELS``, or ``PLAIN`` to hold the kernels
+against their plain versions on the card): attention runs
+``flash_attention`` / ``decode_attention``, Mamba2 ``ssd_scan`` and mLSTM
+``mlstm_chunk``.  MoE layers come with their own slice and raise
+``NotImplementedError``.  There is no sharding, remat or ZeRO-3 gather:
+they have no meaning on one card in eager PyTorch.  Training (``loss_fn``)
+comes with ``optim/`` and ``train/`` (ROADMAP Queue 1 item 10).
+
+Caches: ``attn`` {k, v (layers, B, KV, T, hd), index}; ``zamba2`` {ssm:
+{ssm, conv_x, conv_B, conv_C} stacked over the Mamba layers, kv: the
+shared block's {k, v, index}, one cache layer per application}; ``xlstm``
+{xlstm: one state per layer, index}.  Tensors of the ``attn`` and
+``zamba2`` caches are updated in place.
 """
 
 from __future__ import annotations
@@ -20,7 +28,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     Dtypes,
     embed_tokens,
@@ -40,15 +51,7 @@ def check_supported(cfg) -> None:
     port does not have yet, naming the ROADMAP item that brings them."""
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE layers come with the moe slice (ROADMAP Queue 1 item 9b)")
-    if cfg.block_pattern == "zamba2":
-        raise NotImplementedError(
-            f"{cfg.name}: the zamba2 pattern comes with ssm and ssd_scan (ROADMAP Queue 1 item 9c)"
-        )
-    if cfg.block_pattern == "xlstm":
-        raise NotImplementedError(
-            f"{cfg.name}: the xlstm pattern comes with xlstm and mlstm_chunk (ROADMAP Queue 1 item 9d)"
-        )
-    if cfg.block_pattern != "attn":
+    if cfg.block_pattern not in ("attn", "zamba2", "xlstm"):
         raise ValueError(f"unknown block pattern {cfg.block_pattern}")
 
 
@@ -64,21 +67,37 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     if generator.device.type != dev.type or (dev.index is not None and (generator.device.index or 0) != dev.index):
         raise ValueError(f"generator is on {generator.device}, weights asked for on {dev}")
     dt = Dtypes.from_cfg(cfg)
-    params: dict = {"embed": embedding_init(generator, cfg.padded_vocab, cfg.d_model, dt.param)}
+    g = generator
+    params: dict = {"embed": embedding_init(g, cfg.padded_vocab, cfg.d_model, dt.param)}
     if not cfg.tie_embeddings:
-        params["embed_out"] = embedding_init(generator, cfg.padded_vocab, cfg.d_model, dt.param)
+        params["embed_out"] = embedding_init(g, cfg.padded_vocab, cfg.d_model, dt.param)
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dt.param, dev)
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append(
-            {
-                "ln1": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
-                "attn": attn.attn_init(generator, cfg, dt.param),
-                "ln2": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
-                "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias),
-            }
-        )
+    for li in range(cfg.n_layers):
+        ln = norm_init(cfg.d_model, cfg.norm, dt.param, dev)
+        if cfg.block_pattern == "attn":
+            layers.append(
+                {
+                    "ln1": ln,
+                    "attn": attn.attn_init(g, cfg, dt.param),
+                    "ln2": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
+                    "mlp": mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias),
+                }
+            )
+        elif cfg.block_pattern == "zamba2":
+            layers.append({"ln": ln, "mamba": ssm_mod.mamba_init(g, cfg, dt.param)})
+        elif xl.is_slstm(cfg, li):
+            layers.append({"ln": ln, "slstm": xl.slstm_init(g, cfg, dt.param)})
+        else:
+            layers.append({"ln": ln, "mlstm": xl.mlstm_init(g, cfg, dt.param)})
     params["layers"] = layers
+    if cfg.block_pattern == "zamba2":
+        params["shared_attn"] = {
+            "ln_a": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
+            "attn": attn.attn_init(g, cfg, dt.param),
+            "ln_m": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
+            "mlp": mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param),
+        }
     return params
 
 
@@ -90,27 +109,75 @@ def _block(lp, x, cfg, kernels, layer_cache=None):
     return x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
 
 
+def _shared_block(sp, x, cfg, kernels, layer_cache=None):
+    """zamba2's shared attention + MLP block, after every ``attn_every``-th
+    Mamba block; its weights are shared by every application."""
+    x = x + attn.attn_apply(sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
+    return x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu)
+
+
 def _head(params, x, cfg):
     x = norm_apply(params["final_norm"], x, cfg.norm)
     emb = params["embed_out"] if not cfg.tie_embeddings else params["embed"]
     return logits_apply(emb, x, cfg.vocab_size)
 
 
-def forward(params, tokens, cfg, kernels=attn.KERNELS):
+def _body(params, x, cfg, kernels, cache=None):
+    """Every layer over the whole sequence.  With ``cache`` (a fresh decode
+    cache) the layers write their decode state into it."""
+    if cfg.block_pattern == "attn":
+        for li, lp in enumerate(params["layers"]):
+            layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
+            x = _block(lp, x, cfg, kernels, layer_cache)
+    elif cfg.block_pattern == "zamba2":
+        ai = 0
+        for li, lp in enumerate(params["layers"]):
+            y = ssm_mod.mamba_apply(
+                lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, return_state=cache is not None, kernels=kernels
+            )
+            if cache is not None:
+                y, st = y
+                for name, t in st.items():
+                    cache["ssm"][name][li].copy_(t)
+            x = x + y
+            if (li + 1) % cfg.attn_every == 0:
+                layer_cache = None if cache is None else (cache["kv"]["k"][ai], cache["kv"]["v"][ai])
+                x = _shared_block(params["shared_attn"], x, cfg, kernels, layer_cache)
+                ai += 1
+    else:
+        for li, lp in enumerate(params["layers"]):
+            h = norm_apply(lp["ln"], x, cfg.norm)
+            if xl.is_slstm(cfg, li):
+                y = xl.slstm_apply(lp["slstm"], h, cfg, return_state=cache is not None)
+            else:
+                y = xl.mlstm_apply(lp["mlstm"], h, cfg, return_state=cache is not None, kernels=kernels)
+            if cache is not None:
+                y, cache["xlstm"][li] = y
+            x = x + y
+    return x
+
+
+def forward(params, tokens, cfg, kernels=ops.KERNELS):
     """tokens: (B, S) -> (logits (B, S, V), aux_losses)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, Dtypes.from_cfg(cfg).act)
-    for lp in params["layers"]:
-        x = _block(lp, x, cfg, kernels)
-    return _head(params, x, cfg), 0.0
+    return _head(params, _body(params, x, cfg, kernels), cfg), 0.0
 
 
 def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
     check_supported(cfg)
-    return attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device_mod.resolve(device))
+    dev = device_mod.resolve(device)
+    if cfg.block_pattern == "attn":
+        return attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, dev)
+    if cfg.block_pattern == "zamba2":
+        return {
+            "ssm": ssm_mod.make_ssm_cache(cfg, batch, cfg.n_layers, dtype, dev),
+            "kv": attn.make_cache(cfg, batch, max_seq, cfg.n_layers // cfg.attn_every, dtype, dev),
+        }
+    return {"xlstm": xl.make_xlstm_cache(cfg, batch, dtype, dev), "index": 0}
 
 
-def prefill(params, tokens, cfg, max_seq: int, kernels=attn.KERNELS):
+def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):
     """Run the whole prompt, build the decode cache, return the last
     position's logits (B, 1, V).  Only the last position goes through the
     output head: each position's logits depend on that position alone."""
@@ -119,24 +186,57 @@ def prefill(params, tokens, cfg, max_seq: int, kernels=attn.KERNELS):
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit max_seq {max_seq}")
     dt = Dtypes.from_cfg(cfg)
-    cache = attn.make_cache(cfg, b, max_seq, cfg.n_layers, dt.act, tokens.device)
-    x = embed_tokens(params["embed"], tokens, dt.act)
-    for li, lp in enumerate(params["layers"]):
-        x = _block(lp, x, cfg, kernels, layer_cache=(cache["k"][li], cache["v"][li]))
-    cache["index"] = s
+    cache = make_decode_cache(cfg, b, max_seq, dt.act, tokens.device)
+    x = _body(params, embed_tokens(params["embed"], tokens, dt.act), cfg, kernels, cache)
+    if cfg.block_pattern == "zamba2":
+        cache["kv"]["index"] = s
+    else:
+        cache["index"] = s
     return _head(params, x[:, -1:], cfg), cache
 
 
-def decode_step(params, token, cache, cfg, kernels=attn.KERNELS):
-    """token: (B, 1) int.  Returns (logits (B, 1, V), cache with index + 1);
-    the cache's k and v tensors are updated in place."""
+def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
+    """token: (B, 1) int.  Returns (logits (B, 1, V), the cache one position
+    on); the ``attn`` and ``zamba2`` caches' tensors are updated in place."""
     check_supported(cfg)
-    idx = int(cache["index"])
     x = embed_tokens(params["embed"], token, Dtypes.from_cfg(cfg).act)
-    for li, lp in enumerate(params["layers"]):
-        h, _, _ = attn.attn_decode(
-            lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
-        )
-        x = x + h
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
-    return _head(params, x, cfg), {"k": cache["k"], "v": cache["v"], "index": idx + 1}
+    if cfg.block_pattern == "attn":
+        idx = int(cache["index"])
+        for li, lp in enumerate(params["layers"]):
+            h, _, _ = attn.attn_decode(
+                lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
+            )
+            x = x + h
+            x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+        cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
+    elif cfg.block_pattern == "zamba2":
+        sp = params["shared_attn"]
+        kv = cache["kv"]
+        idx = int(kv["index"])
+        ai = 0
+        for li, lp in enumerate(params["layers"]):
+            layer = {name: t[li] for name, t in cache["ssm"].items()}
+            y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, layer)
+            for name, t in st.items():
+                layer[name].copy_(t)
+            x = x + y
+            if (li + 1) % cfg.attn_every == 0:
+                h, _, _ = attn.attn_decode(
+                    sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, kv["k"][ai], kv["v"][ai], idx, kernels
+                )
+                x = x + h
+                x = x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu)
+                ai += 1
+        cache = {"ssm": cache["ssm"], "kv": {"k": kv["k"], "v": kv["v"], "index": idx + 1}}
+    else:
+        states = []
+        for li, lp in enumerate(params["layers"]):
+            h = norm_apply(lp["ln"], x, cfg.norm)
+            if xl.is_slstm(cfg, li):
+                y, st = xl.slstm_decode(lp["slstm"], h, cfg, cache["xlstm"][li])
+            else:
+                y, st = xl.mlstm_decode(lp["mlstm"], h, cfg, cache["xlstm"][li])
+            states.append(st)
+            x = x + y
+        cache = {"xlstm": states, "index": int(cache["index"]) + 1}
+    return _head(params, x, cfg), cache

@@ -1,5 +1,6 @@
-"""Unified model API of the port, for decoder-only configurations with the
-``attn`` block pattern (the port of ``repro.models.model_zoo``).
+"""Unified model API of the port, for decoder-only configurations of the
+``attn``, ``zamba2`` and ``xlstm`` block patterns (the port of
+``repro.models.model_zoo``).
 
     api = build(cfg)
     params        = api.init(generator, device)
@@ -18,7 +19,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention as attn
+from repro_torch.kernels import ops
 from repro_torch.models import lm
 
 __all__ = ["ModelApi", "build"]
@@ -34,10 +35,10 @@ class ModelApi:
     make_decode_cache: Callable
 
 
-def build(cfg: ArchConfig, kernels: attn.AttentionKernels = attn.KERNELS) -> ModelApi:
-    """The model's functions bound to ``cfg``; ``kernels`` picks the attention
-    functions (``attention.PLAIN`` holds the kernels against their plain
-    versions on the card)."""
+def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
+    """The model's functions bound to ``cfg``; ``kernels`` picks the kernel
+    functions (``ops.PLAIN`` holds the kernels against their plain versions
+    on the card)."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with encdec (ROADMAP Queue 1 item 9e)")
     lm.check_supported(cfg)

@@ -456,3 +456,121 @@ def test_torch_feed_stages_batches_on_the_card(dev, tmp_path):
     for a, b in zip(cpu, gpu):
         assert b["tokens"].device.type == "cuda"
         assert torch.equal(a["tokens"], b["tokens"].cpu()) and torch.equal(a["labels"], b["labels"].cpu())
+
+
+# ---------------------------------------------------------------------------
+# the SSD and mLSTM kernels and the zamba2 / xlstm models on them
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "b,s,h,p,n,chunk,dtype",
+    [
+        (4, 1024, 64, 64, 64, 256, torch.bfloat16),  # zamba2-1.2b prefill, one layer
+        (2, 1000, 8, 64, 64, 256, torch.bfloat16),  # ragged tail chunk
+        (2, 100, 3, 32, 16, 32, torch.float32),  # reduced widths
+        (1, 77, 2, 64, 32, 64, torch.float32),
+        (2, 5, 2, 32, 16, 256, torch.float32),
+    ],
+)
+def test_ssd_scan_kernel(dev, b, s, h, p, n, chunk, dtype):
+    """y and the final state within tests/test_kernels.py's 2e-4: both sides
+    compute in float32 from the same inputs."""
+    from repro_torch.kernels.ssd_scan import launches as ssd_launches
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    rng = np.random.default_rng(s + p + n)
+    x = _randn(rng, (b, s, h, p), dtype, dev)
+    dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
+    A = torch.from_numpy(-np.abs(rng.standard_normal(h)).astype(np.float32)).to(dev)
+    B, C = _randn(rng, (b, s, n), dtype, dev), _randn(rng, (b, s, n), dtype, dev)
+    before = ssd_launches.value
+    got = ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_launches.value == before + 1
+    for g, w in zip(got, ssd_scan_plain(x, dt, A, B, C, chunk)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,d,chunk,dtype",
+    [
+        (4, 1024, 4, 384, 256, torch.bfloat16),  # xlstm-125m prefill, one layer
+        (2, 1000, 2, 384, 256, torch.float32),  # ragged tail chunk
+        (2, 100, 3, 64, 32, torch.float32),  # reduced width
+        (2, 64, 2, 32, 16, torch.bfloat16),
+        (1, 130, 2, 128, 64, torch.float32),
+        (1, 70, 1, 256, 256, torch.float32),
+    ],
+)
+def test_mlstm_chunk_kernel(dev, b, s, h, d, chunk, dtype):
+    """y and the final (C, n, m) within tests/test_kernels.py's 5e-4."""
+    from repro_torch.kernels.mlstm_chunk import launches as mlstm_launches
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
+
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_randn(rng, (b, s, h, d), dtype, dev) for _ in range(3))
+    li = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)).to(dev)
+    lf = torch.from_numpy((rng.standard_normal((b, s, h)) - 1.0).astype(np.float32)).to(dev)
+    before = mlstm_launches.value
+    got = mlstm_chunk(q, k, v, li, lf, chunk)
+    torch.cuda.synchronize()
+    assert mlstm_launches.value == before + 1
+    for g, w in zip(got, mlstm_chunk_plain(q, k, v, li, lf, chunk)):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4)
+
+
+def test_scan_kernels_refuse_bad_arguments(dev, monkeypatch):
+    """An unsupported width raises before launch; a chunk the C entry point
+    refuses raises after it, and the launch does not count."""
+    import sys
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    ssd_mod = sys.modules["repro_torch.kernels.ssd_scan"]  # the package re-exports the function under its name
+    x = torch.zeros((1, 600, 2, 48), device=dev)
+    dt = torch.zeros((1, 600, 2), device=dev)
+    A = -torch.ones(2, device=dev)
+    B = torch.zeros((1, 600, 16), device=dev)
+    with pytest.raises(ValueError, match="takes p in"):
+        ssd_scan(x, dt, A, B, B)
+    with pytest.raises(ValueError, match="head dims"):
+        mlstm_chunk(x, x, x, dt, dt)
+    before = ops.LAUNCHES["ssd_scan"].value
+    monkeypatch.setattr(ssd_mod, "MAX_CHUNK", 1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(x[..., :32].contiguous(), dt, A, B, B, chunk=512)
+    assert ops.LAUNCHES["ssd_scan"].value == before
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_hybrid_kernel_path_matches_plain_path_on_the_card(dev, arch):
+    """Reduced zamba2 and xlstm in float32 on the card: prefill and three
+    decode steps through the kernels against the plain versions, with the
+    exact launch counts of each path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    cfg = get_config(arch).reduced()
+    kern, plain = build(cfg), build(cfg, ops.PLAIN)
+    params = kern.init(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 259, (3, 75)).astype(np.int32)).to(dev)
+    for c in ops.LAUNCHES.values():
+        c.reset()
+    got, cache_k = kern.prefill(params, {"tokens": tokens[:, :70]}, 80)
+    want, cache_p = plain.prefill(params, {"tokens": tokens[:, :70]}, 80)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        tok = tokens[:, 70 + i : 71 + i]
+        got, cache_k = kern.decode_step(params, tok, cache_k)
+        want, cache_p = plain.decode_step(params, tok, cache_p)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    counts = {n: c.value for n, c in ops.LAUNCHES.items() if c.value}
+    if arch.startswith("zamba2"):
+        n_attn = cfg.n_layers // cfg.attn_every
+        assert counts == {"ssd_scan": cfg.n_layers, "flash_attention": n_attn, "decode_attention": 3 * n_attn}
+        torch.testing.assert_close(cache_k["ssm"]["ssm"], cache_p["ssm"]["ssm"], rtol=1e-4, atol=1e-4)
+    else:
+        n_m = sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
+        assert counts == {"mlstm_chunk": n_m}

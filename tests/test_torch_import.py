@@ -60,3 +60,16 @@ def test_no_source_file_names_jax_or_repro():
             if top in ("jax", "jaxlib", "repro"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_the_sweep_covers_every_kernel_and_model_module():
+    """The import sweep above walks the whole package; the modules each
+    slice added are among the modules it imports."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    for mod in ("kernels.flash_attention", "kernels.decode_attention", "kernels.ssd_scan", "kernels.mlstm_chunk",
+                "models.attention", "models.ssm", "models.xlstm", "models.lm", "models.convert", "launch.serve"):
+        assert f"repro_torch.{mod}" in names, mod

@@ -1,4 +1,5 @@
-"""The port's serving path on the CPU against the reference's: prompts
+"""The port's serving path on the CPU against the reference's, for reduced
+granite-3-8b, zamba2-1.2b and xlstm-125m: prompts
 written to a corpus, tokenized in place by a ``FairdServer`` running
 ``training_dag``, read back by the feed, prefilled and greedily decoded.
 
@@ -110,11 +111,18 @@ def test_greedy_ids_match_reference_serving(servers):
         rnet.close_all()
     np.testing.assert_array_equal(prompts, ref_prompts)
 
-    rcfg = ref_config("granite-3-8b").reduced()
-    rapi = ref_build(rcfg)
+    out = _port_greedy("granite-3-8b", prompts)
+    np.testing.assert_array_equal(out["ids"], _reference_greedy("granite-3-8b", ref_prompts))
+    assert out["cache"]["index"] == PROMPT + NEW
+
+
+def _reference_greedy(arch, prompts):
+    """The reference serving path's greedy ids (B, NEW + 1) for reduced
+    ``arch`` with weights from PRNGKey(0)."""
+    rapi = ref_build(ref_config(arch).reduced())
     rparams, _ = rapi.init(jax.random.PRNGKey(0))
     max_seq = PROMPT + NEW
-    logits, cache = jax.jit(lambda p, b: rapi.prefill(p, b, max_seq))(rparams, {"tokens": jnp.asarray(ref_prompts)})
+    logits, cache = jax.jit(lambda p, b: rapi.prefill(p, b, max_seq))(rparams, {"tokens": jnp.asarray(prompts)})
     decode = jax.jit(rapi.decode_step)
     cur = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
     want = [np.asarray(cur)]
@@ -122,15 +130,28 @@ def test_greedy_ids_match_reference_serving(servers):
         logits, cache = decode(rparams, cur, cache)
         cur = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
         want.append(np.asarray(cur))
-    want = np.concatenate(want, axis=1)
+    return np.concatenate(want, axis=1)
 
-    cfg = get_config("granite-3-8b").reduced()
-    api = build(cfg)
+
+def _port_greedy(arch, prompts):
+    """The port's ``greedy_generate`` on the CPU from the same weights."""
+    rparams, _ = ref_build(ref_config(arch).reduced()).init(jax.random.PRNGKey(0))
+    cfg = get_config(arch).reduced()
     params = params_from_numpy(jax.tree.map(np.asarray, rparams), cfg, "cpu")
-    out = serve.greedy_generate(api, params, torch.from_numpy(prompts), NEW)
-    assert out["ids"].shape == (4, NEW + 1)
-    np.testing.assert_array_equal(out["ids"], want)
-    assert out["cache"]["index"] == max_seq
+    out = serve.greedy_generate(build(cfg), params, torch.from_numpy(prompts), NEW)
+    assert out["ids"].shape == (prompts.shape[0], NEW + 1)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_hybrid_greedy_ids_match_reference_serving(servers, arch):
+    """Reduced zamba2 (Mamba2 + shared attention) and xlstm (mLSTM + sLSTM)
+    served from the port server's DACP prompts: the port's greedy ids are
+    the reference serving path's."""
+    port_auth, _ = servers
+    prompts = serve.dacp_prompts(_uri(port_auth), 4, PROMPT)
+    out = _port_greedy(arch, prompts)
+    np.testing.assert_array_equal(out["ids"], _reference_greedy(arch, prompts))
 
 
 def test_serve_launcher_reads_prompts_from_a_faird(servers, capsys):
@@ -140,6 +161,14 @@ def test_serve_launcher_reads_prompts_from_a_faird(servers, capsys):
     printed = capsys.readouterr().out
     assert "arch=qwen1.5-0.5b" in printed and "device=cpu" in printed and "ms/tok" in printed
     assert out["ids"].shape == (2, 4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_serve_launcher_serves_hybrids(servers, arch, capsys):
+    port_auth, _ = servers
+    out = serve.main(["--device", "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "40", "--new-tokens", "3",
+                      "--prompts", _uri(port_auth)])
+    assert f"arch={arch}" in capsys.readouterr().out and out["ids"].shape == (2, 4)
 
 
 def test_serve_launcher_random_prompts(capsys):
@@ -172,3 +201,19 @@ def test_serve_decode_torch_example_runs_on_the_cpu():
     )
     assert res.returncode == 0, res.stderr
     assert "request batch: (2, 16) on cpu" in res.stdout and "cache index: 19" in res.stdout
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_serve_decode_torch_example_serves_hybrids(arch):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, str(root / "examples" / "serve_decode_torch.py"), "--device", "cpu", "--requests", "2",
+         "--prompt-len", "40", "--new-tokens", "3", "--arch", arch],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "request batch: (2, 40) on cpu" in res.stdout and "cache index: 43" in res.stdout

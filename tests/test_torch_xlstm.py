@@ -1,0 +1,183 @@
+"""The port's chunkwise mLSTM and xLSTM blocks on the CPU against the JAX
+package's: ``mlstm_chunk_plain`` (what the wrapper runs for CPU tensors)
+against the Pallas kernel in interpret mode and the sequential oracle
+``ref.mlstm_chunk_ref``, over ``tests/test_kernels.py``'s sweep; its final
+(C, n, m) and ragged lengths against ``repro.models.xlstm._mlstm_cell_scan``;
+and the mLSTM and sLSTM blocks (full sequence and decode) against the
+reference's on weights carried over by ``params_from_numpy``.
+
+Tolerances: 5e-4 absolute and relative for the cell
+(``tests/test_kernels.py``'s: the chunkwise and recurrent forms sum in
+different orders, and the denominator max(|q·n|, e^-m) amplifies that
+where |q·n| is small); 1e-4 for the blocks in float32.  The CUDA kernel is
+held to the plain version on the card (``test_torch_gpu.py``,
+``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro.configs import get_config as ref_config
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref
+from repro.models import build as ref_build
+from repro.models import xlstm as ref_xl
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.mlstm_chunk import _check, mlstm_chunk_plain
+from repro_torch.models import xlstm
+from repro_torch.models.convert import params_from_numpy
+
+TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+def _inputs(rng, b, s, h, d):
+    q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32) for _ in range(3))
+    li = rng.normal(size=(b, s, h)).astype(np.float32)
+    lf = (rng.normal(size=(b, s, h)) - 1.0).astype(np.float32)
+    return q, k, v, li, lf
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("s,chunk,d", [(64, 16, 32), (128, 64, 64)])
+def test_mlstm_chunk_plain_matches_pallas_kernel_and_oracle(s, chunk, d):
+    arrays = _inputs(np.random.default_rng(s + d), 2, s, 2, d)
+    y, C, n, m = ops.mlstm_chunk(*_t(arrays), chunk=chunk)
+    assert (tuple(C.shape), tuple(n.shape), tuple(m.shape)) == ((2, 2, d, d), (2, 2, d), (2, 2))
+    assert_allclose(y.numpy(), np.asarray(jax_ops.mlstm_chunk(*_j(arrays), chunk=chunk)), **TOL)
+    assert_allclose(y.numpy(), np.asarray(ref.mlstm_chunk_ref(*_j(arrays))), **TOL)
+
+
+@pytest.mark.parametrize("s,chunk,d", [(64, 16, 32), (100, 32, 64), (77, 256, 32), (300, 256, 384), (1, 256, 64)])
+def test_mlstm_chunk_plain_final_state_and_ragged_match_cell_scan(s, chunk, d):
+    """The final (C, n, m) equals the recurrent scan's final carry; lengths
+    no chunk divides (the Pallas kernel asserts against them) give the
+    scan's outputs.  The scan starts m at -inf, the chunk form at -1e30."""
+    arrays = _inputs(np.random.default_rng(s * 3 + d), 2, s, 2, d)
+    y, C, n, m = mlstm_chunk_plain(*_t(arrays), chunk=chunk)
+    want_y, (want_C, want_n, want_m) = ref_xl._mlstm_cell_scan(*_j(arrays))
+    assert tuple(y.shape) == (2, s, 2, d)
+    assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    assert_allclose(C.numpy(), np.asarray(want_C), **TOL)
+    assert_allclose(n.numpy(), np.asarray(want_n), **TOL)
+    assert_allclose(m.numpy(), np.asarray(want_m), **TOL)
+
+
+@pytest.mark.parametrize(
+    "change,error,match",
+    [
+        (dict(d=48), ValueError, "head dims"),
+        (dict(chunk=300), ValueError, "at most 256"),
+        (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+        (dict(li_dtype=torch.bfloat16), TypeError, "log_i must be torch.float32"),
+        (dict(v_len=9), ValueError, "v has shape"),
+    ],
+)
+def test_mlstm_chunk_launch_checks_refuse_what_the_kernel_does_not_take(change, error, match):
+    """The CUDA wrapper's checks, which run before any pointer reaches C;
+    checked here on CPU tensors."""
+    d, dtype, s = change.get("d", 32), change.get("dtype", torch.float32), 300
+    q = torch.zeros((1, s, 2, d), dtype=dtype)
+    v = torch.zeros((1, change.get("v_len", s), 2, d), dtype=dtype)
+    li = torch.zeros((1, s, 2), dtype=change.get("li_dtype", torch.float32))
+    with pytest.raises(error, match=match):
+        _check(q, q, v, li, torch.zeros((1, s, 2)), change.get("chunk", 256))
+
+
+def test_mlstm_chunk_wrapper_refuses_other_devices_and_counts_no_cpu_call():
+    before = ops.LAUNCHES["mlstm_chunk"].value
+    arrays = _t(_inputs(np.random.default_rng(1), 1, 8, 2, 32))
+    ops.mlstm_chunk(*arrays, chunk=4)
+    assert ops.LAUNCHES["mlstm_chunk"].value == before
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        ops.mlstm_chunk(*(a.to("meta") for a in arrays))
+
+
+# ---------------------------------------------------------------------------
+# the blocks
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def xl_pair():
+    """(reference cfg, reference params, port cfg, port params) of reduced
+    xlstm-125m (layers 0, 1 and 3 mLSTM, layer 2 sLSTM), converted weights."""
+    rcfg, cfg = ref_config("xlstm-125m").reduced(), get_config("xlstm-125m").reduced()
+    rparams, _ = ref_build(rcfg).init(jax.random.PRNGKey(3))
+    return rcfg, rparams, cfg, params_from_numpy(jax.tree.map(np.asarray, rparams), cfg, "cpu")
+
+
+def _x(cfg, s, seed):
+    return np.random.default_rng(seed).normal(size=(2, s, cfg.d_model)).astype(np.float32)
+
+
+def _close(got, want):
+    """Each leaf of a port state (nested dicts of tensors) against the
+    reference's, within 1e-4."""
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want)
+        for k in got:
+            _close(got[k], want[k])
+        return
+    assert tuple(got.shape) == want.shape
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind,layer", [("mlstm", 0), ("slstm", 2)])
+def test_blocks_match_reference_over_the_sequence_and_in_decode(xl_pair, kind, layer):
+    """``*_apply`` over 37 positions (state included), then three decode
+    steps from that state."""
+    rcfg, rparams, cfg, params = xl_pair
+    rp, p = rparams["layers"][layer][kind], params["layers"][layer][kind]
+    rmod_apply, rmod_decode = getattr(ref_xl, f"{kind}_apply"), getattr(ref_xl, f"{kind}_decode")
+    apply, decode = getattr(xlstm, f"{kind}_apply"), getattr(xlstm, f"{kind}_decode")
+    x = _x(cfg, 40, seed=layer)
+    want, want_st = rmod_apply(rp, jnp.asarray(x[:, :37]), rcfg, return_state=True)
+    got, st = apply(p, torch.from_numpy(x[:, :37]), cfg, return_state=True)
+    assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    _close(st, want_st)
+    for i in range(37, 40):
+        want, want_st = rmod_decode(rp, jnp.asarray(x[:, i : i + 1]), rcfg, want_st)
+        got, st = decode(p, torch.from_numpy(x[:, i : i + 1]), cfg, st)
+        assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    _close(st, want_st)
+
+
+def test_mlstm_decode_from_the_empty_state_matches_reference(xl_pair):
+    """Decode from ``make_xlstm_cache``'s state (m = -1e30), as the
+    reference's decode runs from its own."""
+    rcfg, rparams, cfg, params = xl_pair
+    rcache = ref_xl.make_xlstm_cache(rcfg, 2, jnp.float32)
+    cache = xlstm.make_xlstm_cache(cfg, 2, torch.float32, "cpu")
+    _close(cache[2], rcache[2])
+    want_st, st = rcache[0], cache[0]
+    _close(st, want_st)
+    x = _x(cfg, 3, seed=9)
+    for i in range(3):
+        want, want_st = ref_xl.mlstm_decode(rparams["layers"][0]["mlstm"], jnp.asarray(x[:, i : i + 1]), rcfg, want_st)
+        got, st = xlstm.mlstm_decode(params["layers"][0]["mlstm"], torch.from_numpy(x[:, i : i + 1]), cfg, st)
+        assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    _close(st, want_st)
+
+
+def test_mlstm_decode_continues_the_full_sequence(xl_pair):
+    """The port's own consistency: the kernel path's prefill of 30
+    positions, then 6 one-step recurrences, gives the full sequence's
+    outputs."""
+    _, _, cfg, params = xl_pair
+    p = params["layers"][1]["mlstm"]
+    x = torch.from_numpy(_x(cfg, 36, seed=8))
+    full = xlstm.mlstm_apply(p, x, cfg)
+    _, st = xlstm.mlstm_apply(p, x[:, :30], cfg, return_state=True)
+    for i in range(30, 36):
+        y, st = xlstm.mlstm_decode(p, x[:, i : i + 1], cfg, st)
+        assert_allclose(y.numpy(), full[:, i : i + 1].numpy(), rtol=1e-4, atol=1e-4)
