@@ -22,9 +22,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      morsel and its D2H copy, and one fused morsel's encode, staging and
      fold on the host clock.  The two attention kernels are held to their
      plain versions within tests/test_kernels.py's tolerances (float32
-     3e-5, bfloat16 2e-2) at the serving shapes of phase 4, at ragged
+     3e-5, bfloat16 2e-2) at the serving shapes of phases 4-5, at ragged
      shapes, in float32 and at head dims 32 and 256, and timed beside their
-     plain versions and ``F.scaled_dot_product_attention``.  ``ssd_scan``
+     plain versions and ``F.scaled_dot_product_attention``; ``cuobjdump
+     -sass`` must find tensor-core instructions in the bf16 flash kernel.
+     The two redesigned kernels (``flash_attention``, ``segment_sum_tiles``)
+     print their design and the fraction of their bound they reach.  ``ssd_scan``
      and ``mlstm_chunk`` are held to their plain versions (y and the final
      state) within tests/test_kernels.py's tolerances (2e-4, 5e-4) at the
      serving shapes of phase 5, at a ragged length, at reduced widths and in
@@ -219,6 +222,32 @@ def _kernel_device_ms(fn) -> float | None:
         print(f"profiler saw no kernel time; device events: {times}", file=sys.stderr)
         return None
     return us / 1e3 / REPS
+
+
+def _all_device_ms(fn, name: str = "") -> float:
+    """Device time per call of every kernel, copy and fill ``fn`` runs
+    (REPS calls, profiled), or of those whose name holds ``name``."""
+    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    return sum(v for k, v in times.items() if name in k) / 1e3 / REPS
+
+
+def tensor_core_instructions(kernel: str) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of the built
+    library's functions whose name holds ``kernel``, by ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+
+    cands = (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"), shutil.which("cuobjdump"))
+    tool = next((c for c in cands if c and os.path.exists(c)), None)
+    check(tool is not None, "cuobjdump not found ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
+    res = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr.strip()[-500:]}")
+    n, function = 0, ""
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            function = ln
+        elif kernel in function and ("HMMA" in ln or "HGMMA" in ln):
+            n += 1
+    return n
 
 
 def _time_ms(fn) -> float:
@@ -459,11 +488,21 @@ def check_segment_sum(dev, rng) -> KernelRecord:
             _time_kernel(rec, lambda: sr.segment_sum_tiles(g_dev, l_dev, n, g, TILE))
             rec.plain_ms = _time_ms(lambda: sr.segment_sum_tiles_plain(g_dev, l_dev, n, g, TILE))
             idx = g_dev.to(torch.int64)
-            rec.library_ms = _time_ms(
-                lambda: torch.zeros((g, s), dtype=torch.int32, device=dev).index_add_(0, idx, l_dev)
-            )
+
+            def library():
+                return torch.zeros((g, s), dtype=torch.int32, device=dev).index_add_(0, idx, l_dev)
+
+            rec.library_ms = _time_ms(library)
             rec.bound_ms = _bytes_bound_ms(4 * n + 4 * n * s + 4 * g * s + 4 * g)
             rec.shape = f"N={n} S={s} G={g}"
+            # device time beside device time: the kernel against index_add_'s
+            # kernel, and the wrapper (two zero fills and the kernel) against
+            # the library call (one fill and index_add_)
+            rec.extra["library_device_ms"] = _all_device_ms(library, "index")
+            rec.extra["library_call_device_ms"] = _all_device_ms(library)
+            rec.extra["call_device_ms"] = _all_device_ms(lambda: sr.segment_sum_tiles(g_dev, l_dev, n, g, TILE))
+            rec.extra["design"] = "warp-aggregated (match_any + shuffle tree), grid-stride over 2 blocks per SM"
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
         else:
             s = limbs.shape[1]
             rec.wide(lambda: sr.segment_sum_tiles(g_dev, l_dev, n, g, TILE), 4 * n + 4 * n * s + 4 * g * s + 4 * g,
@@ -727,6 +766,7 @@ def check_flash(dev, rng) -> KernelRecord:
         ("f32-full", 2, 1, 3, 77, 130, 64, torch.float32, False),
         ("hd32", 2, 2, 1, 65, 65, 32, torch.float32, True),
         ("hd256", 1, 1, 8, 300, 300, 256, torch.bfloat16, True),
+        ("zamba2", b, 32, 1, SERVE_PROMPT, SERVE_PROMPT, 64, torch.bfloat16, True),
     ]
     for label, bb, nk, gg, s, t, d, dtype, causal in cases:
         q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, s, d), (bb, nk, t, d), (bb, nk, t, d))
@@ -744,6 +784,15 @@ def check_flash(dev, rng) -> KernelRecord:
             rec.bound_ms, rec.bound_by = max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
             rec.shape = f"B={bb} KV={nk} G={gg} S=T={s} hd={d} bfloat16 causal"
             rec.extra["tflops"] = flops / (rec.ms * 1e-3) / 1e12
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+        elif label == "zamba2":  # the shared attention block's prefill, timed beside the serving shape
+            zamba2 = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+            rec.extra["zamba2_ms"] = _kernel_device_ms(zamba2) or _time_ms(zamba2)
+            rec.extra["zamba2_library_ms"] = _sdpa_ms(q.reshape(bb, nk * gg, s, d), k, v, causal=True)
+    # bfloat16 runs on the tensor cores (wgmma); float32 on the CUDA cores
+    rec.extra["design"] = "wgmma"
+    rec.extra["tensor_core_instructions"] = tensor_core_instructions("flash_attn_bf16")
+    check(rec.extra["tensor_core_instructions"] > 0, "the bf16 flash kernel's SASS holds no HMMA / HGMMA")
     return rec
 
 
@@ -1509,6 +1558,15 @@ def main() -> None:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
             f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
             f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
+    for r in (records[2], records[5]):
+        log(f"redesigned {r.name}: design {r.extra['design']}, {r.extra['bound_fraction']:.4f} of its bound "
+            f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms)")
+    seg = records[2]
+    log(f"segment_sum_tiles device ms: kernel {seg.ms:.6f} against index_add_ {seg.extra['library_device_ms']:.6f}; "
+        f"wrapper {seg.extra['call_device_ms']:.6f} against the library call {seg.extra['library_call_device_ms']:.6f}")
+    flash = records[5]
+    log(f"flash_attention bf16 SASS: {flash.extra['tensor_core_instructions']} tensor-core instructions; "
+        f"zamba2 shape {flash.extra['zamba2_ms']:.6f} ms (SDPA {flash.extra['zamba2_library_ms']:.6f} ms)")
     fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
         f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call)")

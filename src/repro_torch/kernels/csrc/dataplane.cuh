@@ -1,8 +1,9 @@
 // Device code shared by the row-parallel data-plane kernels: the predicate
 // compare of filter_select.cu, the block-wide stable prefix sum that gives
-// each surviving row its slot in its tile, and the postfix-program
-// interpreter of project_arith.cu with its host-NaN rule.  fused_chain.cu
-// runs all three in one launch.
+// each surviving row its slot in its tile, the warp-aggregated fold of
+// segment_reduce.cu's sums, and the postfix-program interpreter of
+// project_arith.cu with its host-NaN rule.  fused_chain.cu runs the
+// predicate, the prefix sum and the interpreter in one launch.
 #pragma once
 
 #include "common.cuh"
@@ -91,6 +92,39 @@ __device__ __forceinline__ int dacp_block_slot(bool m, int* warp_total, int* tot
   __syncthreads();
   *total = sum;
   return offset + before;
+}
+
+// ---------------------------------------------------------------------------
+// warp-aggregated fold
+// ---------------------------------------------------------------------------
+// Sums NV values per lane over each set of lanes that share a key, so that
+// a skewed group costs one shared atomic per column per warp instead of one
+// per row.  Every lane of the warp calls it together with
+// peers = __match_any_sync(0xffffffff, key) and its values v; it returns
+// true on the lowest lane of each set, whose v then holds the set's sums.
+// A tree over each set's lanes in lane order: in round i every remaining
+// lane adds the values of the next remaining lane above it, and the lanes
+// at odd positions drop out, so a set of k lanes takes ceil(log2 k) rounds
+// (Westphal's reduce_peers).  The loop count is uniform across the warp.
+// int32 addition: exact in any order while the sums stay in range.
+template <int NV>
+__device__ __forceinline__ bool dacp_peer_sum(unsigned peers, int32_t (&v)[NV]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = peers & ((1u << lane) - 1u);
+  unsigned rank = __popc(below);             // position among the set's lanes
+  unsigned above = peers & (0xfffffffeu << lane);  // remaining lanes of the set above this one
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above);  // 1 + lane of the next one, 0 if none
+    const int src = next > 0 ? next - 1 : lane;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int32_t t = __shfl_sync(0xffffffffu, v[j], src);
+      if (next > 0) v[j] += t;
+    }
+    above &= __ballot_sync(0xffffffffu, (rank & 1u) == 0u);
+    rank >>= 1;
+  }
+  return below == 0u;
 }
 
 // ---------------------------------------------------------------------------

@@ -3,14 +3,34 @@
 //
 // Replaces the TPU kernels in src/repro/kernels/segment_reduce.py:
 // segment_sum_tiles (body _sum_kernel, _onehot) and segment_minmax_tiles
-// (body _minmax_kernel).
+// (body _minmax_kernel).  The TPU kernels walk the row tiles in order and
+// carry the accumulators from one grid step to the next; blocks on Hopper
+// run in no order, so each block folds its rows into shared memory and then
+// folds its partials into the output with global atomics.  Rows whose group
+// id lies outside [0, G) are skipped, as the one-hot never matches them.
 //
 // segment_sum_tiles: sums (G, S) int32 of 8-bit limb planes per group, plus
 // the group counts (G,), over rows < n_rows.  The host keeps every limb sum
 // below 2^26 (SUM_ROW_CAP rows), so int32 addition is exact in any order and
 // atomics give the same bits as the TPU's one-hot matmul.
 //   Bound: bytes.  Reads gidx (4·N) and limbs (4·N·S) once, writes the sums
-//   and counts: 4·(N·(S+1) + G·(S+1)) bytes at 3.35 TB/s.
+//   and counts: 4·(N·(S+1) + G·(S+1)) bytes at 3.35 TB/s, 0.7 µs at one
+//   65536-row morsel of 8 limbs — far below a launch, so what counts is
+//   filling the card and not serialising on hot groups.  Group ids are
+//   skewed (Zipf over 200 stations: a fifth of the rows in one group), and
+//   same-address shared atomics of one warp serialise.
+//   Design: a grid-stride loop over at most two blocks per SM (256 blocks
+//   for a 65536-row morsel), one thread per row: it reads its group id
+//   once and its limbs with 16-byte loads where the rows allow, and the
+//   count rides along as one more column.  Before any shared atomic the
+//   warp aggregates: __match_any_sync on the group id, then a shuffle tree
+//   over each set of lanes that share it (dacp_peer_sum in dataplane.cuh),
+//   so the set's lowest lane adds once per column — a warp whose 32 rows
+//   are all one station does 9 shared atomics instead of 288.  Each half of
+//   the block keeps its own (G, cols + 1) bins where two copies fit in
+//   48 KB; the block then flushes the nonzero bins with global atomics.
+//   Columns tile over gridDim.y (at most 32 a block) so that the bins fit
+//   for any G the gate takes.
 //
 // segment_minmax_tiles: per-group min or max of each of M columns (fns picks
 // per column), float32 or int32.  Empty groups hold the identities: +inf /
@@ -22,62 +42,78 @@
 //   zeros and propagates NaN; the backend therefore never sends a float32
 //   column that holds NaN, ±inf or -0.0 (the plain version defines the same
 //   key order for any input).
-//
-// Design: the TPU kernels walk the row tiles in order and carry the
-// accumulators from one grid step to the next.  Blocks on Hopper run in no
-// order, so each block takes a range of rows, folds it into shared memory
-// with int32 atomicAdd / atomicMin / atomicMax, and then folds its partials
-// into the output with global atomics.  Columns tile over gridDim.y so that
-// shared memory stays within the default 48 KB for any G.  Rows whose group
-// id lies outside [0, G) are skipped, as the one-hot never matches them.
-#include "common.cuh"
+//   Design: each block takes 2048 rows, one element per thread and step,
+//   and folds them with int32 atomicMin / atomicMax into shared keys.
+#include "dataplane.cuh"
 
 #define ROWS_PER_BLOCK 2048
 #define COLS_MAX 32
 #define SHARED_INTS 12288  // 48 KB
 
 // --- segment sum -------------------------------------------------------------
-__global__ void segment_sum_kernel(const int32_t* __restrict__ gidx, const int32_t* __restrict__ limbs, int S,
-                                   int n_rows, int G, int cpb, int32_t* __restrict__ sums,
-                                   int32_t* __restrict__ counts) {
+#define SUM_THREADS 256
+#define SUM_CHUNK 8  // limb columns a thread folds at once (two int4 loads)
+
+// VEC: every row's limbs of this launch start 16-byte aligned (limbs
+// aligned, S and the column offsets multiples of 4), so full chunks load as
+// two int4.  bins: copies × G × ld ints, ld = cols + 1 (the count last).
+template <bool VEC>
+__global__ void __launch_bounds__(SUM_THREADS)
+    segment_sum_kernel(const int32_t* __restrict__ gidx, const int32_t* __restrict__ limbs, int S, int n_rows, int G,
+                       int cpb, int ld, int copies, int32_t* __restrict__ sums, int32_t* __restrict__ counts) {
   extern __shared__ int32_t sh[];
   const int c0 = blockIdx.y * cpb;
   const int cols = dacp_imax(0, dacp_imin(cpb, S - c0));
-  int32_t* sh_sum = sh;
-  int32_t* sh_cnt = sh + G * cpb;
+  const int n_bins = G * ld;
   const bool do_count = blockIdx.y == 0;
-  for (int i = threadIdx.x; i < G * (cpb + 1); i += blockDim.x) sh[i] = 0;
+  for (int i = threadIdx.x; i < copies * n_bins; i += blockDim.x) sh[i] = 0;
   __syncthreads();
+  int32_t* bins = sh + (copies > 1 && threadIdx.x >= blockDim.x / 2 ? n_bins : 0);
 
-  const int64_t r0 = (int64_t)blockIdx.x * ROWS_PER_BLOCK;
-  const int64_t r1 = dacp_min64(r0 + ROWS_PER_BLOCK, (int64_t)n_rows);
-  if (cols > 0) {
-    const int64_t n_el = (r1 - r0) * cols;
-    for (int64_t e = threadIdx.x; e < n_el; e += blockDim.x) {
-      const int64_t r = r0 + e / cols;
-      const int c = (int)(e % cols);
-      const int g = gidx[r];
-      if (g >= 0 && g < G) atomicAdd(&sh_sum[g * cpb + c], limbs[r * S + c0 + c]);
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = dacp_imax(1, (cols + SUM_CHUNK - 1) / SUM_CHUNK);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  // the whole warp walks the rows together: the aggregation needs all 32 lanes
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < n_rows; base += stride) {
+    const int64_t r = base + lane;
+    int g = r < n_rows ? gidx[r] : -1;
+    const bool ok = g >= 0 && g < G;
+    if (!ok) g = -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, g);
+    const int32_t* row = limbs + r * S + c0;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c = ch * SUM_CHUNK;
+      const int n = dacp_imin(SUM_CHUNK, cols - c);
+      int32_t v[SUM_CHUNK + 1];
+      if (VEC && ok && n == SUM_CHUNK) {
+        const int4 a = *reinterpret_cast<const int4*>(row + c);
+        const int4 b = *reinterpret_cast<const int4*>(row + c + 4);
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < SUM_CHUNK; ++j) v[j] = ok && j < n ? row[c + j] : 0;
+      }
+      v[SUM_CHUNK] = ok && do_count && ch == 0 ? 1 : 0;
+      if (dacp_peer_sum(peers, v) && ok) {
+        int32_t* dst = bins + g * ld;
+#pragma unroll
+        for (int j = 0; j < SUM_CHUNK; ++j)
+          if (j < n && v[j] != 0) atomicAdd(&dst[c + j], v[j]);
+        if (v[SUM_CHUNK] != 0) atomicAdd(&dst[ld - 1], v[SUM_CHUNK]);
+      }
     }
   }
-  if (do_count) {
-    for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-      const int g = gidx[r];
-      if (g >= 0 && g < G) atomicAdd(&sh_cnt[g], 1);
-    }
-  }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < G * cols; i += blockDim.x) {
-    const int g = i / cols;
-    const int c = i % cols;
-    const int32_t v = sh_sum[g * cpb + c];
-    if (v != 0) atomicAdd(&sums[(int64_t)g * S + c0 + c], v);
-  }
-  if (do_count) {
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-      const int32_t v = sh_cnt[g];
-      if (v != 0) atomicAdd(&counts[g], v);
+  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
+    const int32_t v = copies > 1 ? sh[i] + sh[n_bins + i] : sh[i];
+    if (v == 0) continue;
+    const int g = i / ld, j = i % ld;
+    if (j == ld - 1) {
+      if (do_count) atomicAdd(&counts[g], v);
+    } else if (j < cols) {
+      atomicAdd(&sums[(int64_t)g * S + c0 + j], v);
     }
   }
 }
@@ -90,10 +126,23 @@ DACP_API int dacp_segment_sum(const int32_t* gidx, const int32_t* limbs, int S, 
   const int cpb = dacp_imin(COLS_MAX, SHARED_INTS / G - 1);
   if (cpb < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return dacp_last_error();
-  const dim3 grid((unsigned)((n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK), (unsigned)dacp_imax(1, (S + cpb - 1) / cpb));
-  const size_t shmem = sizeof(int32_t) * (size_t)G * (cpb + 1);
-  segment_sum_kernel<<<grid, DACP_THREADS, shmem, (cudaStream_t)stream>>>(gidx, limbs, S, n_rows, G, cpb, sums,
-                                                                         counts);
+  const int y_blocks = dacp_imax(1, (S + cpb - 1) / cpb);
+  const int ld = dacp_imin(cpb, S) + 1;
+  const int copies = 2 * G * ld <= SHARED_INTS ? 2 : 1;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t row_blocks = ((int64_t)n_rows + SUM_THREADS - 1) / SUM_THREADS;
+  const dim3 grid((unsigned)dacp_min64(row_blocks, 2 * (int64_t)sms), (unsigned)y_blocks);
+  const size_t shmem = sizeof(int32_t) * (size_t)copies * G * ld;
+  const bool vec = ((uintptr_t)limbs % 16 == 0) && S % 4 == 0 && (y_blocks == 1 || cpb % 4 == 0);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    segment_sum_kernel<true><<<grid, SUM_THREADS, shmem, s>>>(gidx, limbs, S, n_rows, G, cpb, ld, copies, sums, counts);
+  } else {
+    segment_sum_kernel<false><<<grid, SUM_THREADS, shmem, s>>>(gidx, limbs, S, n_rows, G, cpb, ld, copies, sums, counts);
+  }
   return dacp_last_error();
 }
 

@@ -11,10 +11,15 @@ For a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/flash_attention.cu`` (float32 or bfloat16, hd 32/64/128/256, any
 strides with a contiguous head dim — the model passes permuted views of its
 projections without copying, and the output takes q's memory layout) or
-raises; for a CPU tensor it runs ``flash_attention_plain``.  The CUDA
-kernel is bound by operations: it runs its products in float32 on the CUDA
-cores, one block per (b·kv, g, 64 query rows) looping over 32-row kv tiles
-staged in shared memory (see the source for the design).
+raises; for a CPU tensor it runs ``flash_attention_plain``.  The kernel is
+bound by operations.  For bfloat16, every serving call, both products run
+on the tensor cores as Hopper's ``wgmma`` (bf16 -> float32): one block of
+two warpgroups per (b·kv, g, 128 query rows), two blocks per SM, q and k/v
+tiles loaded by TMA from tensor maps of the views (a two-stage ring), the
+softmax on the accumulator fragments in registers, p fed to the second
+product from registers; its rows must be 16-byte aligned.  float32
+inputs, held to 3e-5, which bf16 or TF32 products cannot meet, take a
+CUDA-core kernel of float32 FMAs.  See the source for the design.
 """
 
 from __future__ import annotations
@@ -74,17 +79,31 @@ def check_inputs(name: str, q, k, v, q_ndim: int) -> None:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match k {tuple(k.shape)} / v {tuple(v.shape)}")
 
 
+def _check_rows_aligned(*tensors) -> None:
+    """The bfloat16 kernel copies rows in 16-byte pieces: every base address
+    and every outer stride (of a dimension longer than 1) must be a multiple
+    of 16 bytes."""
+    for what, t in zip("qkv", tensors):
+        step = t.element_size()
+        outer = zip(t.shape[:-1], t.stride()[:-1])
+        if t.data_ptr() % 16 or any(n > 1 and st * step % 16 for n, st in outer):
+            raise ValueError(f"flash_attention: {what} rows are not 16-byte aligned (strides {t.stride()})")
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: int = 512):
     """q: (B, KV, G, S, hd); k/v: (B, KV, T, hd) -> (B, KV, G, S, hd).
 
     ``block_q`` and ``block_k`` keep the signature of
     ``repro.kernels.ops.flash_attention``; they size the TPU kernel's tiles
-    and change nothing here (the CUDA kernel's tiles are 64 × 32)."""
+    and change nothing here (the CUDA kernel's tiles are 128 × 64 in
+    bfloat16, 64 × 32 in float32)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     check_inputs("flash_attention", q, k, v, 5)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v)
     b, kv, g, s, hd = q.shape
     t = k.shape[2]
     out = torch.empty_like(q)  # q's layout when q is a permuted dense view

@@ -57,6 +57,26 @@ def test_flash_attention_matches_pallas_kernel(b, kv, g, s, hd, dtype, causal):
     assert_allclose(_np(got), _np(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize(
+    "b,kv,g,s,hd,block",
+    [
+        (2, 4, 1, 256, 64, 64),  # zamba2's shared block: G 1, hd 64
+        (1, 2, 2, 129, 128, 43),  # S = T = 129: one row past the CUDA kernel's 128-row q tile
+        (1, 1, 3, 129, 64, 129),
+    ],
+)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_edge_shapes_match_pallas_kernel(b, kv, g, s, hd, block, dtype, causal):
+    """The shapes the bf16 tensor-core kernel tiles at its edges, with the
+    Pallas kernel's tiles chosen to divide S (it asserts S % tq == 0)."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs([(b, kv, g, s, hd), (b, kv, s, hd), (b, kv, s, hd)], dtype)
+    want = jax_ops.flash_attention(qj, kj, vj, causal=causal, block_q=block, block_k=block)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == _TORCH[dtype] and tuple(got.shape) == (b, kv, g, s, hd)
+    assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
 @pytest.mark.parametrize("t,length,blk", [(256, 256, 128), (512, 300, 128), (1024, 17, 256)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_decode_attention_matches_pallas_kernel(t, length, blk, dtype):

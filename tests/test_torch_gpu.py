@@ -88,23 +88,43 @@ def test_project_kernel(dev, dtype):
     assert _bits(got) == _bits(want)
 
 
-@pytest.mark.parametrize("ngroups", [1, 200, 256])
-def test_segment_kernels(dev, ngroups):
-    rng = np.random.default_rng(ngroups)
-    gidx = rng.integers(0, ngroups, N).astype(np.int32)
-    limbs = rng.integers(-128, 256, size=(N, 16)).astype(np.int32)
-    vf = np.stack([_f32(rng, N) for _ in range(4)], axis=1)
-    vi = rng.integers(-(2**31), 2**31, size=(N, 4), dtype=np.int64).astype(np.int32)
+def _groups(rng, n: int, ngroups: int, dist: str) -> np.ndarray:
+    if dist == "one":  # every row in one group
+        return np.full(n, ngroups // 2, np.int32)
+    if dist == "zipf":  # the stations of the COOKs: Zipf 1/k^1.1
+        w = 1.0 / (np.arange(ngroups) + 1.0) ** 1.1
+        return rng.choice(ngroups, size=n, p=w / w.sum()).astype(np.int32)
+    return rng.integers(0, ngroups, n).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "ngroups,n,s,dist",
+    [
+        (1, N, 16, "uniform"),
+        (200, N, 16, "uniform"),
+        (256, N, 16, "uniform"),
+        (200, N, 8, "one"),
+        (200, 65536, 8, "zipf"),  # the aggregate COOK's morsel
+        (256, N, 16, "zipf"),
+        (1, N, 32, "uniform"),
+    ],
+)
+def test_segment_kernels(dev, ngroups, n, s, dist):
+    rng = np.random.default_rng(ngroups * 100 + s + len(dist))
+    gidx = _groups(rng, n, ngroups, dist)
+    limbs = rng.integers(-128, 256, size=(n, s)).astype(np.int32)
+    vf = np.stack([_f32(rng, n) for _ in range(4)], axis=1)
+    vi = rng.integers(-(2**31), 2**31, size=(n, 4), dtype=np.int64).astype(np.int32)
     g = torch.from_numpy(gidx)
-    got = segment_reduce.segment_sum_tiles(g.to(dev), torch.from_numpy(limbs).to(dev), N - 3, ngroups, TILE)
-    want = segment_reduce.segment_sum_tiles_plain(g, torch.from_numpy(limbs), N - 3, ngroups, TILE)
+    got = segment_reduce.segment_sum_tiles(g.to(dev), torch.from_numpy(limbs).to(dev), n - 3, ngroups, TILE)
+    want = segment_reduce.segment_sum_tiles_plain(g, torch.from_numpy(limbs), n - 3, ngroups, TILE)
     for a, b in zip(got, want):
         assert _bits(a) == _bits(b)
     fns = ("min", "max", "max", "min")
     for vals in (vf, vi):
         v = torch.from_numpy(vals)
-        got = segment_reduce.segment_minmax_tiles(g.to(dev), v.to(dev), N - 3, ngroups, fns, TILE)
-        want = segment_reduce.segment_minmax_tiles_plain(g, v, N - 3, ngroups, fns, TILE)
+        got = segment_reduce.segment_minmax_tiles(g.to(dev), v.to(dev), n - 3, ngroups, fns, TILE)
+        want = segment_reduce.segment_minmax_tiles_plain(g, v, n - 3, ngroups, fns, TILE)
         assert _bits(got) == _bits(want)
 
 
@@ -334,6 +354,11 @@ def _randn(rng, shape, dtype, dev):
         (1, 1, 8, 200, 200, 256, torch.float32, True),
         (1, 1, 8, 200, 200, 256, torch.bfloat16, False),
         (2, 2, 2, 256, 256, 64, torch.float32, False),
+        (4, 32, 1, 1024, 1024, 64, torch.bfloat16, True),  # zamba2-1.2b's shared attention block
+        (1, 2, 2, 129, 129, 128, torch.bfloat16, True),  # one row past a 128-row q tile
+        (2, 2, 2, 100, 300, 128, torch.bfloat16, False),  # full, T > S
+        (2, 2, 2, 300, 100, 64, torch.bfloat16, False),  # full, S > T
+        (1, 2, 2, 1000, 1000, 256, torch.bfloat16, True),
     ],
 )
 def test_flash_attention_kernel(dev, b, kv, g, s, t, hd, dtype, causal):
@@ -353,14 +378,15 @@ def test_flash_attention_kernel(dev, b, kv, g, s, t, hd, dtype, causal):
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
 
 
-def test_flash_attention_kernel_takes_the_models_strided_views(dev):
+@pytest.mark.parametrize("kv,g,hd", [(2, 4, 128), (4, 1, 64)])  # granite's grouping; zamba2's G 1, hd 64
+def test_flash_attention_kernel_takes_the_models_strided_views(dev, kv, g, hd):
     """q as the model hands it, a (B, KV, G, S, hd) view of (B, S, KV, G, hd)
     memory, k and v as views of a larger cache: the output takes q's
     layout and matches the plain version."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     rng = np.random.default_rng(11)
-    b, s, kv, g, hd, t_max = 2, 300, 2, 4, 128, 512
+    b, s, t_max = 2, 300, 512
     q = _randn(rng, (b, s, kv, g, hd), torch.bfloat16, dev).permute(0, 2, 3, 1, 4)
     cache = _randn(rng, (2, b, kv, t_max, hd), torch.bfloat16, dev)
     k, v = cache[0, :, :, :s], cache[1, :, :, :s]
@@ -368,6 +394,18 @@ def test_flash_attention_kernel_takes_the_models_strided_views(dev):
     assert got.stride() == q.stride()
     want = flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(torch.bfloat16))
+
+
+def test_flash_attention_kernel_refuses_misaligned_rows(dev):
+    """The bfloat16 kernel copies rows in 16-byte pieces: a view whose rows
+    start off a 16-byte boundary raises before launch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    base = torch.zeros((1, 1, 1, 64 * 64 + 1), dtype=torch.bfloat16, device=dev)
+    q = base[..., 1:].reshape(1, 1, 1, 64, 64)
+    k = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, k)
 
 
 @pytest.mark.parametrize(

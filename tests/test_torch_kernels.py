@@ -209,6 +209,30 @@ def test_segment_sum_tiles_matches_jax(ngroups, cols):
         _assert_bits(r, g)
 
 
+def _skewed_gidx(rng, n: int, ngroups: int, dist: str) -> np.ndarray:
+    """Group ids as the COOKs see them: every row in one group, or Zipf
+    1/k^1.1 over the groups (a fifth of the rows in group 0 at 200)."""
+    if dist == "one":
+        return np.full(n, ngroups // 2, np.int32)
+    w = 1.0 / (np.arange(ngroups) + 1.0) ** 1.1
+    return rng.choice(ngroups, size=n, p=w / w.sum()).astype(np.int32)
+
+
+@pytest.mark.parametrize("dist", ["one", "zipf"])
+@pytest.mark.parametrize("ngroups,cols", [(200, 1), (256, 2)])
+def test_segment_sum_tiles_skewed_groups_match_jax(dist, ngroups, cols):
+    """The skew the CUDA kernel aggregates in the warp before its shared
+    atomics: a warp of rows in one group, and Zipf-distributed stations."""
+    rng = np.random.default_rng(ngroups + cols + len(dist))
+    n = 8 * TILE
+    gidx = _skewed_gidx(rng, n, ngroups, dist)
+    limbs = np.concatenate([_limbs(_i64_col(rng, n)) for _ in range(cols)], axis=1)
+    ref = ref_ops.segment_sum_tiles(jnp.asarray(gidx), jnp.asarray(limbs), n - 41, ngroups, tile=TILE)
+    got = port_ops.segment_sum_tiles(_t(gidx), _t(limbs), n - 41, ngroups, tile=TILE)
+    for r, g in zip(ref, got):
+        _assert_bits(r, g)
+
+
 @pytest.mark.parametrize("ngroups", [1, 8, 256])
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 def test_segment_minmax_tiles_matches_jax(ngroups, dtype):
