@@ -24,15 +24,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain versions within tests/test_kernels.py's tolerances (float32
      3e-5, bfloat16 2e-2) at the serving shapes of phases 4-5, at ragged
      shapes, in float32 and at head dims 32 and 256, and timed beside their
-     plain versions and ``F.scaled_dot_product_attention``; ``cuobjdump
-     -sass`` must find tensor-core instructions in the bf16 flash kernel.
-     The two redesigned kernels (``flash_attention``, ``segment_sum_tiles``)
-     print their design and the fraction of their bound they reach.  ``ssd_scan``
-     and ``mlstm_chunk`` are held to their plain versions (y and the final
-     state) within tests/test_kernels.py's tolerances (2e-4, 5e-4) at the
-     serving shapes of phase 5, at a ragged length, at reduced widths and in
-     float32, and timed beside them (no single PyTorch call computes
-     either);
+     plain versions and ``F.scaled_dot_product_attention``, SDPA by the
+     profiler's device time of its own kernels as ours are (its CUDA-event
+     time beside it); decode over a rotation of DECODE_SETS distinct caches,
+     more than the L2 holds, as the model's 40 layers read them (the
+     L2-resident time beside it).  ``ssd_scan`` and ``mlstm_chunk`` are held
+     to their plain versions (y and the final state) within
+     tests/test_kernels.py's tolerances (2e-4, 5e-4) at the serving shapes
+     of phase 5, at a ragged length, at reduced widths and in float32, and
+     timed beside them (no single PyTorch call computes either).  The four
+     redesigned kernels (``segment_sum_tiles``, ``flash_attention``,
+     ``decode_attention``, ``mlstm_chunk``) print their design and the
+     fraction of their bound they reach; ``cuobjdump -sass`` must find
+     tensor-core instructions in the bf16 flash, decode and mLSTM kernels;
   3. end to end — writes a seeded 2^24-row station-observations table
      (16 columnar parts), serves it from two port ``FairdServer``s over TCP
      loopback (torch backend on cuda, numpy backend), runs PING, LIST,
@@ -50,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      decodes 32 tokens through ``decode_attention`` (exactly 40 and 40 × 32
      launches), then holds the kernel path's prefill logits and 4
      teacher-forced decode steps against the plain path's on the same
-     weights and tokens, and profiles a prefill and a decode step;
+     weights and tokens, and profiles a prefill and a decode step (whose
+     ``decode_attn`` kernels over 40 give the in-model time a launch);
   5. serving the other two block patterns the same way, at full width from
      DACP prompts: zamba2-1.2b (38 Mamba2 blocks, d_model 2048, ssm state
      64, head_dim 64, the shared attention block after every 6th; exactly
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -728,6 +734,7 @@ SERVE_BATCH = 4
 SERVE_PROMPT = 1024
 SERVE_NEW = 32
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 3e-5}  # tests/test_kernels.py:14-15, as rtol and atol
+DECODE_SETS = 12  # distinct caches the decode timing cycles through: 12 × 17.3 MB against a 50 MB L2
 
 
 def _attn_inputs(rng, dev, dtype, *shapes):
@@ -736,18 +743,48 @@ def _attn_inputs(rng, dev, dtype, *shapes):
     return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype) for sh in shapes]
 
 
-def _sdpa_ms(q, k, v, causal: bool) -> float:
-    """Time of one ``F.scaled_dot_product_attention`` call on the same
-    inputs: q (B, H, S, hd), k/v (B, KV, T, hd), grouped heads."""
+def _sdpa_call(q, k, v, causal: bool):
+    """One ``F.scaled_dot_product_attention`` call on the same inputs: q
+    (B, H, S, hd), k/v (B, KV, T, hd), grouped heads."""
     import torch
     import torch.nn.functional as F
 
     major, minor = (int(x) for x in torch.__version__.split(".")[:2])
     if (major, minor) >= (2, 5):
-        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True))
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     g = q.shape[1] // k.shape[1]  # older PyTorch: expand the kv heads outside the timed call
     k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
-    return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+_COPY_EVENTS = ("Memcpy", "Memset", "copy", "elementwise", "fill")
+
+
+def _sdpa_times(fn) -> dict:
+    """SDPA measured as our kernels are: the profiler's device time of its
+    attention kernels (every traced kernel but copies and fills), beside the
+    device time of the whole call and the CUDA-event time of REPS calls."""
+    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    attn = {k: v for k, v in times.items() if not any(c in k for c in _COPY_EVENTS)}
+    return {
+        "library_ms": _time_ms(fn),
+        "library_device_ms": sum(attn.values()) / 1e3 / REPS,
+        "library_call_device_ms": sum(times.values()) / 1e3 / REPS,
+        "library_kernels": sorted(k[:60] for k in times),
+    }
+
+
+def _rotation(fn, sets: list):
+    """A callable that runs ``fn`` on the next of ``sets`` each call, so
+    that consecutive calls read different memory."""
+    state = {"i": 0}
+
+    def call():
+        args = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return fn(*args)
+
+    return call
 
 
 def check_flash(dev, rng) -> KernelRecord:
@@ -777,7 +814,9 @@ def check_flash(dev, rng) -> KernelRecord:
         if label == "serving":
             _time_kernel(rec, lambda: flash_attention(q, k, v, causal=True))
             rec.plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-            rec.library_ms = _sdpa_ms(q.reshape(bb, nk * gg, s, d), k, v, causal=True)
+            sdpa = _sdpa_times(_sdpa_call(q.reshape(bb, nk * gg, s, d), k, v, causal=True))
+            rec.library_ms = sdpa.pop("library_ms")
+            rec.extra.update(sdpa)
             nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read once, o written once
             flops = 4 * bb * nk * gg * s * t * d / 2  # QK^T and PV, half of them below the diagonal
             by_bytes, by_ops = _bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3
@@ -788,7 +827,9 @@ def check_flash(dev, rng) -> KernelRecord:
         elif label == "zamba2":  # the shared attention block's prefill, timed beside the serving shape
             zamba2 = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
             rec.extra["zamba2_ms"] = _kernel_device_ms(zamba2) or _time_ms(zamba2)
-            rec.extra["zamba2_library_ms"] = _sdpa_ms(q.reshape(bb, nk * gg, s, d), k, v, causal=True)
+            sdpa = _sdpa_times(_sdpa_call(q.reshape(bb, nk * gg, s, d), k, v, causal=True))
+            rec.extra["zamba2_library_ms"] = sdpa["library_ms"]
+            rec.extra["zamba2_library_device_ms"] = sdpa["library_device_ms"]
     # bfloat16 runs on the tensor cores (wgmma); float32 on the CUDA cores
     rec.extra["design"] = "wgmma"
     rec.extra["tensor_core_instructions"] = tensor_core_instructions("flash_attn_bf16")
@@ -820,9 +861,26 @@ def check_decode(dev, rng) -> KernelRecord:
         tol = ATTN_TOL[str(dtype).split(".")[-1]]
         rec.compare_close(got, decode_attention_plain(q, k, v, length), tol, tol, label)
         if label == "serving":
-            _time_kernel(rec, lambda: decode_attention(q, k, v, length))
+            # the model reads 40 layer caches a step, none of them from L2:
+            # time over a rotation of DECODE_SETS distinct (q, k, v), more
+            # bytes than the 50 MB L2 holds, for the kernel and SDPA alike
+            sets = [(q, k, v)] + [
+                tuple(_attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d)))
+                for _ in range(DECODE_SETS - 1)
+            ]
+            cold = _rotation(lambda q, k, v: decode_attention(q, k, v, length), sets)
+            _time_kernel(rec, cold)
+            rec.extra["call_device_ms"] = _all_device_ms(cold)
+            rec.extra["hot_ms"] = _kernel_device_ms(lambda: decode_attention(q, k, v, length))
             rec.plain_ms = _time_ms(lambda: decode_attention_plain(q, k, v, length))
-            rec.library_ms = _sdpa_ms(q.reshape(bb, nk * gg, 1, d), k[:, :, :length], v[:, :, :length], causal=False)
+            sdpa = _sdpa_times(_rotation(
+                lambda q, k, v: _sdpa_call(q.reshape(bb, nk * gg, 1, d), k[:, :, :length], v[:, :, :length], False)(),
+                sets))
+            rec.library_ms = sdpa.pop("library_ms")
+            rec.extra.update(sdpa)
+            rec.extra["hot_library_device_ms"] = _sdpa_times(
+                _sdpa_call(q.reshape(bb, nk * gg, 1, d), k[:, :, :length], v[:, :, :length], False))["library_device_ms"]
+            rec.extra["rotation"] = f"{DECODE_SETS} sets of {sum(a.numel() * a.element_size() for a in sets[0]) / 1e6:.1f} MB"
             nbytes = 2 * (2 * bb * nk * length * d + 2 * q.numel())  # k, v below length; q; o
             flops = 4 * bb * nk * gg * length * d
             by_bytes, by_ops = _bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3
@@ -830,6 +888,11 @@ def check_decode(dev, rng) -> KernelRecord:
             rec.shape = f"B={bb} KV={nk} G={gg} T={t} length={length} hd={d} bfloat16"
             rec.extra["splits"] = split_plan(bb * nk, length, torch.cuda.get_device_properties(dev).multi_processor_count)
             rec.extra["GBps"] = nbytes / (rec.ms * 1e-3) / 1e9
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+    rec.extra["design"] = ("mma.sync m16n8k16 bf16 on transposed products (S^T = K Q^T, out^T = V^T P^T), 16-byte "
+                           "cp.async ring, split-K merged within a thread block cluster")
+    rec.extra["tensor_core_instructions"] = tensor_core_instructions("decode_attn_tc")
+    check(rec.extra["tensor_core_instructions"] > 0, "the bf16 decode kernel's SASS holds no HMMA / HGMMA")
     return rec
 
 
@@ -920,6 +983,17 @@ def check_mlstm(dev, rng) -> KernelRecord:
             flops = b * h * sum(2 * _tri(lc) * 2 * d + 4 * lc * d * d for lc in _chunk_lengths(s, chunk))
             _ops_bound(rec, nbytes, flops)
             rec.shape = f"b={b} s={s} h={h} d={d} chunk={chunk} bfloat16"
+            rec.extra["call_device_ms"] = _all_device_ms(lambda: mlstm_chunk(q, k, v, li, lf, chunk))
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+            times, _wall = _device_times(lambda: [mlstm_chunk(q, k, v, li, lf, chunk) for _ in range(REPS)])
+            rec.extra["kernels_ms"] = {  # the wrapper's launch is two kernels
+                re.search(r"mlstm_chunk_kernel\w*", name).group(0): us / 1e3 / REPS
+                for name, us in times.items() if "mlstm_chunk_kernel" in name
+            }
+    rec.extra["design"] = ("two kernels on mma.sync m16n8k16 bf16 (f32 operands as bf16 hi + lo): the carry over chunks "
+                           "per tile of C, then every chunk's outputs in parallel")
+    rec.extra["tensor_core_instructions"] = tensor_core_instructions("mlstm_chunk_kernel")
+    check(rec.extra["tensor_core_instructions"] > 0, "the bf16 mlstm kernels' SASS holds no HMMA / HGMMA")
     return rec
 
 
@@ -1403,7 +1477,9 @@ def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict
     def split(times, wall, host):
         total = sum(times.values()) / 1e3
         ours = sum(v for k, v in times.items() if any(n in k for n in _OUR_KERNELS)) / 1e3
+        by_kernel = {n: sum(v for k, v in times.items() if n in k) / 1e3 for n in _OUR_KERNELS}
         return {"wall_ms": wall * 1e3, "device_ms": total, "port_kernels_ms": ours,
+                "port_kernels_by_name_ms": {n: v for n, v in by_kernel.items() if v},
                 "device_busy_share": total / (wall * 1e3),
                 "top": sorted(((round(v / 1e3, 3), k[:70]) for k, v in times.items()), reverse=True)[:6],
                 "host_self_ms": sum(host.values()) / 1e3,
@@ -1558,15 +1634,27 @@ def main() -> None:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
             f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
             f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
-    for r in (records[2], records[5]):
+    for r in (records[2], records[5], records[6], records[8]):
         log(f"redesigned {r.name}: design {r.extra['design']}, {r.extra['bound_fraction']:.4f} of its bound "
-            f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms)")
+            f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms), "
+            f"{r.extra.get('tensor_core_instructions', 0)} tensor-core instructions")
     seg = records[2]
     log(f"segment_sum_tiles device ms: kernel {seg.ms:.6f} against index_add_ {seg.extra['library_device_ms']:.6f}; "
         f"wrapper {seg.extra['call_device_ms']:.6f} against the library call {seg.extra['library_call_device_ms']:.6f}")
     flash = records[5]
-    log(f"flash_attention bf16 SASS: {flash.extra['tensor_core_instructions']} tensor-core instructions; "
-        f"zamba2 shape {flash.extra['zamba2_ms']:.6f} ms (SDPA {flash.extra['zamba2_library_ms']:.6f} ms)")
+    log(f"flash_attention device ms: kernel {flash.ms:.6f} against SDPA {flash.extra['library_device_ms']:.6f} "
+        f"(SDPA call {flash.extra['library_call_device_ms']:.6f}, events {flash.library_ms:.6f}); zamba2 shape "
+        f"{flash.extra['zamba2_ms']:.6f} against SDPA {flash.extra['zamba2_library_device_ms']:.6f} "
+        f"(events {flash.extra['zamba2_library_ms']:.6f})")
+    dec = records[6]
+    log(f"decode_attention device ms over {dec.extra['rotation']}: kernel {dec.ms:.6f} (wrapper call "
+        f"{dec.extra['call_device_ms']:.6f}) against SDPA {dec.extra['library_device_ms']:.6f} (SDPA call "
+        f"{dec.extra['library_call_device_ms']:.6f}, events {dec.library_ms:.6f}); one set, L2-resident: kernel "
+        f"{dec.extra['hot_ms']:.6f}, SDPA {dec.extra['hot_library_device_ms']:.6f}; SDPA kernels "
+        f"{dec.extra['library_kernels']}")
+    mls = records[8]
+    log(f"mlstm_chunk device ms: kernels {mls.ms:.6f} {mls.extra['kernels_ms']} (wrapper call "
+        f"{mls.extra['call_device_ms']:.6f}) against its plain version {mls.plain_ms:.6f} (events)")
     fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
         f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call)")
@@ -1587,6 +1675,9 @@ def main() -> None:
 
     serving, serve_launches = serve_lm(dev, ops.LAUNCHES)
     log("serve: " + json.dumps(serving) + f" on {kind}")
+    in_model = serving["profile_decode_step"]["port_kernels_by_name_ms"].get("decode_attn", 0.0) / 40
+    dec.extra["in_model_ms"] = in_model
+    log(f"decode_attention in granite's profiled decode step: {in_model:.6f} ms a launch (40 launches)")
     for name in ("flash_attention", "decode_attention"):
         launches[name] = serve_launches[name]
 

@@ -37,7 +37,7 @@ SOURCES = (
     "ssd_scan.cu",
     "mlstm_chunk.cu",
 )
-HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh")
+HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -76,8 +76,8 @@ _SIGNATURES = {
     "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, stream
     "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,),
-    # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, stream
-    "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,),
+    # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, scratch (Cs, ns, mprev), stream
+    "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,) * 4,
 }
 
 _lock = threading.Lock()

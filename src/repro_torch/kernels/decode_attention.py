@@ -13,8 +13,13 @@ For a CUDA tensor the wrapper launches the hand-written kernels of
 most 32, q/k/v with any strides and a contiguous head dim) or raises; for a
 CPU tensor it runs ``decode_attention_plain``.  The work is bound by bytes
 (each step reads the cache up to ``length`` once), so the kernel splits the
-positions into chunks, one block per (chunk, b·kv), to put about two blocks
-on each SM, and a second kernel combines the chunks' partial (m, l, acc).
+positions into chunks, one block per (chunk, b·kv), up to two blocks on
+each SM in one wave (at most ``MAX_SPLITS`` chunks), and the chunks' partial (m, l,
+acc) land in scratch the wrapper allocates.  Which kernel runs is decided by
+dtype: bfloat16 runs both products on the tensor cores and merges the
+partials in the same launch, the chunks of one b·kv forming a thread block
+cluster; float32 runs on the CUDA cores, where its 3e-5 tolerance keeps it,
+and a second kernel merges the partials.
 """
 
 from __future__ import annotations
@@ -27,10 +32,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES, NEG_INF, check_inputs
 
-__all__ = ["MAX_GROUP", "TILE", "decode_attention", "decode_attention_plain", "launches", "split_plan"]
+__all__ = ["MAX_GROUP", "MAX_SPLITS", "TILE", "decode_attention", "decode_attention_plain", "launches", "split_plan"]
 
 TILE = 64  # kv rows per tile of the CUDA kernel
 MAX_GROUP = 32  # query heads per kv head that the CUDA kernel holds
+MAX_SPLITS = 16  # chunks per b·kv: the bf16 kernel's cluster holds one block per chunk
 
 launches = _build.LaunchCounter("decode_attention")
 
@@ -56,10 +62,11 @@ def _sm_count(index: int) -> int:
 
 
 def split_plan(bkv: int, length: int, sms: int) -> tuple:
-    """(splits, chunk): chunks of whole tiles over ``[0, length)``, enough of
-    them for about two blocks per SM over ``bkv`` (batch × kv heads)."""
+    """(splits, chunk): chunks of whole tiles over ``[0, length)``, as many
+    as two blocks per SM over ``bkv`` (batch × kv heads) allow in one wave,
+    at most ``MAX_SPLITS``."""
     tiles = -(-length // TILE)
-    want = max(1, -(-2 * sms // bkv))
+    want = min(MAX_SPLITS, max(1, 2 * sms // bkv))
     chunk = -(-tiles // min(tiles, want)) * TILE
     return -(-length // chunk), chunk
 

@@ -11,12 +11,21 @@ returns the final (C, n, m) — equal to the recurrent scan's final carry —
 because prefill hands it to the decode state.  Any S: the last chunk may be
 shorter (the same as padding with log f = 0 and log i = -inf).
 
-For a CUDA tensor the wrapper launches the hand-written kernel
+For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/mlstm_chunk.cu`` (q, k, v float32 or bfloat16; d 32, 64, 128, 256
-or 384; chunk at most 256) or raises; for a CPU tensor it runs
-``mlstm_chunk_plain``.  The TPU kernel's (d, d) scratch is 576 KB at
-xlstm-125m's d = 384, beyond an SM's shared memory, so the CUDA kernel
-splits the value dimension over blocks of 64 columns (see the source).
+or 384; chunk at most 256; bfloat16 rows 16-byte aligned) or raises; for a
+CPU tensor it runs ``mlstm_chunk_plain``.  Which kernels run is decided by
+dtype.  bfloat16 runs two kernels on the tensor cores, counted as one
+launch: the carry chunk after chunk over tiles of C (keeping the state
+before each chunk), then every chunk's outputs in parallel, the float32
+operands of its products split into bf16 hi + lo (see the source); the
+states between them live in float32 scratch allocated here, (b·h, chunks,
+d, d) for C.  float32 runs
+one CUDA-core kernel that walks the chunks in order, splitting the value
+dimension over blocks of 64 columns, since the TPU kernel's (d, d) scratch
+(576 KB at xlstm-125m's d = 384) is beyond an SM's shared memory; its 5e-4
+tolerance holds either way, but float32 inputs would lose bits in bf16
+products.
 """
 
 from __future__ import annotations
@@ -103,6 +112,8 @@ def _check(q, k, v, log_i, log_f, chunk: int) -> None:
         raise ValueError(f"mlstm_chunk: empty input {tuple(q.shape)} or chunk {chunk}")
     if min(chunk, s) > MAX_CHUNK:
         raise ValueError(f"mlstm_chunk's CUDA kernel takes chunks of at most {MAX_CHUNK} rows, got {chunk}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mlstm_chunk: bfloat16 q, k and v must start on a 16-byte boundary")
 
 
 def mlstm_chunk(q, k, v, log_i, log_f, chunk: int = 256):
@@ -119,6 +130,14 @@ def mlstm_chunk(q, k, v, log_i, log_f, chunk: int = 256):
     C = torch.empty((b, h, d, d), **f32)
     n = torch.empty((b, h, d), **f32)
     m = torch.empty((b, h), **f32)
+    lc = min(chunk, s)
+    if q.dtype == torch.bfloat16:  # the states between the bf16 kernels
+        nc = -(-s // lc)
+        scratch = (torch.empty((b * h, nc, d, d), **f32), torch.empty((b * h, nc, d), **f32),
+                   torch.empty((b * h, nc), **f32))
+        ptrs = [t.data_ptr() for t in scratch]
+    else:
+        ptrs = [None] * 3
     rc = _build.library().dacp_mlstm_chunk(
         q.data_ptr(),
         k.data_ptr(),
@@ -134,7 +153,8 @@ def mlstm_chunk(q, k, v, log_i, log_f, chunk: int = 256):
         s,
         h,
         d,
-        min(chunk, s),
+        lc,
+        *ptrs,
         _build.stream_of(q),
     )
     _build.check(rc, "mlstm_chunk")

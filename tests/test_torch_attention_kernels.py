@@ -15,14 +15,15 @@ CUDA kernels themselves are checked on the card (``test_torch_gpu.py``,
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from numpy.testing import assert_allclose
 
-from repro.kernels import ops as jax_ops
-from repro.kernels import ref
-from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import TILE, decode_attention_plain, split_plan
-from repro_torch.kernels.flash_attention import flash_attention_plain
+torch = pytest.importorskip("torch")
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, decode_attention_plain, split_plan  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 
 R = np.random.default_rng(7)
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -150,12 +151,14 @@ def test_decode_split_plan_covers_length_with_whole_tiles(bkv, length, sms):
     splits, chunk = split_plan(bkv, length, sms)
     assert chunk % TILE == 0 and chunk > 0
     assert (splits - 1) * chunk < length <= splits * chunk  # no empty chunk, nothing left over
-    assert splits * bkv <= max(bkv, 2 * sms + bkv)  # about two blocks per SM, never fewer than one per (b, kv)
+    assert splits * bkv <= max(bkv, 2 * sms)  # one wave of two blocks per SM, never fewer than one per (b, kv)
+    assert splits <= MAX_SPLITS  # the bf16 kernel's cluster holds one block per chunk
 
 
 def test_decode_split_plan_at_the_serving_shape():
-    # granite-3-8b at batch 4: 32 (b, kv) pairs, first decode step on 132 SMs
-    assert split_plan(32, 1025, 132) == (9, 128)
+    # granite-3-8b at batch 4: 32 (b, kv) pairs, first decode step on 132 SMs:
+    # at most 264 blocks in one wave, so 8 chunks of three tiles -> 6 of 192 rows
+    assert split_plan(32, 1025, 132) == (6, 192)
 
 
 @pytest.mark.parametrize("fn", ["flash_attention", "decode_attention"])

@@ -10,22 +10,24 @@ slice), driven with the same numpy arrays through both packages."""
 import numpy as np
 import pytest
 
-import repro.core.backend as ref_backend
-import repro.core.batch as ref_batch
-import repro.core.dag as ref_dag
-import repro.core.executor as ref_executor
-import repro.core.expr as ref_expr
-import repro.core.operators as ref_operators
-import repro.core.schema as ref_schema
-import repro.core.sdf as ref_sdf
-import repro_torch.core.backend as port_backend
-import repro_torch.core.batch as port_batch
-import repro_torch.core.dag as port_dag
-import repro_torch.core.executor as port_executor
-import repro_torch.core.expr as port_expr
-import repro_torch.core.operators as port_operators
-import repro_torch.core.schema as port_schema
-import repro_torch.core.sdf as port_sdf
+pytest.importorskip("torch")
+
+import repro.core.backend as ref_backend  # noqa: E402
+import repro.core.batch as ref_batch  # noqa: E402
+import repro.core.dag as ref_dag  # noqa: E402
+import repro.core.executor as ref_executor  # noqa: E402
+import repro.core.expr as ref_expr  # noqa: E402
+import repro.core.operators as ref_operators  # noqa: E402
+import repro.core.schema as ref_schema  # noqa: E402
+import repro.core.sdf as ref_sdf  # noqa: E402
+import repro_torch.core.backend as port_backend  # noqa: E402
+import repro_torch.core.batch as port_batch  # noqa: E402
+import repro_torch.core.dag as port_dag  # noqa: E402
+import repro_torch.core.executor as port_executor  # noqa: E402
+import repro_torch.core.expr as port_expr  # noqa: E402
+import repro_torch.core.operators as port_operators  # noqa: E402
+import repro_torch.core.schema as port_schema  # noqa: E402
+import repro_torch.core.sdf as port_sdf  # noqa: E402
 
 N_ROWS = 700  # spans multiple kernel tiles (256) incl. a ragged tail
 

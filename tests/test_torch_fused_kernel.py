@@ -13,7 +13,8 @@ instead.  The CUDA kernel itself is held to the plain version on the card
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -14,18 +14,20 @@ import time
 import numpy as np
 import pytest
 
-import repro.core.batch as ref_batch
-import repro.core.dag as ref_dag
-import repro.core.executor as ref_executor
-import repro.core.expr as ref_expr
-import repro.core.sdf as ref_sdf
-import repro_torch.core.backend as port_backend
-import repro_torch.core.batch as port_batch
-import repro_torch.core.dag as port_dag
-import repro_torch.core.executor as port_executor
-import repro_torch.core.expr as port_expr
-import repro_torch.core.sdf as port_sdf
-from repro_torch.core.errors import FlowCancelled
+pytest.importorskip("torch")
+
+import repro.core.batch as ref_batch  # noqa: E402
+import repro.core.dag as ref_dag  # noqa: E402
+import repro.core.executor as ref_executor  # noqa: E402
+import repro.core.expr as ref_expr  # noqa: E402
+import repro.core.sdf as ref_sdf  # noqa: E402
+import repro_torch.core.backend as port_backend  # noqa: E402
+import repro_torch.core.batch as port_batch  # noqa: E402
+import repro_torch.core.dag as port_dag  # noqa: E402
+import repro_torch.core.executor as port_executor  # noqa: E402
+import repro_torch.core.expr as port_expr  # noqa: E402
+import repro_torch.core.sdf as port_sdf  # noqa: E402
+from repro_torch.core.errors import FlowCancelled  # noqa: E402
 
 N_ROWS = 700  # spans multiple kernel tiles (256) incl. a ragged tail
 _NAN_A = np.array([0x7FA00001], np.uint32).view(np.float32)[0]

@@ -9,9 +9,10 @@ Needs a CUDA card; skips without one.  On the card:
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.kernels import filter_select, project_arith, segment_reduce
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import filter_select, project_arith, segment_reduce  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -417,6 +418,7 @@ def test_flash_attention_kernel_refuses_misaligned_rows(dev):
         (1, 1, 1, 1000, 1000, 128, torch.float32),
         (2, 3, 32, 300, 129, 256, torch.bfloat16),
         (3, 2, 8, 64, 1, 32, torch.float32),
+        (1, 1, 4, 4096, 4096, 256, torch.bfloat16),  # 16 chunks: a 16-block cluster, one block per SM
     ],
 )
 def test_decode_attention_kernel(dev, b, kv, g, t, length, hd, dtype):
@@ -441,6 +443,51 @@ def test_decode_attention_kernel_length_zero_is_zero(dev):
     q = torch.ones((1, 1, 4, 64), device=dev)
     k = torch.ones((1, 1, 64, 64), device=dev)
     assert torch.count_nonzero(decode_attention(q, k, k, 0)).item() == 0
+
+
+T_DEC = 1056  # granite-3-8b's cache at 1024 + 32 positions
+
+
+@pytest.mark.parametrize(
+    "g,hd,length,view",
+    [
+        (4, 128, 1, "dense"),
+        (4, 128, 63, "dense"),
+        (4, 128, 64, "dense"),
+        (4, 128, 65, "dense"),
+        (4, 128, T_DEC - 1, "dense"),
+        (4, 128, T_DEC, "dense"),
+        (1, 64, 700, "dense"),  # zamba2-1.2b's shared attention block
+        (32, 256, 300, "dense"),  # two blocks of 16 query rows
+        (12, 128, 500, "dense"),  # 16 query rows a block, four of them padding
+        (17, 64, 300, "dense"),  # a second block holding one query row
+        (4, 128, 1025, "cache"),  # k, v slices of a stacked (layers, B, KV, T, hd) cache
+        (4, 64, 200, "odd"),  # rows off a 16-byte boundary: copied element by element
+    ],
+)
+def test_decode_attention_bf16_kernel_lengths_and_views(dev, g, hd, length, view):
+    """The tensor-core kernel at the tile edges of `length` (one row, one
+    tile less one, one tile, one past, the whole cache), at both ends of G
+    and hd, and on the views the model hands it, against the plain version
+    at bfloat16's 2e-2."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    rng = np.random.default_rng(length * 3 + hd + g)
+    b, kv = 2, 3
+    q = _randn(rng, (b, kv, g, hd), torch.bfloat16, dev)
+    if view == "cache":
+        cache = _randn(rng, (2, 3, b, kv, T_DEC, hd), torch.bfloat16, dev)
+        k, v = cache[0, 1], cache[1, 1]
+    elif view == "odd":
+        flat = _randn(rng, (2, b, kv, T_DEC, hd + 1), torch.bfloat16, dev)
+        k, v = flat[0, ..., 1:], flat[1, ..., :-1]
+    else:
+        k, v = (_randn(rng, (b, kv, T_DEC, hd), torch.bfloat16, dev) for _ in range(2))
+    for _ in range(2):  # the second call finds the last-block counters the first one left
+        got = decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), decode_attention_plain(q, k, v, length).float(),
+                                   **_attn_tol(torch.bfloat16))
 
 
 def test_lm_kernel_path_matches_plain_path_on_the_card(dev):
@@ -552,6 +599,32 @@ def test_mlstm_chunk_kernel(dev, b, s, h, d, chunk, dtype):
     got = mlstm_chunk(q, k, v, li, lf, chunk)
     torch.cuda.synchronize()
     assert mlstm_launches.value == before + 1
+    for g, w in zip(got, mlstm_chunk_plain(q, k, v, li, lf, chunk)):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize(
+    "s,d,chunk",
+    [
+        (256, 384, 256),  # one chunk
+        (1024, 384, 256),  # four chunks, as xlstm-125m's prefill
+        (1000, 384, 256),  # ragged last chunk
+        (100, 32, 16),  # narrow head, short chunks
+        (300, 128, 100),  # chunks that are no multiple of the 64-row key tile
+    ],
+)
+def test_mlstm_chunk_bf16_kernel_chunks(dev, s, d, chunk):
+    """The two-pass tensor-core kernels against the plain version, y and the
+    final (C, n, m) within 5e-4."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
+
+    rng = np.random.default_rng(s * 5 + d)
+    b, h = 2, 2
+    q, k, v = (_randn(rng, (b, s, h, d), torch.bfloat16, dev) for _ in range(3))
+    li = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)).to(dev)
+    lf = torch.from_numpy((rng.standard_normal((b, s, h)) - 1.0).astype(np.float32)).to(dev)
+    got = mlstm_chunk(q, k, v, li, lf, chunk)
+    torch.cuda.synchronize()
     for g, w in zip(got, mlstm_chunk_plain(q, k, v, li, lf, chunk)):
         torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4)
 

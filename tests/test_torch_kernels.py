@@ -10,7 +10,8 @@ held to those plain versions on the card (``tests/test_torch_gpu.py``,
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

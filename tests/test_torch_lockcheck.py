@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -37,6 +39,7 @@ print(a.staged_count)
 
 
 def test_port_lock_nesting_is_recorded(tmp_path):
+    pytest.importorskip("torch")  # the probe imports the port, which needs torch
     out = tmp_path / "obs.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), DACP_LOCKCHECK="1", DACP_LOCKCHECK_OUT=str(out))
     res = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True, env=env, timeout=120)

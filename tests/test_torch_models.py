@@ -18,15 +18,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from numpy.testing import assert_allclose
 
-from repro.configs import get_config as ref_config
-from repro.models import build as ref_build
-from repro.models import layers as ref_layers
-from repro_torch.configs import get_config
-from repro_torch.models import build, layers, lm
-from repro_torch.models.convert import cache_to_reference, params_from_numpy
+torch = pytest.importorskip("torch")
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build, layers, lm  # noqa: E402
+from repro_torch.models.convert import cache_to_reference, params_from_numpy  # noqa: E402
 
 DENSE = ["paper-lm-100m", "qwen1.5-0.5b", "gemma-2b", "stablelm-1.6b", "granite-3-8b", "chameleon-34b"]
 HYBRID = ["zamba2-1.2b", "xlstm-125m"]

@@ -17,24 +17,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 import repro.data  # noqa: F401  registers the reference's tokenize_and_pack
 import repro_torch.data  # noqa: F401  registers the port's tokenize_and_pack
-from repro.client import TcpNetwork as RefTcpNetwork
-from repro.client.jax_adapter import JaxFeed
-from repro.configs import get_config as ref_config
-from repro.models import build as ref_build
-from repro.server import FairdServer as RefFairdServer
-from repro_torch.client import TcpNetwork
-from repro_torch.client.torch_adapter import TorchFeed
-from repro_torch.configs import get_config
-from repro_torch.core.executor import ExecutorConfig
-from repro_torch.data import training_dag, write_token_corpus
-from repro_torch.launch import serve
-from repro_torch.models import build
-from repro_torch.models.convert import params_from_numpy
-from repro_torch.server import FairdServer
+from repro.client import TcpNetwork as RefTcpNetwork  # noqa: E402
+from repro.client.jax_adapter import JaxFeed  # noqa: E402
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.server import FairdServer as RefFairdServer  # noqa: E402
+from repro_torch.client import TcpNetwork  # noqa: E402
+from repro_torch.client.torch_adapter import TorchFeed  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.executor import ExecutorConfig  # noqa: E402
+from repro_torch.data import training_dag, write_token_corpus  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.server import FairdServer  # noqa: E402
 
 DOCS = 10
 PROMPT = 24

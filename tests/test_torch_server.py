@@ -7,6 +7,8 @@ packages' clients and servers talk to each other over TCP."""
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 pytest.importorskip("jax")
 
 import repro.client as ref_client  # noqa: E402

@@ -17,19 +17,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from numpy.testing import assert_allclose
 
-from repro.configs import get_config as ref_config
-from repro.kernels import ops as jax_ops
-from repro.kernels import ref
-from repro.models import build as ref_build
-from repro.models import ssm as ref_ssm
-from repro_torch.configs import get_config
-from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import _check, ssd_scan_plain
-from repro_torch.models import ssm
-from repro_torch.models.convert import params_from_numpy
+torch = pytest.importorskip("torch")
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.models import ssm as ref_ssm  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import _check, ssd_scan_plain  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

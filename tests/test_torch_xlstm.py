@@ -18,19 +18,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from numpy.testing import assert_allclose
 
-from repro.configs import get_config as ref_config
-from repro.kernels import ops as jax_ops
-from repro.kernels import ref
-from repro.models import build as ref_build
-from repro.models import xlstm as ref_xl
-from repro_torch.configs import get_config
-from repro_torch.kernels import ops
-from repro_torch.kernels.mlstm_chunk import _check, mlstm_chunk_plain
-from repro_torch.models import xlstm
-from repro_torch.models.convert import params_from_numpy
+torch = pytest.importorskip("torch")
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.models import xlstm as ref_xl  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import _check, mlstm_chunk_plain  # noqa: E402
+from repro_torch.models import xlstm  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = dict(rtol=5e-4, atol=5e-4)
 
@@ -68,6 +69,93 @@ def test_mlstm_chunk_plain_final_state_and_ragged_match_cell_scan(s, chunk, d):
     y, C, n, m = mlstm_chunk_plain(*_t(arrays), chunk=chunk)
     want_y, (want_C, want_n, want_m) = ref_xl._mlstm_cell_scan(*_j(arrays))
     assert tuple(y.shape) == (2, s, 2, d)
+    assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    assert_allclose(C.numpy(), np.asarray(want_C), **TOL)
+    assert_allclose(n.numpy(), np.asarray(want_n), **TOL)
+    assert_allclose(m.numpy(), np.asarray(want_m), **TOL)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split_mm(a, b_f32):
+    """a @ b with b float32 carried as bf16 hi + lo (a is bf16-exact): two
+    bf16 products into one float32 sum, as the CUDA kernels issue them."""
+    hi = _bf16(b_f32)
+    return a @ hi + a @ _bf16(b_f32 - hi)
+
+
+def _split_mm_left(a_f32, b):
+    hi = _bf16(a_f32)
+    return hi @ b + _bf16(a_f32 - hi) @ b
+
+
+def _mlstm_two_pass(q, k, v, li, lf, chunk):
+    """The bf16 CUDA path of ``mlstm_chunk`` emulated in float32 PyTorch:
+    pass 1 walks the chunks with the TPU kernel's carry and keeps the state
+    before each chunk, pass 2 computes every chunk's outputs from that
+    state.  Every product with a float32 operand runs as bf16 hi + lo."""
+    b, s, h, d = q.shape
+    scale = d**-0.5
+
+    def heads(a):
+        return a.permute(0, 2, 1, 3).reshape(b * h, s, -1).float()
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    lih, lfh = heads(li[..., None])[..., 0], heads(lf[..., None])[..., 0]
+    bounds = [(c0, min(c0 + chunk, s)) for c0 in range(0, s, chunk)]
+    # pass 1: the states before each chunk, and the final one
+    C = torch.zeros((b * h, d, d))
+    n = torch.zeros((b * h, d))
+    m = torch.full((b * h,), -1e30)
+    prev = []
+    for c0, c1 in bounds:
+        prev.append((C, n, m))
+        cf = torch.cumsum(lfh[:, c0:c1], dim=-1)
+        last = cf[:, -1]
+        x = last[:, None] - cf + lih[:, c0:c1]
+        m_carry = torch.maximum(m + last, x.amax(dim=-1))
+        kw = kh[:, c0:c1] * torch.exp(x - m_carry[:, None])[..., None]
+        decay = torch.exp(m + last - m_carry)
+        C = decay[:, None, None] * C + _split_mm_left(kw.transpose(1, 2), vh[:, c0:c1])
+        n = decay[:, None] * n + kw.sum(dim=1)
+        m = m_carry
+    # pass 2: every chunk's outputs from the state before it
+    ys = []
+    for (c0, c1), (C_p, n_p, m_p) in zip(bounds, prev):
+        qc, kc, vc = qh[:, c0:c1], kh[:, c0:c1], vh[:, c0:c1]
+        cf = torch.cumsum(lfh[:, c0:c1], dim=-1)
+        lc = c1 - c0
+        keep = torch.ones((lc, lc), dtype=torch.bool).tril()
+        w = (cf[:, :, None] - cf[:, None, :] + lih[:, None, c0:c1]).masked_fill(~keep, -1e30)
+        b_row = cf + m_p[:, None]
+        m_row = torch.maximum(w.amax(dim=-1), b_row)
+        D = torch.exp(w - m_row[..., None])
+        inter = torch.exp(b_row - m_row)
+        sD = (qc @ kc.transpose(1, 2)) * D
+        num = _split_mm_left(sD * scale, vc) + (inter * scale)[..., None] * _split_mm(qc, C_p)
+        den = torch.maximum((sD.sum(dim=-1) + inter * (qc @ n_p[..., None])[..., 0]).abs() * scale, torch.exp(-m_row))
+        ys.append(num / den[..., None])
+    y = torch.cat(ys, dim=1).reshape(b, h, s, d).permute(0, 2, 1, 3)
+    return y, C.reshape(b, h, d, d), n.reshape(b, h, d), m.reshape(b, h)
+
+
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_mlstm_two_pass_bf16_split_numerics_match_reference(s):
+    """The algebra and precision budget of the bf16 CUDA kernels, proven on
+    the CPU before the card: states first, then every chunk's outputs from
+    the state before it, with bf16 hi + lo operands, at xlstm-125m's d = 384
+    and 256-row chunks (four, and a ragged last one), against the Pallas kernel (interpret mode; it takes only
+    whole chunks) and the recurrent scan, within 5e-4.  q, k and v are
+    bf16 values, as the model hands them."""
+    rng = np.random.default_rng(s)
+    q, k, v, li, lf = _inputs(rng, 1, s, 2, 384)
+    q, k, v = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k, v))
+    y, C, n, m = _mlstm_two_pass(*_t((q, k, v, li, lf)), chunk=256)
+    want_y, (want_C, want_n, want_m) = ref_xl._mlstm_cell_scan(*_j((q, k, v, li, lf)))
+    if s % 256 == 0:
+        assert_allclose(y.numpy(), np.asarray(jax_ops.mlstm_chunk(*_j((q, k, v, li, lf)), chunk=256)), **TOL)
     assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
     assert_allclose(C.numpy(), np.asarray(want_C), **TOL)
     assert_allclose(n.numpy(), np.asarray(want_n), **TOL)
