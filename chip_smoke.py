@@ -32,11 +32,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      to their plain versions (y and the final state) within
      tests/test_kernels.py's tolerances (2e-4, 5e-4) at the serving shapes
      of phase 5, at a ragged length, at reduced widths and in float32, and
-     timed beside them (no single PyTorch call computes either).  The four
-     redesigned kernels (``segment_sum_tiles``, ``flash_attention``,
-     ``decode_attention``, ``mlstm_chunk``) print their design and the
-     fraction of their bound they reach; ``cuobjdump -sass`` must find
-     tensor-core instructions in the bf16 flash, decode and mLSTM kernels;
+     timed beside them (no single PyTorch call computes either);
+     ``ssd_scan`` also over 16 chunks (b 1, s 4096) and at p 32, n 16 with
+     96-row chunks, with the worst ratio |got - want| / (atol + rtol |want|)
+     per case.  The six redesigned kernels (``segment_sum_tiles``,
+     ``fused_chain_tiles``, ``flash_attention``, ``decode_attention``,
+     ``ssd_scan``, ``mlstm_chunk``) print their design and the fraction of
+     their bound they reach, and the multi-kernel wrappers (fused, SSD,
+     mLSTM) each kernel's device time by name; ``segment_minmax_tiles``'s
+     and ``segment_sum_tiles``'s yardsticks (``scatter_reduce_``,
+     ``index_add_``) are timed by the profiler's device time of their own
+     kernels, as ours are; ``cuobjdump -sass`` must find tensor-core
+     instructions in the bf16 flash, decode, SSD and mLSTM kernels;
   3. end to end — writes a seeded 2^24-row station-observations table
      (16 columnar parts), serves it from two port ``FairdServer``s over TCP
      loopback (torch backend on cuda, numpy backend), runs PING, LIST,
@@ -70,7 +77,9 @@ The second-to-last line is the ``{"kernels": [...]}`` record, the last
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -190,12 +199,13 @@ _OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", 
                 "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel")
 
 
-def _device_times(fn, host: dict | None = None) -> tuple:
+def _device_times(fn, host: dict | None = None, counts: dict | None = None) -> tuple:
     """Run ``fn`` once under ``torch.profiler``; returns ({event name:
     device microseconds}, wall seconds) over the CUDA-side events (kernels,
     memcpys, memsets) it traced.  With ``host``, also fills it with {event
     name: self host microseconds} of the host-side events (operators and
-    CUDA runtime calls)."""
+    CUDA runtime calls); with ``counts``, {event name: number of events}
+    of the CUDA-side ones."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -216,13 +226,38 @@ def _device_times(fn, host: dict | None = None) -> tuple:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         out[e.key] = out.get(e.key, 0.0) + float(us)
+        if counts is not None:
+            counts[e.key] = counts.get(e.key, 0) + int(e.count)
     return out, wall
+
+
+def _rep_device_times(fn) -> dict:
+    """{event name: device microseconds of REPS calls} of ``fn`` under the
+    profiler.  The profiler drops kernel records: it counted 49 of 50
+    `decode_attn` launches in profile after profile, and once lost most of
+    a profile's records, which read as times below the kernel's bound.  So
+    each event
+    reads as its mean duration times REPS times its launches per call
+    (its count over REPS, rounded), and a profile that lost more than a
+    tenth of an event's launches is taken again, five times at most."""
+    short: dict = {}
+    for _ in range(5):
+        counts: dict = {}
+        times, _wall = _device_times(lambda: [fn() for _ in range(REPS)], counts=counts)
+        per_call = {k: max(1, round(n / REPS)) for k, n in counts.items()}
+        short = {k: n for k, n in counts.items() if n < 0.9 * per_call[k] * REPS}
+        if not short:
+            return {k: us / counts[k] * per_call[k] * REPS for k, us in times.items()}
+        short = {k[:80]: n for k, n in short.items()}
+        print(f"the profile of {REPS} calls dropped device events, taking it again: {short}", file=sys.stderr)
+    check(False, f"five profiles of {REPS} calls each lost over a tenth of an event's launches: {short}")
+    return {}
 
 
 def _kernel_device_ms(fn) -> float | None:
     """Device time per call of our kernels in ``fn`` (REPS calls, profiled),
     or None when the profiler saw no device time."""
-    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    times = _rep_device_times(fn)
     us = sum(v for k, v in times.items() if any(n in k for n in _OUR_KERNELS))
     if us <= 0:
         print(f"profiler saw no kernel time; device events: {times}", file=sys.stderr)
@@ -233,13 +268,13 @@ def _kernel_device_ms(fn) -> float | None:
 def _all_device_ms(fn, name: str = "") -> float:
     """Device time per call of every kernel, copy and fill ``fn`` runs
     (REPS calls, profiled), or of those whose name holds ``name``."""
-    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    times = _rep_device_times(fn)
     return sum(v for k, v in times.items() if name in k) / 1e3 / REPS
 
 
-def tensor_core_instructions(kernel: str) -> int:
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of the built
-    library's functions whose name holds ``kernel``, by ``cuobjdump -sass``."""
+@functools.lru_cache(maxsize=1)
+def _sass() -> str:
+    """``cuobjdump -sass`` of the built library, once per run."""
     from repro_torch.kernels import _build
 
     cands = (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"), shutil.which("cuobjdump"))
@@ -247,8 +282,14 @@ def tensor_core_instructions(kernel: str) -> int:
     check(tool is not None, "cuobjdump not found ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
     res = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr.strip()[-500:]}")
+    return res.stdout
+
+
+def tensor_core_instructions(kernel: str) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of the built
+    library's functions whose name holds ``kernel``, by ``cuobjdump -sass``."""
     n, function = 0, ""
-    for ln in res.stdout.splitlines():
+    for ln in _sass().splitlines():
         if "Function :" in ln:
             function = ln
         elif kernel in function and ("HMMA" in ln or "HGMMA" in ln):
@@ -543,11 +584,21 @@ def check_segment_minmax(dev, rng) -> KernelRecord:
             _time_kernel(rec, lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE))
             rec.plain_ms = _time_ms(lambda: sr.segment_minmax_tiles_plain(g_dev, v_dev, n, g, fns, TILE))
             idx = g_dev.to(torch.int64).unsqueeze(1).expand(n, m)
-            rec.library_ms = _time_ms(
-                lambda: torch.full((g, m), float("inf"), device=dev).scatter_reduce_(0, idx, v_dev, "amin")
-            )
+
+            def library():
+                return torch.full((g, m), float("inf"), device=dev).scatter_reduce_(0, idx, v_dev, "amin")
+
+            rec.library_ms = _time_ms(library)
             rec.bound_ms = _bytes_bound_ms(4 * n + 4 * n * m + 4 * g * m)
             rec.shape = f"N={n} M={m} G={g} float32"
+            # device time beside device time, as for segment_sum_tiles: the
+            # kernel against scatter_reduce_'s own kernel, the wrapper
+            # (init, fold, decode) against the library call (fill and scatter)
+            times = _rep_device_times(library)
+            rec.extra["library_device_ms"] = sum(v for k, v in times.items() if "scatter" in k) / 1e3 / REPS
+            rec.extra["library_call_device_ms"] = sum(times.values()) / 1e3 / REPS
+            rec.extra["library_kernels"] = sorted(k[:60] for k in times)
+            rec.extra["call_device_ms"] = _all_device_ms(lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE))
         else:
             v_dev = torch.from_numpy(np.ascontiguousarray(vf)).to(dev)
             rec.wide(lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE), 4 * n + 4 * n * m + 4 * g * m,
@@ -722,10 +773,52 @@ def check_fused(dev, rng) -> KernelRecord:
             per_op = _per_op_morsel(dev, arrays)
             rec.extra["per_op_ms"] = _kernel_device_ms(per_op)
             rec.extra["per_op_call_ms"] = _time_ms(per_op)
+            rec.extra["kernels_ms"] = _kernels_by_name(call, r"fused_\w+_kernel")  # the wrapper's launches
+            rec.extra["call_device_ms"] = _all_device_ms(call)
+            rec.extra["blocks"] = _launched_grid(call, "fused_chain_kernel")
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
         elif label == "wide":
-            rec.wide(lambda t_dev=t_dev, arrays=arrays, static=static: fp.fused_chain_tiles(
-                arrays[0], *t_dev, **static, tile=TILE), _fused_bytes(arrays, static), shape)
+            call = lambda t_dev=t_dev, arrays=arrays, static=static: fp.fused_chain_tiles(  # noqa: E731
+                arrays[0], *t_dev, **static, tile=TILE)
+            rec.wide(call, _fused_bytes(arrays, static), shape)
+            rec.extra["wide_blocks"] = _launched_grid(call, "fused_chain_kernel")
+    rec.extra["design"] = ("grid-stride over at most 2 blocks per SM, warp-aggregated fold (match_any + shuffle trees: "
+                           "sums, min/max, first row), tile rows staged in shared memory and stored as 16-byte vectors, "
+                           "f32 keys decoded by the last block")
     return rec
+
+
+def _kernels_by_name(fn, pattern: str) -> dict:
+    """{kernel name: device ms per call} of the kernels ``fn`` launches
+    whose name matches ``pattern`` (REPS calls, profiled)."""
+    times = _rep_device_times(fn)
+    out: dict = {}
+    for name, us in times.items():
+        hit = re.search(pattern, name)
+        if hit:
+            out[hit.group(0)] = out.get(hit.group(0), 0.0) + us / 1e3 / REPS
+    return out
+
+
+def _launched_grid(fn, pattern: str) -> int:
+    """Blocks in the grid of the kernel matching ``pattern`` that one call of
+    ``fn`` launched, as the profiler's trace records the launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    grids = [math.prod(e["args"]["grid"]) for e in events
+             if e.get("cat") == "kernel" and re.search(pattern, e.get("name", "")) and "grid" in e.get("args", {})]
+    check(len(grids) == 1, f"the trace holds {len(grids)} launches of {pattern} with a grid, not 1")
+    return grids[0]
 
 
 # the serving shapes of phase 4: granite-3-8b at batch 4, 1024-token prompts
@@ -764,7 +857,7 @@ def _sdpa_times(fn) -> dict:
     """SDPA measured as our kernels are: the profiler's device time of its
     attention kernels (every traced kernel but copies and fills), beside the
     device time of the whole call and the CUDA-event time of REPS calls."""
-    times, _wall = _device_times(lambda: [fn() for _ in range(REPS)])
+    times = _rep_device_times(fn)
     attn = {k: v for k, v in times.items() if not any(c in k for c in _COPY_EVENTS)}
     return {
         "library_ms": _time_ms(fn),
@@ -927,9 +1020,12 @@ def check_ssd(dev, rng) -> KernelRecord:
     cases = [  # (label, b, s, h, p, n, chunk, dtype): serving is zamba2-1.2b's prefill, one layer
         ("serving", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64, 256, torch.bfloat16),
         ("ragged", SERVE_BATCH, 1000, 64, 64, 64, 256, torch.bfloat16),
+        ("long", 1, 4096, 64, 64, 64, 256, torch.bfloat16),  # 16 chunks: the carry over many
+        ("narrow", 2, 300, 8, 32, 16, 96, torch.bfloat16),
         ("reduced", 2, 100, 8, 32, 16, 32, torch.float32),
         ("f32", 2, 512, 8, 64, 64, 256, torch.float32),
     ]
+    rec.extra["worst_ratio"] = {}  # max |got - want| / (atol + rtol |want|) per case: 1 is the tolerance
     for label, b, s, h, p, n, chunk, dtype in cases:
         x, B, C = _attn_inputs(rng, dev, dtype, (b, s, h, p), (b, s, n), (b, s, n))
         dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
@@ -937,8 +1033,11 @@ def check_ssd(dev, rng) -> KernelRecord:
         got = ssd_scan(x, dt, A, B, C, chunk)
         torch.cuda.synchronize()
         want = ssd_scan_plain(x, dt, A, B, C, chunk)
+        ratio = 0.0
         for what, g, w in zip(("y", "S_final"), got, want):
             rec.compare_close(g, w, SSD_TOL, SSD_TOL, f"{label} {what}")
+            ratio = max(ratio, float(((g - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max()))
+        rec.extra["worst_ratio"][label] = ratio
         if label == "serving":
             _time_kernel(rec, lambda: ssd_scan(x, dt, A, B, C, chunk))
             rec.plain_ms = _time_ms(lambda: ssd_scan_plain(x, dt, A, B, C, chunk))
@@ -948,6 +1047,18 @@ def check_ssd(dev, rng) -> KernelRecord:
             flops = b * h * sum(2 * _tri(lc) * (n + p) + 4 * lc * p * n for lc in _chunk_lengths(s, chunk))
             _ops_bound(rec, nbytes, flops)
             rec.shape = f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} bfloat16"
+            call = lambda: ssd_scan(x, dt, A, B, C, chunk)  # noqa: E731
+            rec.extra["call_device_ms"] = _all_device_ms(call)
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+            rec.extra["tflops"] = flops / (rec.ms * 1e-3) / 1e12
+            rec.extra["kernels_ms"] = _kernels_by_name(call, r"ssd_scan_kernel\w*")  # the wrapper's launch is three kernels
+        elif label == "long":
+            rec.extra["long_ms"] = _kernel_device_ms(lambda: ssd_scan(x, dt, A, B, C, chunk))
+    rec.extra["design"] = ("three kernels, products on mma.sync m16n8k16 bf16 (f32 operands as bf16 hi + lo, x*w and the "
+                           "carried state as hi + mid + lo): every chunk's own state, the carry over chunks, every chunk's "
+                           "outputs; B and C loaded once for 4 heads")
+    rec.extra["tensor_core_instructions"] = tensor_core_instructions("ssd_scan_kernel")
+    check(rec.extra["tensor_core_instructions"] > 0, "the bf16 ssd kernels' SASS holds no HMMA / HGMMA")
     return rec
 
 
@@ -985,7 +1096,7 @@ def check_mlstm(dev, rng) -> KernelRecord:
             rec.shape = f"b={b} s={s} h={h} d={d} chunk={chunk} bfloat16"
             rec.extra["call_device_ms"] = _all_device_ms(lambda: mlstm_chunk(q, k, v, li, lf, chunk))
             rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
-            times, _wall = _device_times(lambda: [mlstm_chunk(q, k, v, li, lf, chunk) for _ in range(REPS)])
+            times = _rep_device_times(lambda: mlstm_chunk(q, k, v, li, lf, chunk))
             rec.extra["kernels_ms"] = {  # the wrapper's launch is two kernels
                 re.search(r"mlstm_chunk_kernel\w*", name).group(0): us / 1e3 / REPS
                 for name, us in times.items() if "mlstm_chunk_kernel" in name
@@ -1614,6 +1725,8 @@ def main() -> None:
     log(f"card: {kind}, {torch.cuda.device_count()} device(s), torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_s = build_kernels()
     log(f"build: {build_s:.3f} s")
+    phase_s = {"build": build_s}
+    t_phase = time.perf_counter()
 
     from repro_torch.kernels import ops
 
@@ -1634,10 +1747,15 @@ def main() -> None:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
             f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
             f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
-    for r in (records[2], records[5], records[6], records[8]):
+    for r in (records[2], records[4], records[5], records[6], records[7], records[8]):
         log(f"redesigned {r.name}: design {r.extra['design']}, {r.extra['bound_fraction']:.4f} of its bound "
             f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms), "
             f"{r.extra.get('tensor_core_instructions', 0)} tensor-core instructions")
+    smm = records[3]
+    log(f"segment_minmax_tiles device ms: kernel {smm.ms:.6f} against scatter_reduce_ "
+        f"{smm.extra['library_device_ms']:.6f} (events {smm.library_ms:.6f}); wrapper "
+        f"{smm.extra['call_device_ms']:.6f} against the library call {smm.extra['library_call_device_ms']:.6f}; "
+        f"library kernels {smm.extra['library_kernels']}")
     seg = records[2]
     log(f"segment_sum_tiles device ms: kernel {seg.ms:.6f} against index_add_ {seg.extra['library_device_ms']:.6f}; "
         f"wrapper {seg.extra['call_device_ms']:.6f} against the library call {seg.extra['library_call_device_ms']:.6f}")
@@ -1655,12 +1773,20 @@ def main() -> None:
     mls = records[8]
     log(f"mlstm_chunk device ms: kernels {mls.ms:.6f} {mls.extra['kernels_ms']} (wrapper call "
         f"{mls.extra['call_device_ms']:.6f}) against its plain version {mls.plain_ms:.6f} (events)")
+    ssd = records[7]
+    log(f"ssd_scan device ms: kernels {ssd.ms:.6f} {ssd.extra['kernels_ms']} (wrapper call "
+        f"{ssd.extra['call_device_ms']:.6f}) against its plain version {ssd.plain_ms:.6f} (events); 16 chunks "
+        f"(b=1 s=4096) {ssd.extra['long_ms']:.6f}; worst |err| / (atol + rtol |want|) per case {ssd.extra['worst_ratio']}")
     fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
-        f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call)")
+        f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call); "
+        f"fused kernels {fused.extra['kernels_ms']} (wrapper call {fused.extra['call_device_ms']:.6f}); "
+        f"launched grid {fused.extra['blocks']} blocks at {MORSEL} rows, {fused.extra['wide_blocks']} at {WIDE_N} "
+        f"(profiler trace)")
     copies = time_morsel_copies(dev)
     log("morsel copies: " + json.dumps(copies))
     log("fused morsel on the host clock: " + json.dumps(time_fused_morsel(dev)))
+    phase_s["kernels"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     report, launches, breakdowns = end_to_end("cuda", E2E_ROWS, E2E_PARTS)
     for row in report:
@@ -1672,6 +1798,7 @@ def main() -> None:
                  "fused_chain_tiles")
     idle = [name for name in dataplane if launches[name] == 0]
     check(not idle, f"kernels never launched on the data-plane path: {idle}")
+    phase_s["end_to_end"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     serving, serve_launches = serve_lm(dev, ops.LAUNCHES)
     log("serve: " + json.dumps(serving) + f" on {kind}")
@@ -1680,6 +1807,7 @@ def main() -> None:
     log(f"decode_attention in granite's profiled decode step: {in_model:.6f} ms a launch (40 launches)")
     for name in ("flash_attention", "decode_attention"):
         launches[name] = serve_launches[name]
+    phase_s["serve_granite"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     for serving, serve_launches in serve_hybrids(dev, ops.LAUNCHES):
         log("serve: " + json.dumps(serving) + f" on {kind}")
@@ -1690,6 +1818,8 @@ def main() -> None:
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     idle = [name for name, n in launches.items() if n == 0]
     check(not idle, f"kernels never launched on the main path: {idle}")
+    phase_s["serve_hybrids"] = time.perf_counter() - t_phase
+    log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(card)
     log(json.dumps({"kernels": [r.as_json(launches[r.name]) for r in records]}))

@@ -67,15 +67,15 @@ _SIGNATURES = {
         (_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I)  # tables and widths
         + (_L, _I, _I, _I, _I, _I, _I)  # N, tile, n_rows, t_hi, t_lo, op, kind
         + (_P, _I, _P, _I, _I) * 2  # f32 and i32 programs
-        + (_P, _I, _P, _P, _I, _I, _I, _I)  # csums, fns, with_gidx, segmented, G, tiles per block
-        + (_P,) * 8  # seven outputs and the stream
+        + (_P, _I, _P, _P, _I, _I, _I)  # csums, fns, with_gidx, segmented, G
+        + (_P,) * 9  # seven outputs, the ticket and the stream
     ),
     # q, k, v, o, dtype, B, KV, G, S, T, hd, causal, strides, stream
     "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, strides, m, l, acc partials, stream
     "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, stream
-    "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, scratch (Ls, Tl, Tb, Sp), stream
+    "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,) * 5,
     # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, scratch (Cs, ns, mprev), stream
     "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,) * 4,
 }

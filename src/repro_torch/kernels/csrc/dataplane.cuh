@@ -1,9 +1,10 @@
 // Device code shared by the row-parallel data-plane kernels: the predicate
 // compare of filter_select.cu, the block-wide stable prefix sum that gives
-// each surviving row its slot in its tile, the warp-aggregated fold of
-// segment_reduce.cu's sums, and the postfix-program interpreter of
-// project_arith.cu with its host-NaN rule.  fused_chain.cu runs the
-// predicate, the prefix sum and the interpreter in one launch.
+// each surviving row its slot in its tile, the warp-aggregated folds of
+// segment_reduce.cu's and fused_chain.cu's sums (and fused_chain.cu's
+// min / max), and the postfix-program interpreter of project_arith.cu with
+// its host-NaN rule.  fused_chain.cu runs the predicate, the prefix sum,
+// the interpreter and the folds in one launch.
 #pragma once
 
 #include "common.cuh"
@@ -97,18 +98,19 @@ __device__ __forceinline__ int dacp_block_slot(bool m, int* warp_total, int* tot
 // ---------------------------------------------------------------------------
 // warp-aggregated fold
 // ---------------------------------------------------------------------------
-// Sums NV values per lane over each set of lanes that share a key, so that
-// a skewed group costs one shared atomic per column per warp instead of one
-// per row.  Every lane of the warp calls it together with
-// peers = __match_any_sync(0xffffffff, key) and its values v; it returns
-// true on the lowest lane of each set, whose v then holds the set's sums.
-// A tree over each set's lanes in lane order: in round i every remaining
-// lane adds the values of the next remaining lane above it, and the lanes
-// at odd positions drop out, so a set of k lanes takes ceil(log2 k) rounds
-// (Westphal's reduce_peers).  The loop count is uniform across the warp.
-// int32 addition: exact in any order while the sums stay in range.
-template <int NV>
-__device__ __forceinline__ bool dacp_peer_sum(unsigned peers, int32_t (&v)[NV]) {
+// Folds NV values per lane over each set of lanes that share a key, so
+// that a skewed group costs one shared atomic per column per warp instead
+// of one per row.  Every lane of the warp calls it together with
+// peers = __match_any_sync(0xffffffff, key), its values v and an
+// associative, commutative op; it returns true on the lowest lane of each
+// set, whose v then holds the set's fold.  A tree over each set's lanes in
+// lane order: in round i every remaining lane folds in the values of the
+// next remaining lane above it, and the lanes at odd positions drop out,
+// so a set of k lanes takes ceil(log2 k) rounds (Westphal's reduce_peers).
+// The loop count is uniform across the warp.  int32 addition, min and max
+// are exact in any order (sums while they stay in range).
+template <int NV, typename Op>
+__device__ __forceinline__ bool dacp_peer_fold(unsigned peers, int32_t (&v)[NV], Op op) {
   const int lane = threadIdx.x & 31;
   const unsigned below = peers & ((1u << lane) - 1u);
   unsigned rank = __popc(below);             // position among the set's lanes
@@ -119,12 +121,22 @@ __device__ __forceinline__ bool dacp_peer_sum(unsigned peers, int32_t (&v)[NV]) 
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int32_t t = __shfl_sync(0xffffffffu, v[j], src);
-      if (next > 0) v[j] += t;
+      if (next > 0) v[j] = op(v[j], t);
     }
     above &= __ballot_sync(0xffffffffu, (rank & 1u) == 0u);
     rank >>= 1;
   }
   return below == 0u;
+}
+
+template <int NV>
+__device__ __forceinline__ bool dacp_peer_sum(unsigned peers, int32_t (&v)[NV]) {
+  return dacp_peer_fold(peers, v, [](int32_t a, int32_t b) { return a + b; });
+}
+
+template <int NV>
+__device__ __forceinline__ bool dacp_peer_min(unsigned peers, int32_t (&v)[NV]) {
+  return dacp_peer_fold(peers, v, [](int32_t a, int32_t b) { return a < b ? a : b; });
 }
 
 // ---------------------------------------------------------------------------

@@ -22,24 +22,56 @@
 //
 // Bound: bytes.  The function reads each input table once and writes ctab,
 // the counts and the group outputs once; a few f32 operations per row and
-// column are far below the card's 67 TFLOP/s.
+// column are far below the card's 67 TFLOP/s.  At the fused aggregate
+// COOK's 65536-row morsel that is about 5 MB (1.5 µs at 3.35 TB/s), so
+// what counts is filling the card, not serialising on hot groups, and few
+// launches.
 //
 // Design: the TPU kernel compacts with a one-hot int32 matmul on the MXU and
 // carries the group state from one grid step to the next.  Neither carries
-// over.  Here a block of `tile` threads walks `tiles_per_block` tiles, one
-// row per thread: the predicate and the stable block prefix sum of
-// filter_select.cu give each survivor its slot, and the survivor writes its
-// own ctab row, running the postfix programs of project_arith.cu (passed as
-// __grid_constant__ parameters, so a new literal rebuilds nothing).  The
-// segment fold goes into shared-memory accumulators with int32 atomics and
-// then into the outputs with global atomics; float32 min/max reduce through
-// the order-preserving key of segment_reduce.cu and a last kernel decodes
+// over.  Here a grid-stride loop of at most two blocks per SM (one block
+// per SM when the accumulators leave room for one; chip_smoke.py prints the
+// grid the profiler saw) walks the tiles, `tile` threads a block, one row
+// per thread.  A thread first prefetches its row of every input table into
+// L1, so that the chain's dependent loads (predicate, pass planes, the
+// programs' columns, limbs, min/max columns) wait on one round trip, not
+// one each.  The predicate and the stable block prefix sum of
+// filter_select.cu give each survivor its slot, and the survivor builds its
+// compacted row, running the postfix programs of project_arith.cu (passed
+// as __grid_constant__ parameters, so a new literal rebuilds nothing).  The
+// rows are staged in shared memory, and the block writes the tile's whole
+// (tile, Dc) block of ctab, zero tail included, as contiguous 16-byte
+// stores.  A plan whose staging does not fit beside its accumulators (they
+// alone may fill the 227 KB) writes each row where it belongs instead;
+// staging beats those direct stores by 2% on the main morsel and 11% on
+// the wide envelope.  The segment fold is warp-aggregated before it touches
+// shared memory (the station ids are Zipf-skewed: a fifth of the rows in
+// one group): __match_any_sync on the group id, then dacp_peer_sum over
+// 8-column chunks of [limbs | csum limbs] plus the count, and dacp_peer_min
+// over the min/max keys (a max column folds the bitwise complement, whose
+// order is the reverse) and the first row, so a set of lanes that share a
+// group issues one shared atomic per column, not one per row; rows outside
+// the fold (filtered out, or no group) each form a set of their own, so
+// they add no rounds to the trees.  Each block then
+// folds the groups it saw into the outputs with global atomics; float32
+// min/max reduce through the order-preserving key of segment_reduce.cu,
+// and the last block to finish (a ticket the init kernel zeroes) decodes
 // them.  This is exact because integer addition and min/max commute: the
 // host keeps limb sums below 2^26 (SUM_ROW_CAP rows) and sends no float32
-// min/max column that holds NaN, ±inf or -0.0.  The host computes the shared
-// footprint from the plan and refuses a plan above the card's 227 KB before
-// any launch.  Skewed groups serialise the shared atomics, as in
-// segment_reduce.cu.
+// min/max column that holds NaN, ±inf or -0.0.  The host computes the
+// shared footprint from the plan and refuses a plan above the card's
+// 227 KB before any launch.  A call is two launches: fused_init_kernel
+// (the group outputs to their identities, 1.5 µs) and the chain.
+//
+// Tried and dropped (NVIDIA H100 80GB HBM3, 700 W, main morsel): one block
+// per SM walking two tiles each, so half the flushes: the chain took
+// 0.0214 ms against 0.0158 ms with a block per tile; a 4-wide min/max fold
+// for plans with at most four such columns (no gain).  Of the chain's
+// 0.0148 ms, probe builds put 0.004 in the fold, 0.004 in the flush's
+// global atomics and 0.0014 in the programs.
+#include <mutex>
+#include <vector>
+
 #include "dataplane.cuh"
 
 #define CSUM_MAX 64
@@ -71,13 +103,13 @@ struct FusedArgs {
   int32_t* gmmf;  // order-preserving keys until the decode kernel
   int32_t* gmmi;
   int32_t* gfirst;
+  int32_t* ticket;  // blocks done; the init kernel zeroes it
   int64_t n_tiles;
   int n_rows;
   int P, Dp, L, Mf, Mi, Af, Ai, Dc, LS;
   int nf, ni, ncs;
   int with_gidx;
   int G;
-  int tiles_per_block;
   int op, kind;
   int32_t t_hi, t_lo;
   int csums[CSUM_MAX];
@@ -89,10 +121,13 @@ __device__ __forceinline__ int32_t mm_identity(bool f32, bool mx) {
   return mx ? INT32_MIN : INT32_MAX;
 }
 
-template <bool SEG>
+#define SUM_CHUNK 8  // columns a warp folds at once (and the count beside them)
+
+template <bool SEG, bool STAGE>
 __global__ void fused_chain_kernel(const __grid_constant__ FusedArgs a, const __grid_constant__ Program pf,
                                    const __grid_constant__ Program pi) {
-  extern __shared__ int32_t sh[];  // SEG: [G·LS sums | G counts | G·Mf f-keys | G·Mi i-vals | G first rows]
+  // SEG: [G·LS sums | G counts | G·Mf f-keys | G·Mi i-vals | G first rows], then (STAGE) tile × Dc staged rows
+  extern __shared__ __align__(16) int32_t sh[];
   __shared__ int warp_total[32];
   const int tile = blockDim.x;
   const int t = threadIdx.x;
@@ -102,6 +137,7 @@ __global__ void fused_chain_kernel(const __grid_constant__ FusedArgs a, const __
   int32_t* s_f = s_cnt + G;
   int32_t* s_i = s_f + G * a.Mf;
   int32_t* s_first = s_i + G * a.Mi;
+  int32_t* s_stage = sh + (SEG ? (G * (a.LS + 2 + a.Mf + a.Mi) + 3) / 4 * 4 : 0);
   if (SEG) {
     for (int i = t; i < G * (a.LS + 1); i += tile) sh[i] = 0;
     for (int i = t; i < G * a.Mf; i += tile) s_f[i] = mm_identity(true, mm_is_max(a.fns_f, i % a.Mf));
@@ -109,68 +145,138 @@ __global__ void fused_chain_kernel(const __grid_constant__ FusedArgs a, const __
     for (int i = t; i < G; i += tile) s_first[i] = INT32_MAX;
     __syncthreads();
   }
+  const int n_mm = a.Mf + a.Mi + 1;  // min/max columns and the first row
+  const bool vec = ((uintptr_t)a.limb % 16 == 0) && a.L % 4 == 0;
 
-  for (int k = 0; k < a.tiles_per_block; ++k) {
-    const int64_t tile_idx = (int64_t)blockIdx.x * a.tiles_per_block + k;
-    if (tile_idx >= a.n_tiles) break;  // uniform across the block
+  for (int64_t tile_idx = blockIdx.x; tile_idx < a.n_tiles; tile_idx += gridDim.x) {
     const int64_t base = tile_idx * tile;
     const int64_t row = base + t;
+    if (row < a.n_rows) {  // every table's row at once: the loads below then hit L1
+      const void* rows[8] = {a.pred + row * a.P, a.pass + row * a.Dp, a.af + row * a.Af, a.ai + row * a.Ai,
+                             a.limb + row * a.L, a.mmf + row * a.Mf, a.mmi + row * a.Mi, a.gidx + row};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) asm volatile("prefetch.global.L1 [%0];" ::"l"(rows[i]));
+    }
     const bool m = row < a.n_rows && dacp_pred_rt(a.op, a.kind, a.pred + row * a.P, a.t_hi, a.t_lo);
     int total;
     const int slot = dacp_block_slot(m, warp_total, &total);
 
+    int32_t* dst = STAGE ? s_stage + slot * a.Dc : a.ctab + (base + slot) * a.Dc;
+    int32_t* icols = dst + a.Dp + a.nf;
     if (m) {
-      int32_t* dst = a.ctab + (base + slot) * a.Dc;
       const int32_t* src = a.pass + row * a.Dp;
       for (int d = 0; d < a.Dp; ++d) dst[d] = src[d];
       if (a.nf > 0) {
         int32_t* out = dst + a.Dp;
         dacp_run_program(pf, a.af + row * a.Af, [out](int c, float v) { out[c] = __float_as_int(v); });
       }
-      int32_t* icols = dst + a.Dp + a.nf;
       if (a.ni > 0) dacp_run_program(pi, a.ai + row * a.Ai, [icols](int c, int32_t v) { icols[c] = v; });
       if (a.with_gidx) dst[a.Dc - 1] = a.gidx[row];
-      if (SEG) {
-        const int g = a.gidx[row];
-        if (g >= 0 && g < G) {
+    }
+    if (SEG) {
+      int g = m ? a.gidx[row] : -1;
+      if (g < 0 || g >= G) g = -1;
+      const bool ok = g >= 0;
+      unsigned peers = __match_any_sync(0xffffffffu, g);
+      if (!ok) peers = 1u << (t & 31);  // rows outside the fold stay out of the trees' rounds
+      // sums: [limbs | 4 limbs of each csum column], the count riding in the first chunk
+      for (int c0 = 0; c0 < a.LS || c0 == 0; c0 += SUM_CHUNK) {
+        int32_t v[SUM_CHUNK + 1];
+        if (ok && vec && c0 + SUM_CHUNK <= a.L) {
+          const int4 lo = *reinterpret_cast<const int4*>(a.limb + row * a.L + c0);
+          const int4 hi = *reinterpret_cast<const int4*>(a.limb + row * a.L + c0 + 4);
+          v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < SUM_CHUNK; ++j) {
+            const int c = c0 + j;
+            int32_t x = 0;
+            if (ok && c < a.LS) {
+              if (c < a.L) {
+                x = a.limb[row * a.L + c];
+              } else {
+                const int q = c - a.L;
+                const int32_t cv = icols[a.csums[q >> 2]];  // this thread's own store above
+                x = (q & 3) == 3 ? cv >> 24 : (cv >> (8 * (q & 3))) & 0xFF;  // signed top limb
+              }
+            }
+            v[j] = x;
+          }
+        }
+        v[SUM_CHUNK] = ok && c0 == 0 ? 1 : 0;
+        if (dacp_peer_sum(peers, v) && ok) {
           int32_t* gs = s_sum + g * a.LS;
-          const int32_t* limbs = a.limb + row * a.L;
-          for (int c = 0; c < a.L; ++c) {
-            const int32_t v = limbs[c];
-            if (v != 0) atomicAdd(&gs[c], v);
-          }
-          for (int j = 0; j < a.ncs; ++j) {
-            const int32_t v = icols[a.csums[j]];  // this thread's own store above
-            int32_t* q = gs + a.L + 4 * j;
-            atomicAdd(&q[0], v & 0xFF);
-            atomicAdd(&q[1], (v >> 8) & 0xFF);
-            atomicAdd(&q[2], (v >> 16) & 0xFF);
-            atomicAdd(&q[3], v >> 24);  // signed top limb (arithmetic shift)
-          }
-          atomicAdd(&s_cnt[g], 1);
-          for (int j = 0; j < a.Mf; ++j) {
-            const int32_t key = dacp_f32_key(a.mmf[row * a.Mf + j]);
-            if (mm_is_max(a.fns_f, j)) {
-              atomicMax(&s_f[g * a.Mf + j], key);
+#pragma unroll
+          for (int j = 0; j < SUM_CHUNK; ++j)
+            if (c0 + j < a.LS && v[j] != 0) atomicAdd(&gs[c0 + j], v[j]);
+          if (v[SUM_CHUNK] != 0) atomicAdd(&s_cnt[g], v[SUM_CHUNK]);
+        }
+      }
+      // min / max: a max column folds ~key, whose order is the reverse; then the first row
+      for (int c0 = 0; c0 < n_mm; c0 += SUM_CHUNK) {
+        int32_t v[SUM_CHUNK];
+#pragma unroll
+        for (int j = 0; j < SUM_CHUNK; ++j) {
+          const int c = c0 + j;
+          int32_t x = INT32_MAX;
+          if (ok && c < n_mm) {
+            if (c < a.Mf) {
+              const int32_t key = dacp_f32_key(a.mmf[row * a.Mf + c]);
+              x = mm_is_max(a.fns_f, c) ? ~key : key;
+            } else if (c < a.Mf + a.Mi) {
+              const int32_t key = a.mmi[row * a.Mi + c - a.Mf];
+              x = mm_is_max(a.fns_i, c - a.Mf) ? ~key : key;
             } else {
-              atomicMin(&s_f[g * a.Mf + j], key);
+              x = (int32_t)row;
             }
           }
-          for (int j = 0; j < a.Mi; ++j) {
-            const int32_t v = a.mmi[row * a.Mi + j];
-            if (mm_is_max(a.fns_i, j)) {
-              atomicMax(&s_i[g * a.Mi + j], v);
+          v[j] = x;
+        }
+        if (dacp_peer_min(peers, v) && ok) {
+#pragma unroll
+          for (int j = 0; j < SUM_CHUNK; ++j) {
+            const int c = c0 + j;
+            if (c >= n_mm) continue;
+            if (c < a.Mf) {
+              if (mm_is_max(a.fns_f, c)) {
+                atomicMax(&s_f[g * a.Mf + c], ~v[j]);
+              } else {
+                atomicMin(&s_f[g * a.Mf + c], v[j]);
+              }
+            } else if (c < a.Mf + a.Mi) {
+              const int ci = c - a.Mf;
+              if (mm_is_max(a.fns_i, ci)) {
+                atomicMax(&s_i[g * a.Mi + ci], ~v[j]);
+              } else {
+                atomicMin(&s_i[g * a.Mi + ci], v[j]);
+              }
             } else {
-              atomicMin(&s_i[g * a.Mi + j], v);
+              atomicMin(&s_first[g], v[j]);
             }
           }
-          atomicMin(&s_first[g], (int32_t)row);
         }
       }
     }
-    if (t >= total) {
-      int32_t* dst = a.ctab + row * a.Dc;
-      for (int d = 0; d < a.Dc; ++d) dst[d] = 0;
+    if (STAGE) {
+      __syncthreads();  // every survivor's row is staged
+      const int n_live = total * a.Dc;
+      int4* out = reinterpret_cast<int4*>(a.ctab + base * a.Dc);
+      const int4* in = reinterpret_cast<const int4*>(s_stage);
+      for (int e = t; e < tile * a.Dc / 4; e += tile) {
+        int4 v = in[e];
+        const int i = 4 * e;
+        if (i + 3 >= n_live) {  // the zero tail (and the row it starts in)
+          v.x = i < n_live ? v.x : 0;
+          v.y = i + 1 < n_live ? v.y : 0;
+          v.z = i + 2 < n_live ? v.z : 0;
+          v.w = i + 3 < n_live ? v.w : 0;
+        }
+        out[e] = v;
+      }
+      __syncthreads();  // the staging area is free for the next tile
+    } else if (t >= total) {
+      int32_t* z = a.ctab + row * a.Dc;
+      for (int d = 0; d < a.Dc; ++d) z[d] = 0;
     }
     if (t == 0) a.counts[tile_idx] = total;
   }
@@ -204,6 +310,16 @@ __global__ void fused_chain_kernel(const __grid_constant__ FusedArgs a, const __
       }
     }
   }
+
+  // the last block to finish decodes the float32 keys
+  __threadfence();
+  __syncthreads();
+  if (t == 0) warp_total[0] = atomicAdd(a.ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (warp_total[0]) {
+    __threadfence();
+    for (int i = t; i < G * a.Mf; i += tile) a.gmmf[i] = dacp_f32_key(__ldcg(&a.gmmf[i]));
+  }
 }
 
 // Group outputs to their initial values: zero sums and counts, the min/max
@@ -213,6 +329,7 @@ __global__ void fused_init_kernel(const __grid_constant__ FusedArgs a) {
   const int64_t n_f = (int64_t)a.G * a.Mf;
   const int64_t n_i = (int64_t)a.G * a.Mi;
   const int64_t total = n_sum + n_f + n_i + 2 * (int64_t)a.G;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.ticket = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += (int64_t)gridDim.x * blockDim.x) {
     int64_t j = i;
     if (j < n_sum) { a.gsum[j] = 0; continue; }
@@ -227,13 +344,45 @@ __global__ void fused_init_kernel(const __grid_constant__ FusedArgs a) {
   }
 }
 
-__global__ void fused_decode_kernel(int32_t* __restrict__ keys, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = dacp_f32_key(keys[i]);
-}
-
 static size_t fused_shared_bytes(int G, int LS, int Mf, int Mi) {
   return sizeof(int32_t) * (size_t)G * (size_t)(LS + 2 + Mf + Mi);
+}
+
+// The grid-stride loop's block cap for one (device, kernel, tile, shared
+// bytes): the SM count times the blocks an SM holds, at most two.  The
+// runtime queries behind it take microseconds of host time and the fused
+// COOK is host-bound, so each key is asked once.  The first ask also
+// raises the kernel's dynamic shared-memory limit to the most a plan uses.
+struct FusedCap {
+  int dev;
+  const void* kernel;
+  int tile;
+  size_t shmem;
+  int64_t cap;
+};
+
+template <typename Kernel>
+static cudaError_t fused_grid_cap(Kernel* kernel, int tile, size_t shmem, int64_t* cap) {
+  static std::mutex mu;
+  static std::vector<FusedCap> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const FusedCap& k : known) {
+    if (k.dev == dev && k.kernel == (const void*)kernel && k.tile == tile && k.shmem == shmem) {
+      *cap = k.cap;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SHARED_MAX_BYTES);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, tile, shmem);
+  if (e != cudaSuccess) return e;
+  *cap = (int64_t)sms * dacp_imax(1, dacp_imin(2, per_sm));
+  known.push_back({dev, (const void*)kernel, tile, shmem, *cap});
+  return cudaSuccess;
 }
 
 // Row tables are row-major int32 (mmf and af float32) with N rows, N a
@@ -241,7 +390,8 @@ static size_t fused_shared_bytes(int G, int LS, int Mf, int Mi) {
 // (one launch each, writing nf / ni columns); csums index the i32 outputs
 // that the fold sums; fns_*[j] != 0 takes the max of column j.  Writes ctab
 // (N, Dp + nf + ni + with_gidx), counts (N / tile), gsum (G, L + 4·ncs),
-// gcnt (G), gmmf (G, Mf), gmmi (G, Mi) and gfirst (G).
+// gcnt (G), gmmf (G, Mf), gmmi (G, Mi) and gfirst (G); ticket is one int32
+// of scratch.
 DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, const int32_t* pass, int Dp,
                               const int32_t* limb, int L, const void* mmf, int Mf, const int32_t* mmi, int Mi,
                               const float* af, int Af, const int32_t* ai, int Ai, int64_t N, int tile, int n_rows,
@@ -249,19 +399,23 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
                               const uint32_t* lits_f, int n_lits_f, int nf, const int* code_i, int n_code_i,
                               const uint32_t* lits_i, int n_lits_i, int ni, const int* csums, int ncs,
                               const int* fns_f, const int* fns_i, int with_gidx, int segmented, int G,
-                              int tiles_per_block, int32_t* ctab, int32_t* counts, int32_t* gsum, int32_t* gcnt,
-                              void* gmmf, int32_t* gmmi, int32_t* gfirst, void* stream) {
+                              int32_t* ctab, int32_t* counts, int32_t* gsum, int32_t* gcnt, void* gmmf,
+                              int32_t* gmmi, int32_t* gfirst, int32_t* ticket, void* stream) {
   if (tile <= 0 || tile > 1024 || (tile & 31) || N < 0 || N % tile || op < 0 || op > 5 || kind < 0 || kind > 3 ||
       P < (kind == KIND_I64 ? 2 : 1) || Dp < 0 || L < 0 || Mf < 1 || Mi < 1 || Mf > MM_COLS_MAX ||
       Mi > MM_COLS_MAX || Af < 1 || Ai < 1 || nf < 0 || ni < 0 || ncs < 0 || ncs > CSUM_MAX || G <= 0 ||
-      tiles_per_block < 1)
+      ticket == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((nf > 0 && !dacp_program_ok(code_f, n_code_f, n_lits_f, Af, nf, true)) ||
       (ni > 0 && !dacp_program_ok(code_i, n_code_i, n_lits_i, Ai, ni, false)))
     return (int)cudaErrorInvalidValue;
   const int LS = L + 4 * ncs;
-  const size_t shmem = segmented ? fused_shared_bytes(G, LS, Mf, Mi) : 0;
-  if (shmem > SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
+  const size_t acc_bytes = segmented ? (fused_shared_bytes(G, LS, Mf, Mi) + 15) / 16 * 16 : 0;
+  if (acc_bytes > SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
+  const int Dc = Dp + nf + ni + (with_gidx ? 1 : 0);
+  const size_t stage_bytes = sizeof(int32_t) * (size_t)tile * Dc;
+  const bool stage = acc_bytes + stage_bytes <= SHARED_MAX_BYTES;  // else rows go straight to ctab
+  const size_t shmem = acc_bytes + (stage ? stage_bytes : 0);
 
   FusedArgs a = {};
   a.pred = pred;
@@ -279,6 +433,7 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   a.gmmf = (int32_t*)gmmf;
   a.gmmi = gmmi;
   a.gfirst = gfirst;
+  a.ticket = ticket;
   a.n_tiles = N / tile;
   a.n_rows = n_rows;
   a.P = P;
@@ -288,14 +443,13 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   a.Mi = Mi;
   a.Af = Af;
   a.Ai = Ai;
-  a.Dc = Dp + nf + ni + (with_gidx ? 1 : 0);
+  a.Dc = Dc;
   a.LS = LS;
   a.nf = nf;
   a.ni = ni;
   a.ncs = ncs;
   a.with_gidx = with_gidx ? 1 : 0;
   a.G = G;
-  a.tiles_per_block = tiles_per_block;
   a.op = op;
   a.kind = kind;
   a.t_hi = t_hi;
@@ -316,20 +470,13 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t n_init = (int64_t)G * (LS + Mf + Mi + 2);
   fused_init_kernel<<<(unsigned)((n_init + DACP_THREADS - 1) / DACP_THREADS), DACP_THREADS, 0, s>>>(a);
-  if (a.n_tiles > 0) {
-    const unsigned grid = (unsigned)((a.n_tiles + tiles_per_block - 1) / tiles_per_block);
-    if (segmented) {
-      if (shmem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(fused_chain_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)shmem);
-        if (e != cudaSuccess) return (int)e;
-      }
-      fused_chain_kernel<true><<<grid, tile, shmem, s>>>(a, prog_f, prog_i);
-    } else {
-      fused_chain_kernel<false><<<grid, tile, 0, s>>>(a, prog_f, prog_i);
-    }
-  }
-  const int64_t n_f = (int64_t)G * Mf;
-  fused_decode_kernel<<<(unsigned)((n_f + DACP_THREADS - 1) / DACP_THREADS), DACP_THREADS, 0, s>>>(a.gmmf, n_f);
+  decltype(&fused_chain_kernel<true, true>) kernel =
+      segmented ? (stage ? fused_chain_kernel<true, true> : fused_chain_kernel<true, false>)
+                : (stage ? fused_chain_kernel<false, true> : fused_chain_kernel<false, false>);
+  int64_t cap = 0;  // a grid-stride loop over the tiles: at most two blocks per SM
+  const cudaError_t e = fused_grid_cap(kernel, tile, shmem, &cap);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)dacp_imax(1, (int)dacp_min64(a.n_tiles, cap));
+  kernel<<<grid, tile, shmem, s>>>(a, prog_f, prog_i);
   return dacp_last_error();
 }

@@ -71,3 +71,12 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi, __nv_bflo
   hi = __float2bfloat16_rn(x);
   lo = __float2bfloat16_rn(x - __bfloat162float(hi));
 }
+
+// x = hi + mid + lo to float32's own precision (three 8-bit mantissas):
+// three products for an operand whose error a long sum would amplify.
+__device__ __forceinline__ void split3_bf16(float x, __nv_bfloat16& hi, __nv_bfloat16& mid, __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}

@@ -16,12 +16,15 @@ inputs, outputs and static plan parameters:
 
 The CUDA kernel (``csrc/fused_chain.cu``) replaces the TPU kernel's one-hot
 compaction matmul with a block prefix sum and its sequential-grid group
-state with shared-memory accumulators folded by global atomics.  It is
-bound by bytes: each input table is read once and ctab written once.  Its
-descriptor trees travel as one postfix program per dtype, so a plan whose
-trees need more than one program, or whose segment fold needs more shared
-memory than a block has, does not ``fit`` and is refused by the planner
-before any launch.
+state with shared-memory accumulators, warp-aggregated before their shared
+atomics and folded into the outputs by global atomics, over a grid-stride
+loop of at most two blocks per SM; each tile's compacted rows are staged in
+shared memory and leave as one contiguous block.  It is bound by bytes:
+each input table is read once and ctab written once.  Its descriptor trees
+travel as one postfix program per dtype, so a plan whose trees need more
+than one program, or whose segment fold needs more shared memory than a
+block has, does not ``fit`` and is refused by the planner before any
+launch.
 
 ``fused_chain_tiles_plain`` is the same function in plain PyTorch (the
 compaction of ``filter_select_planes_plain``, the programs of
@@ -54,15 +57,15 @@ KINDS = ("f32", "i32", "i64", "none")
 SHARED_MAX_BYTES = 232320  # 227 KB per block, less the kernel's 128 static bytes
 CSUM_MAX = 64
 MM_COLS_MAX = 256
-TILES_PER_BLOCK = 8  # tiles one block folds before its global atomics
 _I32_MAX = 2**31 - 1
 
 launches = _build.LaunchCounter("fused_chain_tiles")
 
 
 def shared_bytes(ngroups: int, limb_cols: int, ncsums: int, mf: int, mi: int) -> int:
-    """Shared memory of one block of the segmented kernel: per group the
-    limb sums, the count, the min/max columns and the first row."""
+    """Shared memory of one block of the segmented kernel's accumulators: per
+    group the limb sums, the count, the min/max columns and the first row.
+    The kernel stages a tile's compacted rows beside them where they fit."""
     return 4 * ngroups * (limb_cols + 4 * ncsums + 2 + mf + mi)
 
 
@@ -223,7 +226,7 @@ def fused_chain_tiles(scalars, pred, gidx, pass_tbl, limb_tbl, mmf, mmi, af, ai,
     fns_f_arr = np.asarray([fn == "max" for fn in fns_f], np.int32)
     fns_i_arr = np.asarray([fn == "max" for fn in fns_i], np.int32)
     ctab = torch.empty((n, dc), dtype=torch.int32, device=dev)
-    counts = torch.empty((n // tile,), dtype=torch.int32, device=dev)
+    counts = torch.empty((n // tile + 1,), dtype=torch.int32, device=dev)  # the last int: the kernel's ticket
     gsum = torch.empty((ngroups, ls), dtype=torch.int32, device=dev)
     gcnt = torch.empty((ngroups,), dtype=torch.int32, device=dev)
     gmmf = torch.empty((ngroups, mf), dtype=torch.float32, device=dev)
@@ -238,10 +241,10 @@ def fused_chain_tiles(scalars, pred, gidx, pass_tbl, limb_tbl, mmf, mmi, af, ai,
             code_f.ctypes.data, n_code_f, lits_f.ctypes.data, n_lits_f, nf,
             code_i.ctypes.data, n_code_i, lits_i.ctypes.data, n_lits_i, ni,
             csum_arr.ctypes.data, len(csums), fns_f_arr.ctypes.data, fns_i_arr.ctypes.data,
-            int(bool(with_gidx)), int(bool(segmented)), ngroups, TILES_PER_BLOCK if segmented else 1,
+            int(bool(with_gidx)), int(bool(segmented)), ngroups,
             ctab.data_ptr(), counts.data_ptr(), gsum.data_ptr(), gcnt.data_ptr(), gmmf.data_ptr(), gmmi.data_ptr(),
-            gfirst.data_ptr(), _build.stream_of(pass_tbl),
+            gfirst.data_ptr(), counts.data_ptr() + 4 * (n // tile), _build.stream_of(pass_tbl),
         )
     _build.check(rc, "fused_chain_tiles")
     launches.bump()
-    return ctab, counts, gsum, gcnt, gmmf, gmmi, gfirst
+    return ctab, counts[: n // tile], gsum, gcnt, gmmf, gmmi, gfirst

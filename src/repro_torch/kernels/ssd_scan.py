@@ -11,13 +11,20 @@ of ``repro.kernels.ref.ssd_scan_ref``, because prefill hands it to the
 decode cache.  Any S: a ragged tail chunk is shorter (the reference model
 pads it with dt = 0, which leaves the state unchanged and adds nothing).
 
-For a CUDA tensor the wrapper launches the hand-written kernel
+For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32
-or 64; chunk at most 256) or raises; for a CPU tensor it runs
-``ssd_scan_plain``.  The CUDA kernel is bound by operations on the CUDA
-cores: one block per (b, h) walks the chunks in order with the state in
-shared memory, and tiles each chunk's (L, L) matrix into 64 × 64 blocks
-that it never holds whole (see the source).
+or 64; chunk at most 256; bfloat16 rows 16-byte aligned) or raises; for a
+CPU tensor it runs ``ssd_scan_plain``.  Which kernels run is decided by
+dtype.  bfloat16 runs three kernels on the tensor cores, counted as one
+launch: every chunk's own end state at once, the carry over the chunks,
+then every chunk's outputs, the float32 operands of the products split
+into bf16 hi + lo (three parts where the carry sums them over chunks; see
+the source); what the kernels hand on (each chunk's own state, its decay
+tables, the state before it) lives in scratch allocated here, about 48 MB
+at zamba2-1.2b's prefill.  float32 runs one CUDA-core kernel, one block
+per (b, h) walking the chunks in order with the state in shared memory,
+tiling each chunk's (L, L) matrix into 64 × 64 blocks that it never holds
+whole.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "launches", "ssd_scan", "ssd_scan_plain"]
 
-MAX_CHUNK = 256  # one chunk row per thread of the CUDA kernel's block
+MAX_CHUNK = 256  # one chunk row per thread of the CUDA kernels' blocks
 P_DIMS = (32, 64)
 N_DIMS = (16, 32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,6 +124,8 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
         raise ValueError(f"ssd_scan: empty input {tuple(x.shape)} or chunk {chunk}")
     if min(chunk, s) > MAX_CHUNK:
         raise ValueError(f"ssd_scan's CUDA kernel takes chunks of at most {MAX_CHUNK} rows, got {chunk}")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan: bfloat16 x, B and C must start on a 16-byte boundary")
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
@@ -131,6 +140,16 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     n = B.shape[-1]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     S_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lc = min(chunk, s)
+    if x.dtype == torch.bfloat16:  # what the bf16 kernels hand on: see dacp_ssd_scan
+        nc = -(-s // lc)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        scratch = (torch.empty((b, h, nc, p, n), **f32), torch.empty((b, h, nc), **f32),
+                   torch.empty((b, h, nc, 6, MAX_CHUNK), **f32),
+                   torch.empty((b, h, nc, 3, p, n), dtype=torch.bfloat16, device=x.device))
+        ptrs = [t.data_ptr() for t in scratch]
+    else:
+        ptrs = [None] * 4
     rc = _build.library().dacp_ssd_scan(
         x.data_ptr(),
         dt.data_ptr(),
@@ -145,7 +164,8 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
         h,
         p,
         n,
-        min(chunk, s),
+        lc,
+        *ptrs,
         _build.stream_of(x),
     )
     _build.check(rc, "ssd_scan")

@@ -210,3 +210,30 @@ def test_fused_plan_limits_are_declared_before_launch():
             torch.zeros((TILE, 1)), z, op="gt", kind="none", descrs_f=(), descrs_i=(), csums=(), fns_f=("min",),
             fns_i=("min",), with_gidx=False, segmented=True, ngroups=12, tile=TILE,
         )
+
+
+@pytest.mark.parametrize(
+    "plan,footprint,admitted",
+    [
+        ("main", 12800, True),  # the fused aggregate COOK: 8 qc limbs, one csum, 200 stations
+        ("wide", 34816, True),  # the widest envelope: two int64 sums, two csums, 256 groups
+        ("under-limit", 231424, True),  # 222 limb columns at 256 groups
+        ("over-limit", 232448, False),  # one more
+    ],
+)
+def test_fused_plan_footprints_and_fits_stay_put(plan, footprint, admitted):
+    """The plans that ``fits`` admits do not shrink: a change of the kernel's
+    shared footprint cannot quietly send these morsels to the per-op path."""
+    tk, s3 = ("add", ("col", 0), ("lit", 273.15)), ("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1))
+    hazard_f = (("div", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("col", 1)), ("add", ("col", 1), ("col", 0)))
+    hazard_i = (("mul", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("lit", 2**31 - 1)))
+    args = {
+        "main": ((tk,), (s3,), (0,), 8, 1, 1, 200),
+        "wide": (hazard_f, hazard_i, (0, 1), 16, 4, 4, 256),
+        "under-limit": ((), (), (), 222, 1, 1, 256),
+        "over-limit": ((), (), (), 223, 1, 1, 256),
+    }[plan]
+    descrs_f, descrs_i, csums, limb_cols, mf, mi, ngroups = args
+    assert fused_pipeline.SHARED_MAX_BYTES == 232320
+    assert fused_pipeline.shared_bytes(ngroups, limb_cols, len(csums), mf, mi) == footprint
+    assert fused_pipeline.fits(descrs_f, descrs_i, csums, limb_cols, mf, mi, ngroups) is admitted

@@ -203,15 +203,54 @@ def _smoke():
     return chip_smoke
 
 
-@pytest.mark.parametrize("label", ["main", "wide", "stream-i64", "specials"])
+def _fused_edge_case(label):
+    """(numpy inputs, static args) of the grid's edge cases, from the fused
+    aggregate COOK's morsel: every row in one group, no survivors, fewer
+    tiles than SMs, a row count that is no multiple of the tile, and a plan
+    whose fold fills the shared memory of a block."""
+    from repro_torch.kernels import fused_pipeline
+
+    rng = np.random.default_rng(6)
+    arrays, static = next((a, s) for lb, a, s in _smoke()._fused_cases(rng) if lb == "main")
+    arrays = [np.array(a) for a in arrays]
+    static = dict(static)
+    n = arrays[3].shape[0]
+    if label == "one-group":
+        arrays[2][:] = 7
+        arrays[8][:] = 7
+    elif label == "no-survivors":
+        arrays[0][1] = int(np.array([np.inf], np.float32).view(np.int32)[0])  # pressure > inf
+    elif label == "few-tiles":
+        arrays = [arrays[0]] + [a[: 16 * TILE] for a in arrays[1:]]
+        arrays[0][0] = 16 * TILE
+    elif label == "ragged-rows":
+        arrays[0][0] = n - 3 * TILE - 17
+    elif label == "shared-limit":  # limb columns up to SHARED_MAX_BYTES at 256 groups
+        cols = fused_pipeline.SHARED_MAX_BYTES // (4 * 256) - 4 * len(static["csums"]) - 2 - 1 - 1
+        assert fused_pipeline.shared_bytes(256, cols, 1, 1, 1) <= fused_pipeline.SHARED_MAX_BYTES
+        assert fused_pipeline.shared_bytes(256, cols + 1, 1, 1, 1) > fused_pipeline.SHARED_MAX_BYTES
+        arrays = [arrays[0]] + [a[: 64 * TILE] for a in arrays[1:]]
+        arrays[0][0] = 64 * TILE - 5
+        g = rng.integers(0, 256, 64 * TILE).astype(np.int32)
+        arrays[2], arrays[8] = g, g.reshape(-1, 1).copy()
+        arrays[4] = rng.integers(0, 256, (64 * TILE, cols)).astype(np.int32)
+        static["ngroups"] = 256
+    return arrays, static
+
+
+@pytest.mark.parametrize(
+    "label",
+    ["main", "wide", "stream-i64", "specials", "one-group", "no-survivors", "few-tiles", "ragged-rows", "shared-limit"],
+)
 def test_fused_chain_kernel(dev, label):
-    """The four configurations ``chip_smoke.py`` checks: the fused aggregate
+    """The four configurations ``chip_smoke.py`` checks (the fused aggregate
     COOK's morsel, the widest envelope, a streaming int64-predicate chain
-    and special values in every table."""
+    and special values in every table) and the grid's edge cases, bit for
+    bit against the plain version."""
     from repro_torch.kernels import fused_pipeline
 
     cases = {lb: (arrays, static) for lb, arrays, static in _smoke()._fused_cases(np.random.default_rng(5))}
-    arrays, static = cases[label]
+    arrays, static = cases[label] if label in cases else _fused_edge_case(label)
     t_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[1:]]
     got = fused_pipeline.fused_chain_tiles(arrays[0], *(t.to(dev) for t in t_cpu), **static, tile=TILE)
     want = fused_pipeline.fused_chain_tiles_plain(arrays[0], *t_cpu, **static, tile=TILE)
@@ -276,7 +315,8 @@ def test_fused_launch_with_a_bad_argument_raises(dev, monkeypatch):
     from repro_torch.kernels import fused_pipeline
 
     batch, _stream, agg = _fused_plans(4096)
-    monkeypatch.setattr(fused_pipeline, "TILES_PER_BLOCK", 0)
+    bad = (np.array([0 | (999 << 8)], np.int32), np.zeros(1, np.uint32), 1, 0)  # a column past the table, no store
+    monkeypatch.setattr(fused_pipeline, "_program", lambda descrs, dtype_name: bad)
     with pytest.raises(RuntimeError, match="CUDA error"):
         agg.fold(batch)
 
@@ -554,6 +594,11 @@ def test_torch_feed_stages_batches_on_the_card(dev, tmp_path):
         (2, 100, 3, 32, 16, 32, torch.float32),  # reduced widths
         (1, 77, 2, 64, 32, 64, torch.float32),
         (2, 5, 2, 32, 16, 256, torch.float32),
+        (1, 4096, 8, 64, 64, 256, torch.bfloat16),  # 16 chunks: the carry over many
+        (2, 100, 8, 64, 64, 256, torch.bfloat16),  # shorter than one chunk
+        (2, 300, 8, 64, 32, 96, torch.bfloat16),  # chunk 96: no multiple of 64
+        (2, 200, 8, 32, 16, 64, torch.bfloat16),  # p 32, n 16
+        (1, 1000, 6, 64, 64, 128, torch.bfloat16),  # ragged tail, heads no multiple of the block's 4
     ],
 )
 def test_ssd_scan_kernel(dev, b, s, h, p, n, chunk, dtype):

@@ -87,6 +87,97 @@ def test_ssd_scan_plain_takes_bfloat16_inputs():
     assert_allclose(S.numpy(), np.asarray(want_S), **TOL)
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _ssd_two_pass(x, dt, A, B, C, chunk, lo=True):
+    """The bf16 CUDA path of ``ssd_scan`` emulated in float32 PyTorch: pass 1
+    gives each chunk its own end state and total decay, all chunks alike;
+    pass 2 carries the state chunk after chunk; pass 3 forms M = (C·Bᵀ) ⊙
+    decay ⊙ dt with the kernel's factored decay below the diagonal's
+    16 × 16 slices and y = M·x + exp(cs)·C·S_prevᵀ.  Every product with a
+    float32 operand runs on bf16 parts: M as hi + lo, x·w and S_prev, whose
+    errors the carry sums over every earlier chunk, as hi + mid + lo;
+    ``lo=False`` keeps only the hi parts."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xh, dth = x.permute(0, 2, 1, 3).float(), dt.permute(0, 2, 1).float()  # (b, h, s, p), (b, h, s)
+    Bf, Cf = B.float()[:, None], C.float()[:, None]  # (b, 1, s, n): one group for every head
+
+    def split_mm(a_f32, b_exact, parts=2):
+        out, rest = 0.0, a_f32
+        for _ in range(parts if lo else 1):
+            part = _bf16(rest)
+            out, rest = out + part @ b_exact, rest - part
+        return out
+
+    bounds = [(c0, min(c0 + chunk, s)) for c0 in range(0, s, chunk)]
+    css, locals_ = [], []
+    for c0, c1 in bounds:  # pass 1
+        cs = torch.cumsum(dth[..., c0:c1] * A[None, :, None], dim=-1)
+        w = torch.exp(cs[..., -1:] - cs) * dth[..., c0:c1]
+        css.append(cs)
+        locals_.append(split_mm((xh[:, :, c0:c1] * w[..., None]).transpose(-1, -2), Bf[:, :, c0:c1], 3))
+    S, prev = torch.zeros((b, h, p, n)), []
+    for cs, local in zip(css, locals_):  # pass 2
+        prev.append(S)
+        S = torch.exp(cs[..., -1])[..., None, None] * S + local
+    ys = []
+    for ci, (c0, c1) in enumerate(bounds):  # pass 3
+        lc = c1 - c0
+        cs = css[ci]
+        cs_pad = torch.cat([cs, cs[..., -1:].expand(b, h, 256 - lc)], dim=-1)  # dt = 0 past the chunk
+        d = dth[..., c0:c1]
+        i = torch.arange(lc)
+        r0, r1 = i // 16 * 16, torch.clamp((i // 16 + 1) * 16, max=255)
+        alpha = torch.exp(cs - cs_pad[..., r0])
+        bj = torch.exp(cs_pad[..., r1] - cs) * d
+        beta = torch.exp(cs_pad[..., r0][..., :, None] - cs_pad[..., r1][..., None, :])
+        below = (i[None, :] // 16) < (i[:, None] // 16)
+        diag = ((i[None, :] // 16) == (i[:, None] // 16)) & (i[None, :] <= i[:, None])
+        G = Cf[:, :, c0:c1] @ Bf[:, :, c0:c1].transpose(-1, -2)
+        M = torch.where(below, G * ((alpha[..., :, None] * beta) * bj[..., None, :]),
+                        torch.where(diag, G * torch.exp(cs[..., :, None] - cs[..., None, :]) * d[..., None, :], 0.0))
+        y = torch.exp(cs)[..., None] * split_mm(prev[ci], Cf[:, :, c0:c1].transpose(-1, -2), 3).transpose(-1, -2)
+        ys.append(y + split_mm(M, xh[:, :, c0:c1]))
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), S
+
+
+def _bf16_inputs(s):
+    x, dt, A, B, C = _inputs(np.random.default_rng(s), 1, s, 2, 64, 64)
+    return tuple(_bf16(torch.from_numpy(a)).numpy() for a in (x,)) + (dt, A) + tuple(
+        _bf16(torch.from_numpy(a)).numpy() for a in (B, C))
+
+
+@pytest.mark.parametrize("s", [512, 1000])
+def test_ssd_two_pass_bf16_split_numerics_match_reference(s):
+    """The algebra and precision budget of the bf16 CUDA kernels, proven on
+    the CPU before the card: chunk states first, the carry over them, then
+    every chunk's outputs, with bf16 hi + lo operands and the factored
+    decay, at zamba2-1.2b's p = n = 64 and 256-row chunks (two,
+    and a ragged last one), against the Pallas kernel (interpret mode; it
+    takes only whole chunks) and the sequential oracle, within 2e-4.  x, B
+    and C are bf16 values, as the model hands them."""
+    arrays = _bf16_inputs(s)
+    y, S = _ssd_two_pass(*_t(arrays), chunk=256)
+    want_y, want_S = ref.ssd_scan_ref(*_j(arrays))
+    if s % 256 == 0:
+        assert_allclose(y.numpy(), np.asarray(jax_ops.ssd_scan(*_j(arrays), chunk=256)), **TOL)
+    assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    assert_allclose(S.numpy(), np.asarray(want_S), **TOL)
+
+
+def test_ssd_two_pass_without_the_lo_halves_misses_the_tolerance():
+    """bf16 operands alone (2^-9 relative) are not enough for 2e-4: the lo
+    parts of the split are what the tolerance needs."""
+    arrays = _bf16_inputs(512)
+    y, S = _ssd_two_pass(*_t(arrays), chunk=256, lo=False)
+    want_y, want_S = ref.ssd_scan_ref(*_j(arrays))
+    assert not np.allclose(y.numpy(), np.asarray(want_y), **TOL)
+    assert not np.allclose(S.numpy(), np.asarray(want_S), **TOL)
+
+
 @pytest.mark.parametrize(
     "change,error,match",
     [
