@@ -35,11 +35,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      timed beside them (no single PyTorch call computes either);
      ``ssd_scan`` also over 16 chunks (b 1, s 4096) and at p 32, n 16 with
      96-row chunks, with the worst ratio |got - want| / (atol + rtol |want|)
-     per case.  The six redesigned kernels (``segment_sum_tiles``,
+     per case.  The eight redesigned kernels (``filter_select_planes``,
+     ``segment_sum_tiles``, ``segment_minmax_tiles``,
      ``fused_chain_tiles``, ``flash_attention``, ``decode_attention``,
      ``ssd_scan``, ``mlstm_chunk``) print their design and the fraction of
-     their bound they reach, and the multi-kernel wrappers (fused, SSD,
-     mLSTM) each kernel's device time by name; ``segment_minmax_tiles``'s
+     their bound they reach, and the multi-kernel wrappers (min/max, fused,
+     SSD, mLSTM) each kernel's device time by name;
+     ``segment_minmax_tiles`` also its device events a call (at most two,
+     or the run fails), and it and ``filter_select_planes`` their device
+     time at the widest envelope beside its bound (the filter's, at the
+     main shape too, also over a rotation of inputs that holds
+     COLD_BYTES, out of L2); ``segment_minmax_tiles``'s
      and ``segment_sum_tiles``'s yardsticks (``scatter_reduce_``,
      ``index_add_``) are timed by the profiler's device time of their own
      kernels, as ours are; ``cuobjdump -sass`` must find tensor-core
@@ -95,6 +101,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = 256
 MORSEL = 65536  # rows per morsel on the main path: the columnar scan's batch size
 WIDE_N = 262144  # SUM_ROW_CAP, the largest morsel the backend hands a kernel
+COLD_BYTES = 64 << 20  # inputs an out-of-L2 timing cycles through: above the H100's 50 MB L2
 STATIONS = 200
 E2E_ROWS = 1 << 24
 E2E_PARTS = 16
@@ -239,19 +246,34 @@ def _rep_device_times(fn) -> dict:
     each event
     reads as its mean duration times REPS times its launches per call
     (its count over REPS, rounded), and a profile that lost more than a
-    tenth of an event's launches is taken again, five times at most."""
+    tenth of an event's launches, or every record (a profile has come
+    back empty), is taken again, five times at most."""
     short: dict = {}
     for _ in range(5):
         counts: dict = {}
         times, _wall = _device_times(lambda: [fn() for _ in range(REPS)], counts=counts)
         per_call = {k: max(1, round(n / REPS)) for k, n in counts.items()}
-        short = {k: n for k, n in counts.items() if n < 0.9 * per_call[k] * REPS}
+        short = {k: n for k, n in counts.items() if n < 0.9 * per_call[k] * REPS} if counts else {"every event": 0}
         if not short:
             return {k: us / counts[k] * per_call[k] * REPS for k, us in times.items()}
         short = {k[:80]: n for k, n in short.items()}
         print(f"the profile of {REPS} calls dropped device events, taking it again: {short}", file=sys.stderr)
     check(False, f"five profiles of {REPS} calls each lost over a tenth of an event's launches: {short}")
     return {}
+
+
+def _events_per_call(fn) -> dict:
+    """{device event name: events per call} of ``fn`` (REPS calls,
+    profiled; each count over REPS, rounded, as the profiler drops
+    records; an empty profile is taken again, five times at most):
+    kernels, copies and fills alike."""
+    counts: dict = {}
+    for _ in range(5):
+        _device_times(lambda: [fn() for _ in range(REPS)], counts=counts)
+        if counts:
+            break
+    check(bool(counts), f"five profiles of {REPS} calls each held no device event")
+    return {k[:60]: round(n / REPS) for k, n in counts.items() if round(n / REPS) > 0}
 
 
 def _kernel_device_ms(fn) -> float | None:
@@ -445,11 +467,28 @@ def check_filter_select(dev, rng) -> KernelRecord:
             rec.plain_ms = _time_ms(lambda: fs.filter_select_planes_plain(p_dev, t_dev, scalars, "ge", "i64", TILE))
             rec.bound_ms = _bytes_bound_ms(4 * n * (2 + 2 * d) + 4 * (n // TILE))
             rec.shape = f"N={n} P=2 D={d} tile={TILE}"
+            rec.extra["design"] = ("a block per tile: the tile's planes in flight to shared memory by 16-byte cp.async "
+                                   "while the predicate loads, survivors' rows recorded at their slots, the output "
+                                   "tile written as 16-byte stores")
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+            # the main shape's 6.3 MB stay in the 50 MB L2 between calls, so
+            # the fraction above is of L2-resident inputs; this reads them
+            # from HBM
+            sets = _cold_sets(p_dev, t_dev)
+            rec.extra["cold_sets"] = len(sets)
+            rec.extra["cold_ms"] = _kernel_device_ms(
+                _rotation(lambda p, t: fs.filter_select_planes(p, t, scalars, "ge", "i64", TILE), sets))
         elif n == WIDE_N:
             p_dev = torch.from_numpy(np.ascontiguousarray(preds["i64"][0])).to(dev)
             scalars = np.array([n, preds["i64"][1], preds["i64"][2]], np.int32)
             rec.wide(lambda: fs.filter_select_planes(p_dev, t_dev, scalars, "ge", "i64", TILE),
                      4 * n * (2 + 2 * d) + 4 * (n // TILE), f"N={n} P=2 D={d}")
+            # the wide envelope's 18.9 MB sit in the 50 MB L2 between calls;
+            # over a rotation of COLD_BYTES of inputs they come from HBM
+            sets = _cold_sets(p_dev, t_dev)
+            rec.extra["wide_cold_sets"] = len(sets)
+            rec.extra["wide_cold_ms"] = _kernel_device_ms(
+                _rotation(lambda p, t: fs.filter_select_planes(p, t, scalars, "ge", "i64", TILE), sets))
     return rec
 
 
@@ -598,7 +637,16 @@ def check_segment_minmax(dev, rng) -> KernelRecord:
             rec.extra["library_device_ms"] = sum(v for k, v in times.items() if "scatter" in k) / 1e3 / REPS
             rec.extra["library_call_device_ms"] = sum(times.values()) / 1e3 / REPS
             rec.extra["library_kernels"] = sorted(k[:60] for k in times)
-            rec.extra["call_device_ms"] = _all_device_ms(lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE))
+            call = functools.partial(sr.segment_minmax_tiles, g_dev, v_dev, n, g, fns, TILE)
+            rec.extra["call_device_ms"] = _all_device_ms(call)
+            rec.extra["kernels_ms"] = _kernels_by_name(call, r"minmax_\w*kernel")
+            rec.extra["device_events_per_call"] = _events_per_call(call)
+            per_call = sum(rec.extra["device_events_per_call"].values())
+            check(per_call <= 2, f"segment_minmax_tiles ran {per_call} device kernels a call, more than 2")
+            rec.extra["design"] = ("grid-stride over 1024-thread blocks, one per SM, the next row's loads in flight; "
+                                   "each row one shared atomicMin of key or ~key (no warp aggregation); changed bins "
+                                   "folded into the output as values by int / unsigned atomics, no decode pass")
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
         else:
             v_dev = torch.from_numpy(np.ascontiguousarray(vf)).to(dev)
             rec.wide(lambda: sr.segment_minmax_tiles(g_dev, v_dev, n, g, fns, TILE), 4 * n + 4 * n * m + 4 * g * m,
@@ -865,6 +913,13 @@ def _sdpa_times(fn) -> dict:
         "library_call_device_ms": sum(times.values()) / 1e3 / REPS,
         "library_kernels": sorted(k[:60] for k in times),
     }
+
+
+def _cold_sets(*tensors) -> list:
+    """Rolled copies of ``tensors``, as many sets as hold COLD_BYTES, so
+    that a rotation over them reads its inputs from device memory."""
+    per_set = sum(t.numel() * t.element_size() for t in tensors)
+    return [tuple(t.roll(k, 0).contiguous() for t in tensors) for k in range(-(-COLD_BYTES // per_set))]
 
 
 def _rotation(fn, sets: list):
@@ -1747,15 +1802,25 @@ def main() -> None:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
             f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
             f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
-    for r in (records[2], records[4], records[5], records[6], records[7], records[8]):
+    for r in (records[0], records[2], records[3], records[4], records[5], records[6], records[7], records[8]):
         log(f"redesigned {r.name}: design {r.extra['design']}, {r.extra['bound_fraction']:.4f} of its bound "
             f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms), "
             f"{r.extra.get('tensor_core_instructions', 0)} tensor-core instructions")
     smm = records[3]
-    log(f"segment_minmax_tiles device ms: kernel {smm.ms:.6f} against scatter_reduce_ "
+    log(f"segment_minmax_tiles device ms: kernels {smm.ms:.6f} {smm.extra['kernels_ms']} against scatter_reduce_ "
         f"{smm.extra['library_device_ms']:.6f} (events {smm.library_ms:.6f}); wrapper "
         f"{smm.extra['call_device_ms']:.6f} against the library call {smm.extra['library_call_device_ms']:.6f}; "
-        f"library kernels {smm.extra['library_kernels']}")
+        f"device events a call {smm.extra['device_events_per_call']}; library kernels {smm.extra['library_kernels']}")
+    fsp, cold = records[0], records[0].extra["cold_ms"]
+    log(f"filter_select_planes {fsp.shape}: {fsp.ms:.6f} ms device with its inputs in L2 "
+        f"({fsp.bound_ms / fsp.ms:.4f} of its bound {fsp.bound_ms:.6f} ms); out of L2 over "
+        f"{fsp.extra['cold_sets']} sets " + (f"{cold:.6f} ms ({fsp.bound_ms / cold:.4f})" if cold else "not measured"))
+    for r in (records[0], records[3]):
+        cold = r.extra.get("wide_cold_ms")
+        log(f"{r.name} wide envelope {r.wide_shape}: {r.wide_ms:.6f} ms device against its bound "
+            f"{r.wide_bound_ms:.6f} ms ({r.wide_bound_ms / r.wide_ms:.4f} of it)"
+            + (f"; inputs out of L2 over {r.extra['wide_cold_sets']} sets {cold:.6f} ms "
+               f"({r.wide_bound_ms / cold:.4f})" if cold else ""))
     seg = records[2]
     log(f"segment_sum_tiles device ms: kernel {seg.ms:.6f} against index_add_ {seg.extra['library_device_ms']:.6f}; "
         f"wrapper {seg.extra['call_device_ms']:.6f} against the library call {seg.extra['library_call_device_ms']:.6f}")

@@ -16,53 +16,124 @@
 // writes out (4·N·D) and the counts: 4·N·(P + 2D) bytes, at 3.35 TB/s on an
 // H100 SXM.  There is no arithmetic worth counting.
 //
-// Design: one block of `tile` threads per tile, one row per thread.  The
-// TPU kernel compacts with a one-hot (tile × tile) integer matmul on the
-// MXU; here a stable block prefix sum gives each survivor its slot:
-// __ballot_sync + __popc within each warp, then the warp totals through
-// shared memory (dacp_block_slot in dataplane.cuh, shared with
-// fused_chain.cu).  `op` and `kind` are template parameters (18 instances,
-// built once) and the thresholds are kernel arguments, so a new literal
-// never rebuilds anything.  CUDA float compares have IEEE NaN and ±0
-// semantics, like the bitcast compare of the TPU kernel.
+// Design: one block of `tile` threads per tile, one row per thread for the
+// predicate.  The TPU kernel compacts with a one-hot (tile × tile) integer
+// matmul on the MXU; here a stable block prefix sum gives each survivor its
+// slot: __ballot_sync + __popc within each warp, then the warp totals
+// through shared memory (dacp_block_slot in dataplane.cuh, shared with
+// fused_chain.cu).  The tile's planes are one contiguous run of tile·D
+// ints, so before the predicate is read the block issues them into shared
+// memory as 16-byte cp.async copies, and the two reads overlap instead of
+// the row copy waiting on the slot.  Each survivor records its source row
+// at its slot, and the block writes the whole output tile, survivors then
+// zeros, as contiguous 16-byte stores gathered from shared memory.  A
+// launch whose table or out is not 16-byte aligned (a view 4 bytes in), or
+// whose column chunks are not multiples of 4 ints, takes the same path
+// with 4-byte copies and stores.  A tile whose planes do not fit in 227 KB
+// splits its columns over gridDim.y, every block of the tile computing the
+// predicate and the slots again, and the count written once, by
+// blockIdx.y == 0.  `op` and `kind` are template parameters (18 instances,
+// each with and without the 16-byte path, built once) and the thresholds
+// are kernel arguments, so a new literal never rebuilds anything.  CUDA
+// float compares have IEEE NaN and ±0 semantics, like the bitcast compare
+// of the TPU kernel.
 #include "dataplane.cuh"
+#include "mma.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
-template <int OP, int KIND>
-__global__ void filter_select_kernel(const int32_t* __restrict__ pred, int P, const int32_t* __restrict__ table,
-                                     int D, int n_rows, int32_t t_hi, int32_t t_lo, int32_t* __restrict__ out,
-                                     int32_t* __restrict__ counts) {
+// 227 KB (232448 bytes) of shared memory per block, less the 128 static
+// bytes of warp_total.
+#define FS_SHARED_MAX_BYTES 232320
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(mma_smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Offset in table / out of element e of a block's (tile, w) column chunk,
+// rows D ints apart; the chunk is the tile's whole contiguous run when w == D.
+__device__ __forceinline__ int64_t fs_offset(int e, int w, int D) {
+  return w == D ? e : (int64_t)(e / w) * D + e % w;
+}
+
+// VEC: table and out are 16-byte aligned and four consecutive elements of a
+// chunk are contiguous in both (w == D, or D and w multiples of 4).
+template <int OP, int KIND, bool VEC>
+__global__ void __launch_bounds__(1024)
+    filter_select_kernel(const int32_t* __restrict__ pred, int P, const int32_t* __restrict__ table, int D, int dc,
+                         int n_rows, int32_t t_hi, int32_t t_lo, int32_t* __restrict__ out,
+                         int32_t* __restrict__ counts) {
+  extern __shared__ __align__(16) int32_t sh[];  // tile × dc staged planes, then tile source rows
   __shared__ int warp_total[32];
   const int tile = blockDim.x;
   const int t = threadIdx.x;
+  const int d0 = blockIdx.y * dc;
+  const int w = dacp_imin(dc, D - d0);  // this block's columns
+  const int n_el = tile * w;
   const int64_t base = (int64_t)blockIdx.x * tile;
-  const int64_t row = base + t;
+  const int32_t* src = table + base * D + d0;
+  int32_t* dst = out + base * D + d0;
+  int32_t* stage = sh;
+  int* from = sh + tile * dc;
 
+  // 1. the tile's planes to shared memory, in flight while the predicate loads
+  if (VEC) {
+    for (int e = 4 * t; e < n_el; e += 4 * tile) cp_async16(stage + e, src + fs_offset(e, w, D), true);
+  } else {
+    for (int e = t; e < n_el; e += tile) cp_async4(stage + e, src + fs_offset(e, w, D));
+  }
+  cp_async_commit();
+
+  // 2. predicate and slot; each survivor records its row at its slot
+  const int64_t row = base + t;
   const bool m = row < n_rows && dacp_pred<OP, KIND>(pred + row * P, t_hi, t_lo);
   int total;
   const int slot = dacp_block_slot(m, warp_total, &total);
+  if (m) from[slot] = t;
+  cp_async_wait<0>();
+  __syncthreads();
 
-  if (m) {
-    const int32_t* src = table + row * D;
-    int32_t* dst = out + (base + slot) * D;
-    for (int d = 0; d < D; ++d) dst[d] = src[d];
+  // 3. the output tile: survivors in row order, then zeros
+  if (VEC) {
+    for (int e = 4 * t; e < n_el; e += 4 * tile) {
+      int o = e / w;
+      int c = e - o * w;
+      int v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = o < total ? stage[from[o] * w + c] : 0;
+        if (++c == w) c = 0, ++o;
+      }
+      *reinterpret_cast<int4*>(dst + fs_offset(e, w, D)) = make_int4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    for (int e = t; e < n_el; e += tile) {
+      const int o = e / w;
+      dst[fs_offset(e, w, D)] = o < total ? stage[from[o] * w + e - o * w] : 0;
+    }
   }
-  if (t >= total) {
-    int32_t* dst = out + row * D;
-    for (int d = 0; d < D; ++d) dst[d] = 0;
-  }
-  if (t == 0) counts[blockIdx.x] = total;
+  if (t == 0 && blockIdx.y == 0) counts[blockIdx.x] = total;
 }
 
+typedef void (*FsKernel)(const int32_t*, int, const int32_t*, int, int, int, int32_t, int32_t, int32_t*, int32_t*);
+
 template <int OP>
-static void launch_op(int kind, dim3 grid, dim3 block, cudaStream_t s, const int32_t* pred, int P,
-                      const int32_t* table, int D, int n_rows, int32_t t_hi, int32_t t_lo, int32_t* out,
-                      int32_t* counts) {
+static FsKernel pick_kind(int kind, bool vec) {
   if (kind == KIND_F32) {
-    filter_select_kernel<OP, KIND_F32><<<grid, block, 0, s>>>(pred, P, table, D, n_rows, t_hi, t_lo, out, counts);
-  } else if (kind == KIND_I32) {
-    filter_select_kernel<OP, KIND_I32><<<grid, block, 0, s>>>(pred, P, table, D, n_rows, t_hi, t_lo, out, counts);
-  } else {
-    filter_select_kernel<OP, KIND_I64><<<grid, block, 0, s>>>(pred, P, table, D, n_rows, t_hi, t_lo, out, counts);
+    return vec ? filter_select_kernel<OP, KIND_F32, true> : filter_select_kernel<OP, KIND_F32, false>;
+  }
+  if (kind == KIND_I32) {
+    return vec ? filter_select_kernel<OP, KIND_I32, true> : filter_select_kernel<OP, KIND_I32, false>;
+  }
+  return vec ? filter_select_kernel<OP, KIND_I64, true> : filter_select_kernel<OP, KIND_I64, false>;
+}
+
+static FsKernel pick(int op, int kind, bool vec) {
+  switch (op) {
+    case OP_LT: return pick_kind<OP_LT>(kind, vec);
+    case OP_LE: return pick_kind<OP_LE>(kind, vec);
+    case OP_GT: return pick_kind<OP_GT>(kind, vec);
+    case OP_GE: return pick_kind<OP_GE>(kind, vec);
+    case OP_EQ: return pick_kind<OP_EQ>(kind, vec);
+    default: return pick_kind<OP_NE>(kind, vec);
   }
 }
 
@@ -76,16 +147,22 @@ DACP_API int dacp_filter_select_planes(const int32_t* pred, int P, const int32_t
       P < (kind == KIND_I64 ? 2 : 1) || D < 0)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return dacp_last_error();
-  const dim3 grid((unsigned)(N / tile));
-  const dim3 block(tile);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (op) {
-    case OP_LT: launch_op<OP_LT>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
-    case OP_LE: launch_op<OP_LE>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
-    case OP_GT: launch_op<OP_GT>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
-    case OP_GE: launch_op<OP_GE>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
-    case OP_EQ: launch_op<OP_EQ>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
-    default: launch_op<OP_NE>(kind, grid, block, s, pred, P, table, D, n_rows, t_hi, t_lo, out, counts); break;
+  // columns a block stages beside its tile source rows; a tile wider than
+  // that splits its columns in chunks of a multiple of 4 over gridDim.y
+  const int fit = (FS_SHARED_MAX_BYTES / (int)sizeof(int32_t) - tile) / tile;
+  const int dc = D <= fit ? D : fit / 4 * 4;
+  const int chunks = D == 0 ? 1 : (D + dc - 1) / dc;
+  const bool vec = (uintptr_t)table % 16 == 0 && (uintptr_t)out % 16 == 0 && (chunks == 1 || D % 4 == 0);
+  const size_t shmem = sizeof(int32_t) * (size_t)tile * (dc + 1);
+  const FsKernel kernel = pick(op, kind, vec);
+  // the default 48 KB holds warp_total too; the opt-in is always to the
+  // most any launch asks, so that racing callers agree
+  if (shmem > 48 * 1024 - 32 * sizeof(int)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FS_SHARED_MAX_BYTES);
+    if (e != cudaSuccess) return (int)e;
   }
+  const dim3 grid((unsigned)(N / tile), (unsigned)chunks);
+  kernel<<<grid, tile, shmem, (cudaStream_t)stream>>>(pred, P, table, D, dc, n_rows, t_hi, t_lo, out, counts);
   return dacp_last_error();
 }

@@ -36,19 +36,61 @@
 // per column), float32 or int32.  Empty groups hold the identities: +inf /
 // -inf for float32, INT32_MAX / INT32_MIN for int32.
 //   Bound: bytes.  Reads gidx (4·N) and vals (4·N·M), writes 4·G·M.
-//   float32 reduces through the order-preserving key b >= 0 ? b : b ^ 0x7FFFFFFF
-//   and is decoded after.  That order puts -0.0 below +0.0 and a NaN beyond
+//   float32 reduces in the order of the key b >= 0 ? b : b ^ 0x7FFFFFFF
+//   (dacp_f32_key).  That order puts -0.0 below +0.0 and a NaN beyond
 //   the infinities, where numpy's sequential fold keeps the later of two tied
 //   zeros and propagates NaN; the backend therefore never sends a float32
 //   column that holds NaN, ±inf or -0.0 (the plain version defines the same
 //   key order for any input).
-//   Design: each block takes 2048 rows, one element per thread and step,
-//   and folds them with int32 atomicMin / atomicMax into shared keys.
+//   A call moves 0.5 MB at the aggregate COOK's morsel (65536 rows, one
+//   column, 200 Zipf-skewed stations): 0.16 µs at 3.35 TB/s, far below two
+//   launches, so what counts is few launches, a full card and no
+//   serialising on the hot group.
+//   Design: a grid-stride loop over blocks of 1024 threads, at most one
+//   block per SM (64 blocks at the morsel), one row a thread, each
+//   thread's next row loaded while its row folds.  A shared bin folds the
+//   min of the key for a min column and of ~key for a max column (~
+//   reverses the order), so both start from one identity and every atomic
+//   is a min.  Each row goes straight to a shared atomicMin: Hopper's
+//   shared atomics absorb the hot group's conflicts more cheaply than the
+//   warp aggregation of segment_sum_tiles (__match_any_sync and a shuffle
+//   tree), and the fold pays per block and per row step, not per row
+//   (PERF.md keeps the runs).  A block flushes
+//   only the bins it moved off the identity, and flushes values, not keys:
+//   the key order on float32 bits is the signed order on non-negative
+//   patterns and the reversed unsigned order below them, so an int32
+//   atomicMin / atomicMax or, for a negative pattern, an unsigned
+//   atomicMax / atomicMin folds the value in place, and no pass decodes
+//   the output.  A call is two launches: minmax_init_kernel (the output's
+//   identities) and minmax_kernel.
+#include <mutex>
+#include <vector>
+
 #include "dataplane.cuh"
 
-#define ROWS_PER_BLOCK 2048
 #define COLS_MAX 32
 #define SHARED_INTS 12288  // 48 KB
+
+// The current device's SM count, asked of the runtime once per device: the
+// grid-stride loops below cap their grids with it.
+static cudaError_t sm_count(int* sms) {
+  static std::mutex mu;
+  static std::vector<int2> known;  // (device, SMs)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const int2& k : known) {
+    if (k.x == dev) {
+      *sms = k.y;
+      return cudaSuccess;
+    }
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  known.push_back(make_int2(dev, *sms));
+  return cudaSuccess;
+}
 
 // --- segment sum -------------------------------------------------------------
 #define SUM_THREADS 256
@@ -129,9 +171,8 @@ DACP_API int dacp_segment_sum(const int32_t* gidx, const int32_t* limbs, int S, 
   const int y_blocks = dacp_imax(1, (S + cpb - 1) / cpb);
   const int ld = dacp_imin(cpb, S) + 1;
   const int copies = 2 * G * ld <= SHARED_INTS ? 2 : 1;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
   const int64_t row_blocks = ((int64_t)n_rows + SUM_THREADS - 1) / SUM_THREADS;
   const dim3 grid((unsigned)dacp_min64(row_blocks, 2 * (int64_t)sms), (unsigned)y_blocks);
@@ -147,97 +188,149 @@ DACP_API int dacp_segment_sum(const int32_t* gidx, const int32_t* limbs, int S, 
 }
 
 // --- segment min / max ---------------------------------------------------------
-// Bit j set: column j of the launch takes the max, else the min.
+#define MM_THREADS 1024  // a block's threads, and the fewest rows that earn a block
+#define MM_BLOCKS_PER_SM 1  // the grid's cap: blocks per SM
+#define MM_SHARED_INTS (4 * SHARED_INTS)  // 192 KB of bins: COLS_MAX columns of 1536 groups
+#define MM_GROUP_COLS 1024  // columns one init + fold launch pair covers: 32 chunks of COLS_MAX
+#define MM_NV 4             // columns a warp folds at once when a launch has more than one
+
+// Bit j set: column j of the launch group takes the max, else the min.
 struct FnBits {
-  uint32_t w[COLS_MAX / 32];
+  uint32_t w[MM_GROUP_COLS / 32];
 };
 
 __device__ __forceinline__ bool is_max(const FnBits& f, int c) { return (f.w[c >> 5] >> (c & 31)) & 1u; }
 
-// Identity key of a column: the key of +inf / -inf for float32, the int32
-// extremes for int32.
-__device__ __forceinline__ int32_t identity_key(bool f32, bool mx) {
-  if (f32) return mx ? dacp_f32_key((int32_t)0xFF800000u) : (int32_t)0x7F800000;
-  return mx ? INT32_MIN : INT32_MAX;
+// A shared bin folds the min of x = key (a min column) or ~key (a max
+// column, whose order ~ reverses), so one identity serves both: the key of
+// +inf for float32 (~ of -inf's key is the same bits), INT32_MAX for int32.
+__device__ __forceinline__ int32_t bin_identity(bool f32) { return f32 ? 0x7F800000 : INT32_MAX; }
+
+// out[p] := the min (mx: the max) of out[p] and b in the key order, on the
+// value bits themselves.  int32 and non-negative float32 patterns order as
+// signed ints; negative float32 patterns lie below them and order as
+// reversed unsigned ints.  Each atomic below computes exactly that min
+// (max) whatever out[p] holds, so they commute, and the output needs no
+// decode afterwards.
+__device__ __forceinline__ void fold_value(int32_t* p, int32_t b, bool f32, bool mx) {
+  if (!f32 || b >= 0) {
+    mx ? atomicMax(p, b) : atomicMin(p, b);
+  } else {
+    unsigned* u = reinterpret_cast<unsigned*>(p);
+    mx ? atomicMin(u, (unsigned)b) : atomicMax(u, (unsigned)b);
+  }
 }
 
-// vals and out are viewed at column c0 with row stride ld; this launch owns
-// m <= COLS_MAX columns.
-__global__ void minmax_init_kernel(int32_t* __restrict__ out, int ld, int m, int G, bool f32, FnBits fns) {
+// The launch group's (G, m) columns of out (row stride ld) to their
+// identities: +inf / -inf for float32, INT32_MAX / INT32_MIN for int32.
+__global__ void minmax_init_kernel(int32_t* __restrict__ out, int ld, int m, int G, bool f32,
+                                   const __grid_constant__ FnBits fns) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= G * m) return;
   const int c = i % m;
-  out[(int64_t)(i / m) * ld + c] = identity_key(f32, is_max(fns, c));
+  const bool mx = is_max(fns, c);
+  out[(int64_t)(i / m) * ld + c] = f32 ? (mx ? (int32_t)0xFF800000u : 0x7F800000) : (mx ? INT32_MIN : INT32_MAX);
 }
 
-__global__ void minmax_kernel(const int32_t* __restrict__ gidx, const int32_t* __restrict__ vals, int ld, int m,
-                              int n_rows, int G, bool f32, FnBits fns, int32_t* __restrict__ out) {
-  extern __shared__ int32_t sh[];  // (G, m) keys
-  for (int i = threadIdx.x; i < G * m; i += blockDim.x) sh[i] = identity_key(f32, is_max(fns, i % m));
+// One launch group of m_all columns of vals and out (row stride ld);
+// blockIdx.y takes the chunk of COLS_MAX columns at c0.  NV: columns
+// folded at once.
+template <bool F32, int NV>
+__global__ void __launch_bounds__(MM_THREADS)
+    minmax_kernel(const int32_t* __restrict__ gidx, const int32_t* __restrict__ vals, int ld, int m_all, int n_rows,
+                  int G, const __grid_constant__ FnBits fns, int32_t* __restrict__ out) {
+  extern __shared__ int32_t sh[];  // (G, m) bins
+  const int t = threadIdx.x;
+  const int c0 = blockIdx.y * COLS_MAX;
+  const int m = dacp_imin(COLS_MAX, m_all - c0);
+  const int32_t ident = bin_identity(F32);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + t;
+  // a row's group id and first NV values; the next row's are in flight
+  // while this one folds, and the first row's while the bins are set
+  auto fetch = [&](int64_t row, int& row_g, int32_t(&row_b)[NV]) {
+    const bool in = row < n_rows;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) row_b[j] = in && j < m ? vals[row * ld + c0 + j] : 0;
+    row_g = in ? gidx[row] : -1;
+  };
+  int g;
+  int32_t b[NV];
+  fetch(r, g, b);
+  for (int i = t; i < G * m; i += blockDim.x) sh[i] = ident;
   __syncthreads();
-  const int64_t r0 = (int64_t)blockIdx.x * ROWS_PER_BLOCK;
-  const int64_t r1 = dacp_min64(r0 + ROWS_PER_BLOCK, (int64_t)n_rows);
-  const int64_t n_el = (r1 - r0) * m;
-  for (int64_t e = threadIdx.x; e < n_el; e += blockDim.x) {
-    const int64_t r = r0 + e / m;
-    const int c = (int)(e % m);
-    const int g = gidx[r];
-    if (g < 0 || g >= G) continue;
-    const int32_t v = vals[r * ld + c];
-    const int32_t k = f32 ? dacp_f32_key(v) : v;
-    if (is_max(fns, c)) {
-      atomicMax(&sh[g * m + c], k);
-    } else {
-      atomicMin(&sh[g * m + c], k);
+
+  for (; r < n_rows; r += stride) {
+    int g_next;
+    int32_t b_next[NV];
+    fetch(r + stride, g_next, b_next);
+    if (g >= 0 && g < G) {
+      for (int cc = 0; cc < m; cc += NV) {
+        if (cc > 0) {  // a later chunk of a wide launch
+#pragma unroll
+          for (int j = 0; j < NV; ++j) b[j] = cc + j < m ? vals[r * ld + c0 + cc + j] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int c = cc + j;
+          if (c >= m) break;
+          const int32_t key = F32 ? dacp_f32_key(b[j]) : b[j];
+          atomicMin(&sh[g * m + c], is_max(fns, c0 + c) ? ~key : key);
+        }
+      }
     }
+    g = g_next;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) b[j] = b_next[j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * m; i += blockDim.x) {
+
+  // only the bins this block moved off the identity reach global memory,
+  // as values: ~ back for a max column, the key decoded for float32
+  for (int i = t; i < G * m; i += blockDim.x) {
+    const int32_t v = sh[i];
+    if (v == ident) continue;
     const int c = i % m;
-    int32_t* dst = &out[(int64_t)(i / m) * ld + c];
-    if (is_max(fns, c)) {
-      atomicMax(dst, sh[i]);
-    } else {
-      atomicMin(dst, sh[i]);
-    }
+    const bool mx = is_max(fns, c0 + c);
+    const int32_t key = mx ? ~v : v;
+    fold_value(&out[(int64_t)(i / m) * ld + c0 + c], F32 ? dacp_f32_key(key) : key, F32, mx);
   }
-}
-
-__global__ void minmax_decode_kernel(int32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = dacp_f32_key(out[i]);
 }
 
 // gidx (N,), vals (N, M) row-major float32 (is_f32 = 1) or int32, out (G, M)
 // of the same dtype; fns[j] != 0 takes the max of column j.  Columns run in
-// chunks of COLS_MAX: one init and one fold kernel per chunk, then one decode
-// for float32.
+// groups of MM_GROUP_COLS: per group one init and one fold launch, the
+// fold's blockIdx.y walking the group's chunks of COLS_MAX.
 DACP_API int dacp_segment_minmax(const int32_t* gidx, const void* vals, int M, int n_rows, int G, int is_f32,
                                  const int* fns, void* out, void* stream) {
-  if (M < 0 || n_rows < 0 || G <= 0 || (int64_t)G * COLS_MAX > SHARED_INTS * 4) return (int)cudaErrorInvalidValue;
+  if (M < 0 || n_rows < 0 || G <= 0 || (int64_t)G * COLS_MAX > MM_SHARED_INTS) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = is_f32 != 0;
   const int32_t* v = (const int32_t*)vals;
   int32_t* o = (int32_t*)out;
-  const unsigned row_blocks = (unsigned)((n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  for (int c0 = 0; c0 < M; c0 += COLS_MAX) {
-    const int m = dacp_imin(COLS_MAX, M - c0);
+  const int64_t row_blocks = ((int64_t)n_rows + MM_THREADS - 1) / MM_THREADS;
+  for (int c0 = 0; c0 < M; c0 += MM_GROUP_COLS) {
+    const int mg = dacp_imin(MM_GROUP_COLS, M - c0);
     FnBits bits = {};
-    for (int c = 0; c < m; ++c)
+    for (int c = 0; c < mg; ++c)
       if (fns[c0 + c]) bits.w[c >> 5] |= 1u << (c & 31);
-    minmax_init_kernel<<<(G * m + DACP_THREADS - 1) / DACP_THREADS, DACP_THREADS, 0, s>>>(o + c0, M, m, G, f32, bits);
-    if (row_blocks > 0) {
-      const size_t shmem = sizeof(int32_t) * (size_t)G * m;
-      if (shmem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(minmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-        if (e != cudaSuccess) return (int)e;
-      }
-      minmax_kernel<<<row_blocks, DACP_THREADS, shmem, s>>>(gidx, v + c0, M, m, n_rows, G, f32, bits, o + c0);
+    minmax_init_kernel<<<(G * mg + DACP_THREADS - 1) / DACP_THREADS, DACP_THREADS, 0, s>>>(o + c0, M, mg, G, f32, bits);
+    if (row_blocks == 0) continue;  // the identities are the result
+    decltype(&minmax_kernel<true, 1>) kernel =
+        f32 ? (M == 1 ? minmax_kernel<true, 1> : minmax_kernel<true, MM_NV>)
+            : (M == 1 ? minmax_kernel<false, 1> : minmax_kernel<false, MM_NV>);
+    const size_t shmem = sizeof(int32_t) * (size_t)G * dacp_imin(COLS_MAX, mg);
+    if (shmem > 48 * 1024) {  // always to the most any launch asks, so that racing callers agree
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SHARED_INTS * 4);
+      if (e != cudaSuccess) return (int)e;
     }
-  }
-  if (f32 && M > 0) {
-    const int64_t n = (int64_t)G * M;
-    minmax_decode_kernel<<<(unsigned)((n + DACP_THREADS - 1) / DACP_THREADS), DACP_THREADS, 0, s>>>(o, n);
+    // a grid-stride loop over the rows: at most MM_BLOCKS_PER_SM blocks per SM
+    const dim3 grid((unsigned)dacp_min64(row_blocks, (int64_t)sms * MM_BLOCKS_PER_SM),
+                    (unsigned)((mg + COLS_MAX - 1) / COLS_MAX));
+    kernel<<<grid, MM_THREADS, shmem, s>>>(gidx, v + c0, M, mg, n_rows, G, bits, o + c0);
   }
   return dacp_last_error();
 }

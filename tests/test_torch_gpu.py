@@ -129,6 +129,100 @@ def test_segment_kernels(dev, ngroups, n, s, dist):
         assert _bits(got) == _bits(want)
 
 
+def _on_card(dev, a: np.ndarray, offset: bool = False):
+    """``a`` on the card; with ``offset``, as a contiguous view that starts
+    4 bytes past a 16-byte boundary."""
+    src = torch.from_numpy(np.ascontiguousarray(a))
+    if not offset:
+        return src.to(dev)
+    flat = torch.empty(src.numel() + 1, dtype=src.dtype, device=dev)
+    view = flat[1:].view(src.shape)
+    view.copy_(src)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize(
+    "tile,d,rows,passing,view",
+    [
+        (32, 5, "ragged", "some", ""),
+        (128, 11, "ragged", "some", ""),
+        (1024, 11, "ragged", "some", ""),
+        (TILE, 1, "ragged", "some", ""),
+        (TILE, 5, "ragged", "some", ""),
+        (TILE, 11, "ragged", "some", ""),
+        (TILE, 64, "ragged", "some", ""),  # 64 KB of planes a tile: above the 48 KB default
+        (1024, 60, "ragged", "some", ""),  # 240 KB a tile: the columns split over gridDim.y, 16-byte copies
+        (1024, 61, "ragged", "some", ""),  # split, and 61 is no multiple of 4: 4-byte copies
+        (TILE, 11, "zero", "some", ""),
+        (TILE, 11, "boundary", "some", ""),
+        (TILE, 11, "all", "all", ""),
+        (TILE, 11, "all", "none", ""),
+        (TILE, 11, "ragged", "some", "pred"),
+        (TILE, 11, "ragged", "some", "table"),
+        (TILE, 12, "ragged", "some", "table"),
+    ],
+)
+def test_filter_select_kernel_tiles_widths_and_views(dev, tile, d, rows, passing, view):
+    """Bit for bit against the plain version across the kernel's paths: the
+    tiles the wrapper takes, plane counts whose staged tile fits, needs the
+    shared-memory opt-in or splits its columns, n_rows at 0 and on a tile
+    boundary, predicates that pass every row or none, and views 4 bytes off
+    a 16-byte boundary (the 4-byte path)."""
+    n = 16384
+    rng = np.random.default_rng(tile + d + len(rows) + len(passing) + len(view))
+    v = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    pred = np.stack([(v >> 32).astype(np.int32), (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)], axis=1)
+    thr = {"some": int(v[10]), "all": -(2**63), "none": -(2**63)}[passing]
+    op = "lt" if passing == "none" else "ge"
+    lo = (thr & 0xFFFFFFFF) ^ 0x80000000
+    scalars = np.array([0, thr >> 32, lo - 2**32 if lo >= 2**31 else lo], np.int64)
+    scalars[0] = {"ragged": n - 37, "zero": 0, "boundary": n // 2, "all": n}[rows]
+    table = rng.integers(-(2**31), 2**31, size=(n, d), dtype=np.int64).astype(np.int32)
+    got = filter_select.filter_select_planes(
+        _on_card(dev, pred, view == "pred"), _on_card(dev, table, view == "table"), scalars, op, "i64", tile
+    )
+    want = filter_select.filter_select_planes_plain(torch.from_numpy(pred), torch.from_numpy(table), scalars, op,
+                                                     "i64", tile)
+    for g, w in zip(got, want):
+        assert _bits(g) == _bits(w)
+    survivors = int(want[1].sum())
+    assert survivors == {"zero": 0, "all": n if passing == "all" else 0}.get(rows, survivors)
+
+
+@pytest.mark.parametrize(
+    "ngroups,n,m,dist,rows,view",
+    [
+        (1, N, 4, "uniform", "ragged", False),
+        (1536, N, 4, "uniform", "ragged", False),  # the most groups the kernel takes
+        (1536, 65536, 32, "uniform", "ragged", False),  # 192 KB of bins a block
+        (200, N, 33, "uniform", "ragged", False),  # two column chunks over gridDim.y in one fold launch
+        (200, N, 4, "uniform", "zero", False),  # every group holds the identity
+        (200, N, 4, "one", "ragged", False),  # every row in one group
+        (200, 65536, 1, "zipf", "all", False),  # the aggregate COOK's morsel
+        (256, N, 4, "zipf", "ragged", True),  # vals 4 bytes off a 16-byte boundary
+    ],
+)
+def test_segment_minmax_kernel_edges(dev, ngroups, n, m, dist, rows, view):
+    """Bit for bit against the plain version, float32 (NaN, ±0, ±inf,
+    denormals) and int32, each with min and max columns mixed."""
+    rng = np.random.default_rng(ngroups + n + m + len(dist))
+    gidx = _groups(rng, n, ngroups, dist)
+    n_rows = {"ragged": n - 3, "zero": 0, "all": n}[rows]
+    fns = tuple(("min", "max", "max", "min")[j % 4] for j in range(m))
+    g = torch.from_numpy(gidx)
+    for vals in (
+        np.stack([_f32(rng, n) for _ in range(m)], axis=1),
+        rng.integers(-(2**31), 2**31, size=(n, m), dtype=np.int64).astype(np.int32),
+    ):
+        got = segment_reduce.segment_minmax_tiles(g.to(dev), _on_card(dev, vals, view), n_rows, ngroups, fns, TILE)
+        want = segment_reduce.segment_minmax_tiles_plain(g, torch.from_numpy(vals), n_rows, ngroups, fns, TILE)
+        assert _bits(got) == _bits(want)
+        if rows == "zero":
+            ident = segment_reduce.segment_minmax_tiles_plain(g[:0], torch.from_numpy(vals[:0]), 0, ngroups, fns, TILE)
+            assert _bits(got) == _bits(ident)
+
+
 def test_backend_on_cuda_matches_reference_numpy(dev):
     """The torch backend on cuda through the executor, against the
     reference numpy backend: filter+select, projection and aggregation."""

@@ -62,16 +62,16 @@ def _i64_col(rng, n):
     return v
 
 
-def _pred(kind, rng):
-    """(pred planes, t_hi bits, t_lo bits) for a predicate column."""
+def _pred(kind, rng, n=N):
+    """(pred planes, t_hi bits, t_lo bits) for a predicate column of n rows."""
     if kind == "f32":
-        v = _f32_col(rng, N)
-        return v.view(np.int32).reshape(N, 1), int(np.array([0.5], np.float32).view(np.int32)[0]), 0
+        v = _f32_col(rng, n)
+        return v.view(np.int32).reshape(n, 1), int(np.array([0.5], np.float32).view(np.int32)[0]), 0
     if kind == "i32":
-        v = rng.integers(-50, 50, N).astype(np.int32)
+        v = rng.integers(-50, 50, n).astype(np.int32)
         v[:2] = [-(2**31), 2**31 - 1]
-        return v.reshape(N, 1), 3, 0
-    v = _i64_col(rng, N)
+        return v.reshape(n, 1), 3, 0
+    v = _i64_col(rng, n)
     t = int(v[100])
     hi = (v >> 32).astype(np.int32)
     lo = (v & np.int64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
@@ -96,13 +96,24 @@ def test_filter_select_planes_matches_jax(op, kind):
     _assert_bits(ref_cnt, cnt)
 
 
-def test_filter_select_planes_other_tile():
-    rng = np.random.default_rng(5)
-    pred, t_hi, t_lo = _pred("f32", rng)
-    table = rng.integers(-(2**31), 2**31, size=(N, 3), dtype=np.int64).astype(np.int32)
-    scalars = np.array([N - 5, t_hi, t_lo], np.int32)
-    ref = ref_ops.filter_select_planes(jnp.asarray(pred), jnp.asarray(table), scalars, op="gt", kind="f32", tile=128)
-    got = port_ops.filter_select_planes(_t(pred), _t(table), scalars, "gt", "f32", tile=128)
+@pytest.mark.parametrize(
+    "tile,d,n,n_rows",
+    [
+        (128, 3, N, N - 5),
+        (32, 3, N, N - 37),  # the smallest tile
+        (1024, 3, 2048, 2048 - 100),  # the largest
+        (TILE, 1, N, N_ROWS),  # one plane
+        (TILE, 3, N, 0),  # no row survives: every tile all zeros, every count 0
+        (TILE, 3, N, 2 * TILE),  # n_rows on a tile boundary
+    ],
+)
+def test_filter_select_planes_other_tile(tile, d, n, n_rows):
+    rng = np.random.default_rng(5 + tile + d)
+    pred, t_hi, t_lo = _pred("f32", rng, n)
+    table = rng.integers(-(2**31), 2**31, size=(n, d), dtype=np.int64).astype(np.int32)
+    scalars = np.array([n_rows, t_hi, t_lo], np.int32)
+    ref = ref_ops.filter_select_planes(jnp.asarray(pred), jnp.asarray(table), scalars, op="gt", kind="f32", tile=tile)
+    got = port_ops.filter_select_planes(_t(pred), _t(table), scalars, "gt", "f32", tile=tile)
     for r, g in zip(ref, got):
         _assert_bits(r, g)
 
@@ -234,24 +245,34 @@ def test_segment_sum_tiles_skewed_groups_match_jax(dist, ngroups, cols):
         _assert_bits(r, g)
 
 
-@pytest.mark.parametrize("ngroups", [1, 8, 256])
+@pytest.mark.parametrize(
+    "ngroups,cols,n_rows",
+    [
+        (1, 4, N_ROWS),
+        (8, 4, N_ROWS),
+        (256, 4, N_ROWS),
+        (1536, 4, N_ROWS),  # the most groups the kernel takes
+        (8, 33, N_ROWS),  # two chunks of the kernel's 32 columns
+        (8, 4, 0),  # no rows: every group holds the identity
+    ],
+)
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
-def test_segment_minmax_tiles_matches_jax(ngroups, dtype):
+def test_segment_minmax_tiles_matches_jax(ngroups, cols, n_rows, dtype):
     """Inside the backend's envelope (float32 finite or ±inf, no NaN and no
     -0.0; any int32), with empty groups holding the identities."""
-    rng = np.random.default_rng(ngroups + (0 if dtype == "float32" else 1000))
+    rng = np.random.default_rng(ngroups + cols + (0 if dtype == "float32" else 1000))
     gidx = rng.integers(0, max(1, ngroups // 2), N).astype(np.int32)  # upper groups stay empty
     if dtype == "float32":
-        vals = (rng.standard_normal((N, 4)) * 100).astype(np.float32)
+        vals = (rng.standard_normal((N, cols)) * 100).astype(np.float32)
         vals[::31, 0] = np.inf
         vals[::37, 1] = -np.inf
         vals[::41, 2] = 0.0
         vals[::43, 3] = np.float32(-3.5)
     else:
-        vals = rng.integers(-(2**31), 2**31, size=(N, 4), dtype=np.int64).astype(np.int32)
-    fns = ("min", "max", "max", "min")
-    ref = ref_ops.segment_minmax_tiles(jnp.asarray(gidx), jnp.asarray(vals), N_ROWS, ngroups, fns, tile=TILE)
-    got = port_ops.segment_minmax_tiles(_t(gidx), _t(vals), N_ROWS, ngroups, fns, tile=TILE)
+        vals = rng.integers(-(2**31), 2**31, size=(N, cols), dtype=np.int64).astype(np.int32)
+    fns = tuple(("min", "max", "max", "min")[j % 4] for j in range(cols))
+    ref = ref_ops.segment_minmax_tiles(jnp.asarray(gidx), jnp.asarray(vals), n_rows, ngroups, fns, tile=TILE)
+    got = port_ops.segment_minmax_tiles(_t(gidx), _t(vals), n_rows, ngroups, fns, tile=TILE)
     _assert_bits(ref, got)
 
 
