@@ -35,17 +35,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      timed beside them (no single PyTorch call computes either);
      ``ssd_scan`` also over 16 chunks (b 1, s 4096) and at p 32, n 16 with
      96-row chunks, with the worst ratio |got - want| / (atol + rtol |want|)
-     per case.  The eight redesigned kernels (``filter_select_planes``,
-     ``segment_sum_tiles``, ``segment_minmax_tiles``,
-     ``fused_chain_tiles``, ``flash_attention``, ``decode_attention``,
-     ``ssd_scan``, ``mlstm_chunk``) print their design and the fraction of
+     per case.  All nine kernels print their design and the fraction of
      their bound they reach, and the multi-kernel wrappers (min/max, fused,
      SSD, mLSTM) each kernel's device time by name;
      ``segment_minmax_tiles`` also its device events a call (at most two,
-     or the run fails), and it and ``filter_select_planes`` their device
-     time at the widest envelope beside its bound (the filter's, at the
-     main shape too, also over a rotation of inputs that holds
-     COLD_BYTES, out of L2); ``segment_minmax_tiles``'s
+     or the run fails), and it, ``filter_select_planes`` and
+     ``project_tiles`` their device time at the widest envelope beside its
+     bound (the filter's and the projection's, at the main shape too, also
+     over a rotation of inputs that holds COLD_BYTES, out of L2);
+     ``project_tiles`` is also checked on a tree of STACK_MAX values and on
+     tables 4 bytes past a 16-byte boundary, timed on the int32 morsel
+     projection (``s3``), and fails if ``cuobjdump -sass`` finds a
+     local-memory instruction (LDL / STL) in its kernel;
+     ``segment_minmax_tiles``'s
      and ``segment_sum_tiles``'s yardsticks (``scatter_reduce_``,
      ``index_add_``) are timed by the profiler's device time of their own
      kernels, as ours are; ``cuobjdump -sass`` must find tensor-core
@@ -307,16 +309,23 @@ def _sass() -> str:
     return res.stdout
 
 
-def tensor_core_instructions(kernel: str) -> int:
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of the built
-    library's functions whose name holds ``kernel``, by ``cuobjdump -sass``."""
+def sass_instructions(kernel: str, mnemonics: tuple) -> int:
+    """Instructions whose mnemonic is one of ``mnemonics`` in the SASS of the
+    built library's functions whose name holds ``kernel``, by ``cuobjdump
+    -sass``."""
+    pattern = re.compile(r"\b(" + "|".join(mnemonics) + r")\b")
     n, function = 0, ""
     for ln in _sass().splitlines():
         if "Function :" in ln:
             function = ln
-        elif kernel in function and ("HMMA" in ln or "HGMMA" in ln):
+        elif kernel in function and pattern.search(ln):
             n += 1
     return n
+
+
+def tensor_core_instructions(kernel: str) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) of ``kernel``'s SASS."""
+    return sass_instructions(kernel, ("HMMA", "HGMMA"))
 
 
 def _time_ms(fn) -> float:
@@ -513,17 +522,32 @@ def check_project(dev, rng) -> KernelRecord:
         ("mul", ("add", ("col", 0), ("mul", ("lit", 2.0), ("lit", 3.0))), ("col", 1)),
     )
     hazard_i = (("mul", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("lit", 2**31 - 1)), ("add", ("col", 1), ("col", 0)))
+    # a tree that holds STACK_MAX values at once, in both dtypes
+    deep_f, deep_i = ("col", 1), ("col", 1)
+    for i in range(pa.STACK_MAX - 1):
+        deep_f = (("add", "sub", "mul", "div")[i % 4], ("col", i % 2), deep_f)
+        deep_i = (("add", "sub", "mul")[i % 3], ("col", i % 2), deep_i)
     for n in (MORSEL, WIDE_N):
         f = np.stack([_f32_specials(rng, n), _f32_specials(rng, n)], axis=1)
         f[::5, 1] = 0.0
         ii = rng.integers(-(2**31), 2**31, size=(n, 2), dtype=np.int64).astype(np.int32)
-        for table, descrs in ((f, main_f), (f, hazard_f), (ii[:, :1].copy(), main_i), (ii, hazard_i)):
+        cases = ((f, main_f), (f, hazard_f + (deep_f,)), (ii[:, :1].copy(), main_i), (ii, hazard_i + (deep_i,)))
+        for table, descrs in cases:
             t_cpu = torch.from_numpy(np.ascontiguousarray(table))
             got = pa.project_tiles(t_cpu.to(dev), descrs, TILE)
             want = pa.project_tiles_plain(t_cpu, descrs, TILE)
             rec.compare((got,), (want,), f"n={n} {descrs}")
+            # the same table 4 bytes past a 16-byte boundary
+            flat = torch.zeros(t_cpu.numel() + 1, dtype=t_cpu.dtype, device=dev)
+            flat[1:] = t_cpu.reshape(-1).to(dev)
+            got = pa.project_tiles(flat[1:].view(t_cpu.shape), descrs, TILE)
+            rec.compare((got,), (want,), f"n={n} view 4 bytes in {descrs}")
+        t_dev = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+        # the inputs of one call stay in the 50 MB L2 between calls; over a
+        # rotation of COLD_BYTES of inputs they come from HBM
+        sets = _cold_sets(t_dev)
+        cold_ms = _kernel_device_ms(_rotation(lambda t: pa.project_tiles(t, main_f, TILE), sets))
         if n == MORSEL:
-            t_dev = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
             _time_kernel(rec, lambda: pa.project_tiles(t_dev, main_f, TILE))
             rec.plain_ms = _time_ms(lambda: pa.project_tiles_plain(t_dev, main_f, TILE))
             by_bytes = _bytes_bound_ms(4 * n * 2 + 4 * n * len(main_f))
@@ -531,9 +555,23 @@ def check_project(dev, rng) -> KernelRecord:
             rec.bound_ms = max(by_bytes, by_ops)
             rec.bound_by = "bytes" if by_bytes >= by_ops else "operations"
             rec.shape = f"N={n} D=2 K=2 float32"
+            rec.extra["cold_sets"] = len(sets)
+            rec.extra["cold_ms"] = cold_ms
+            i_dev = torch.from_numpy(ii[:, :1].copy()).to(dev)
+            rec.extra["i32_ms"] = _kernel_device_ms(lambda: pa.project_tiles(i_dev, main_i, TILE))
+            rec.extra["i32_bound_ms"] = _bytes_bound_ms(4 * n * 2)
+            rec.extra["i32_shape"] = f"N={n} D=1 K=1 int32"
+            rec.extra["design"] = ("a postfix program with annotated stack slots and literal ops fused, the top of the "
+                                   "stack in a register and the slots below in shared memory; one row a thread at a "
+                                   "morsel, four rows where the card is full; decoded by uniform tests, add / sub / "
+                                   "mul selected without a branch, NaN bits fixed only in a warp that holds a NaN")
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
         else:
-            t_dev = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
             rec.wide(lambda: pa.project_tiles(t_dev, main_f, TILE), 4 * n * 2 + 4 * n * len(main_f), f"N={n} D=2 K=2")
+            rec.extra["wide_cold_sets"] = len(sets)
+            rec.extra["wide_cold_ms"] = cold_ms
+    # the interpreter's stack must not live in local memory
+    rec.extra["local_memory_instructions"] = sass_instructions("project_kernel", ("LDL", "STL"))
     return rec
 
 
@@ -1802,7 +1840,7 @@ def main() -> None:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
             f"max |err| {r.max_abs_err}, {r.shape}: {r.ms:.6f} ms (plain {r.plain_ms:.6f} ms, "
             f"library {r.library_ms} ms, bound {r.bound_ms:.6f} ms by {r.bound_by})")
-    for r in (records[0], records[2], records[3], records[4], records[5], records[6], records[7], records[8]):
+    for r in records:
         log(f"redesigned {r.name}: design {r.extra['design']}, {r.extra['bound_fraction']:.4f} of its bound "
             f"({r.bound_ms:.6f} ms by {r.bound_by} against {r.ms:.6f} ms), "
             f"{r.extra.get('tensor_core_instructions', 0)} tensor-core instructions")
@@ -1815,7 +1853,14 @@ def main() -> None:
     log(f"filter_select_planes {fsp.shape}: {fsp.ms:.6f} ms device with its inputs in L2 "
         f"({fsp.bound_ms / fsp.ms:.4f} of its bound {fsp.bound_ms:.6f} ms); out of L2 over "
         f"{fsp.extra['cold_sets']} sets " + (f"{cold:.6f} ms ({fsp.bound_ms / cold:.4f})" if cold else "not measured"))
-    for r in (records[0], records[3]):
+    pt = records[1]
+    log(f"project_tiles device ms, each beside its bound's share: {pt.shape} {pt.ms:.6f} in L2 "
+        f"({pt.bound_ms / pt.ms:.4f} of {pt.bound_ms:.6f}), out of L2 over {pt.extra['cold_sets']} sets "
+        f"{pt.extra['cold_ms']:.6f} ({pt.bound_ms / pt.extra['cold_ms']:.4f}); {pt.extra['i32_shape']} "
+        f"{pt.extra['i32_ms']:.6f} in L2 ({pt.extra['i32_bound_ms'] / pt.extra['i32_ms']:.4f} of "
+        f"{pt.extra['i32_bound_ms']:.6f}); local-memory instructions (LDL / STL) in its SASS: "
+        f"{pt.extra['local_memory_instructions']}")
+    for r in (records[0], records[1], records[3]):
         cold = r.extra.get("wide_cold_ms")
         log(f"{r.name} wide envelope {r.wide_shape}: {r.wide_ms:.6f} ms device against its bound "
             f"{r.wide_bound_ms:.6f} ms ({r.wide_bound_ms / r.wide_ms:.4f} of it)"
@@ -1848,6 +1893,8 @@ def main() -> None:
         f"fused kernels {fused.extra['kernels_ms']} (wrapper call {fused.extra['call_device_ms']:.6f}); "
         f"launched grid {fused.extra['blocks']} blocks at {MORSEL} rows, {fused.extra['wide_blocks']} at {WIDE_N} "
         f"(profiler trace)")
+    check(pt.extra["local_memory_instructions"] == 0,
+          f"project_kernel's SASS holds {pt.extra['local_memory_instructions']} LDL / STL: its stack is in local memory")
     copies = time_morsel_copies(dev)
     log("morsel copies: " + json.dumps(copies))
     log("fused morsel on the host clock: " + json.dumps(time_fused_morsel(dev)))

@@ -60,7 +60,7 @@ _L = ctypes.c_int64
 # C signature of every entry point: (restype int = cudaGetLastError(), argtypes)
 _SIGNATURES = {
     "dacp_filter_select_planes": (_P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "dacp_project_tiles": (_P, _I, _L, _I, _P, _I, _P, _I, _P, _I, _P),
+    "dacp_project_tiles": (_P, _I, _L, _I, _P, _I, _P, _I, _P),
     "dacp_segment_sum": (_P, _P, _I, _I, _I, _P, _P, _P),
     "dacp_segment_minmax": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dacp_fused_chain": (

@@ -63,34 +63,10 @@
 //   atomicMax / atomicMin folds the value in place, and no pass decodes
 //   the output.  A call is two launches: minmax_init_kernel (the output's
 //   identities) and minmax_kernel.
-#include <mutex>
-#include <vector>
-
 #include "dataplane.cuh"
 
 #define COLS_MAX 32
 #define SHARED_INTS 12288  // 48 KB
-
-// The current device's SM count, asked of the runtime once per device: the
-// grid-stride loops below cap their grids with it.
-static cudaError_t sm_count(int* sms) {
-  static std::mutex mu;
-  static std::vector<int2> known;  // (device, SMs)
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const int2& k : known) {
-    if (k.x == dev) {
-      *sms = k.y;
-      return cudaSuccess;
-    }
-  }
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  known.push_back(make_int2(dev, *sms));
-  return cudaSuccess;
-}
 
 // --- segment sum -------------------------------------------------------------
 #define SUM_THREADS 256
@@ -172,7 +148,7 @@ DACP_API int dacp_segment_sum(const int32_t* gidx, const int32_t* limbs, int S, 
   const int ld = dacp_imin(cpb, S) + 1;
   const int copies = 2 * G * ld <= SHARED_INTS ? 2 : 1;
   int sms = 0;
-  const cudaError_t e = sm_count(&sms);
+  const cudaError_t e = dacp_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
   const int64_t row_blocks = ((int64_t)n_rows + SUM_THREADS - 1) / SUM_THREADS;
   const dim3 grid((unsigned)dacp_min64(row_blocks, 2 * (int64_t)sms), (unsigned)y_blocks);
@@ -305,7 +281,7 @@ DACP_API int dacp_segment_minmax(const int32_t* gidx, const void* vals, int M, i
                                  const int* fns, void* out, void* stream) {
   if (M < 0 || n_rows < 0 || G <= 0 || (int64_t)G * COLS_MAX > MM_SHARED_INTS) return (int)cudaErrorInvalidValue;
   int sms = 0;
-  cudaError_t e = sm_count(&sms);
+  cudaError_t e = dacp_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = is_f32 != 0;

@@ -16,14 +16,22 @@ per dtype runs for every row (``csrc/project_arith.cu``).  Literal-only
 subtrees fold on the host in Python arithmetic, exactly as the Pallas trace
 folds them.  A tree that needs more than ``STACK_MAX`` stack slots, or more
 instructions or literals than one launch carries, does not ``fit``: the
-backend leaves it to numpy before any launch.
+backend leaves it to numpy before any launch.  Before a launch ``annotate``
+names each instruction's stack slot (the stack depth there), pairs each
+instruction with its literal and folds a literal push into the binary op
+that takes it, so the kernel decodes few instructions and keeps no stack in
+local memory; the kernel's host side checks the slots before it launches.
 
 Semantics are numpy's on an x86 host: float32 ops round once each (no FMA),
 division is correctly rounded, int32 wraps modulo 2^32, and a NaN result
 takes the host's bits — the NaN operand quieted (both NaN: the second for
 add/mul, the first for sub/div, as numpy's vectorised loops do), else
-0xFFC00000.  ``project_tiles_plain`` runs the same program in plain PyTorch
-and defines those bits on any device.
+0xFFC00000.  ``project_tiles_plain`` runs the unannotated postfix program
+on a stack in plain PyTorch, independent of ``annotate``, and defines those
+bits on any device.
+
+The unannotated programs of ``compile_program`` are also what the fused
+chain kernel runs (``fused_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["STACK_MAX", "PROG_MAX", "LITS_MAX", "fits", "compile_program", "project_tiles", "project_tiles_plain", "launches"]
+__all__ = [
+    "STACK_MAX",
+    "PROG_MAX",
+    "LITS_MAX",
+    "fits",
+    "compile_program",
+    "annotate",
+    "project_tiles",
+    "project_tiles_plain",
+    "launches",
+]
 
 # Limits of one launch; they match PROG_MAX / LITS_MAX / STACK_MAX in
 # csrc/project_arith.cu.
@@ -45,6 +63,11 @@ LITS_MAX = 64
 STACK_MAX = 16
 
 I_COL, I_LIT, I_ADD, I_SUB, I_MUL, I_DIV, I_STORE = range(7)
+# Annotated instructions (csrc/project_arith.cu) are (word, literal) pairs,
+# word = kind | slot << 4 | arg << 8; a kind with LIT_BIT set takes the
+# pair's literal.
+LIT_BIT = 8
+_BINARY = (I_ADD, I_SUB, I_MUL, I_DIV)
 _OPCODE = {"add": I_ADD, "sub": I_SUB, "mul": I_MUL, "div": I_DIV}
 _PY = {"add": operator.add, "sub": operator.sub, "mul": operator.mul, "div": operator.truediv}
 _DTYPES = {"float32": torch.float32, "int32": torch.int32}
@@ -138,6 +161,47 @@ def compile_program(descrs: tuple, dtype_name: str) -> tuple:
     return tuple(chunks)
 
 
+def annotate(code: np.ndarray, lits: np.ndarray) -> np.ndarray:
+    """The annotated form of a postfix program, as the kernel runs it: one
+    (word, literal) row per instruction, word = kind | slot << 4 | arg << 8.
+    The slot is the stack depth below the top (the depth before a push, a
+    register op's left operand, the slot a store takes the top from).  A
+    literal push followed by a binary op becomes one instruction, the op
+    with LIT_BIT set, whose right operand is the row's literal."""
+    words = code.tolist()
+    bits = lits.view(np.int32).tolist()
+    out: list = []
+    sp = 0
+    i = 0
+    while i < len(words):
+        op, arg = words[i] & 0xFF, words[i] >> 8
+        nxt = words[i + 1] & 0xFF if i + 1 < len(words) else None
+        if op == I_LIT and nxt in _BINARY:
+            out.append((nxt | LIT_BIT | ((sp - 1) << 4), bits[arg]))
+            i += 2
+            continue
+        if op == I_LIT:
+            out.append((I_LIT | LIT_BIT | (sp << 4), bits[arg]))
+            sp += 1
+        elif op == I_COL:
+            out.append((I_COL | (sp << 4) | (arg << 8), 0))
+            sp += 1
+        elif op == I_STORE:
+            sp -= 1
+            out.append((I_STORE | (sp << 4) | (arg << 8), 0))
+        else:
+            sp -= 1
+            out.append((op | ((sp - 1) << 4), 0))
+        i += 1
+    return np.asarray(out, np.int32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=256)
+def _annotated(descrs: tuple, dtype_name: str) -> tuple:
+    """``compile_program``'s chunks, annotated."""
+    return tuple(annotate(code, lits) for code, lits in compile_program(descrs, dtype_name))
+
+
 def _check_args(table, descrs, tile: int) -> str:
     n = table.shape[0]
     if table.dim() != 2:
@@ -209,7 +273,7 @@ def project_tiles(table, descrs, tile: int = 256):
     k = len(descrs)
     out = torch.empty((n, k), dtype=table.dtype, device=table.device)
     lib = _build.library()
-    for code, lits in compile_program(tuple(descrs), dtype_name):
+    for code in _annotated(tuple(descrs), dtype_name):
         rc = lib.dacp_project_tiles(
             table.data_ptr(),
             d,
@@ -217,8 +281,6 @@ def project_tiles(table, descrs, tile: int = 256):
             int(dtype_name == "float32"),
             code.ctypes.data,
             len(code),
-            lits.ctypes.data,
-            len(lits),
             out.data_ptr(),
             k,
             _build.stream_of(table),

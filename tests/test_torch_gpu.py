@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import filter_select, project_arith, segment_reduce  # noqa: E402
+from repro_torch.kernels import _build, filter_select, project_arith, segment_reduce  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -68,25 +68,114 @@ def test_filter_select_kernel(dev, op, kind):
         assert _bits(g) == _bits(w)
 
 
+def _project_tree(rng, depth: int, d: int, ops: tuple, lits: tuple):
+    if depth <= 1 or rng.random() < 0.2:
+        if rng.random() < 0.7:
+            return ("col", int(rng.integers(d)))
+        return ("lit", lits[int(rng.integers(len(lits)))])
+    op = ops[int(rng.integers(len(ops)))]
+    return (op, _project_tree(rng, depth - 1, d, ops, lits), _project_tree(rng, depth - 1, d, ops, lits))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "view4"])
+@pytest.mark.parametrize("n", [TILE, N], ids=["one_tile", "wide"])
+@pytest.mark.parametrize("k", [1, 3, 33])
+@pytest.mark.parametrize("d", [1, 2, 11])
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
-def test_project_kernel(dev, dtype):
-    rng = np.random.default_rng(3)
+def test_project_kernel(dev, dtype, d, k, n, offset):
+    """Every row's K outputs from D columns, the first tree holding
+    STACK_MAX values at once; ``offset`` 1 starts the table 4 bytes past a
+    16-byte boundary."""
+    rng = np.random.default_rng(1000 * d + 10 * k + offset + (n == N))
     if dtype == "float32":
-        table = np.stack([_f32(rng, N), _f32(rng, N)], axis=1)
-        table[::5, 1] = 0.0
-        descrs = (
+        table = np.stack([_f32(rng, n) for _ in range(d)], axis=1)
+        table[::5, -1] = 0.0
+        ops, lits = ("add", "sub", "mul", "div"), (273.15, 0.5, -1013.0, 1e-3, 3.0)
+        fixed = (
             ("add", ("col", 0), ("lit", 273.15)),
             ("sub", ("mul", ("col", 1), ("lit", 0.5)), ("lit", 1013.0)),
             ("div", ("col", 0), ("col", 1)),
             ("mul", ("sub", ("col", 0), ("col", 1)), ("add", ("col", 1), ("lit", 1e-3))),
         )
     else:
-        table = rng.integers(-(2**31), 2**31, size=(N, 2), dtype=np.int64).astype(np.int32)
-        descrs = (("mul", ("col", 0), ("col", 1)), ("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1)))
+        table = rng.integers(-(2**31), 2**31, size=(n, d), dtype=np.int64).astype(np.int32)
+        table[:3] = [-(2**31)], [2**31 - 1], [-1]
+        ops, lits = ("add", "sub", "mul"), (3, 1, -7, 2**31 - 1, -(2**31))
+        fixed = (("mul", ("col", 0), ("col", 1)), ("add", ("mul", ("col", 0), ("lit", 3)), ("lit", 1)))
+    deep = ("col", d - 1)
+    for i in range(project_arith.STACK_MAX - 1):
+        deep = (ops[i % len(ops)], ("col", i % d), deep)
+    # the deepest tree, the COOK's projections where the table has two
+    # columns, then random trees
+    descrs = ([deep] + list(fixed if d > 1 else ()))[:k]
+    while len(descrs) < k:
+        t = _project_tree(rng, 5, d, ops, lits)
+        if project_arith.fits(t, dtype):
+            descrs.append(t)
+    descrs = tuple(descrs)
     t = torch.from_numpy(table)
-    got = project_arith.project_tiles(t.to(dev), descrs, TILE)
+    flat = torch.zeros(n * d + offset, dtype=t.dtype, device=dev)
+    flat[offset:] = t.reshape(-1).to(dev)
+    view = flat[offset:].view(n, d)
+    assert view.data_ptr() % 16 == 4 * offset
+    got = project_arith.project_tiles(view, descrs, TILE)
     want = project_arith.project_tiles_plain(t, descrs, TILE)
+    assert project_arith.launches.value > 0
     assert _bits(got) == _bits(want)
+
+
+def _slot_word(kind, slot, arg=0):
+    return kind | (slot << 4) | (arg << 8)
+
+
+_PA = project_arith
+# Each breaks the annotated program of ("div", col 0, col 1) stored to
+# column 0, run as float32 over a (256, 2) table: (instruction, new word),
+# or the whole program and the dtype flag it is sent with
+_BAD_PROGRAMS = {
+    "push_slot": (1, _slot_word(_PA.I_COL, 0, 1)),
+    "op_slot": (2, _slot_word(_PA.I_DIV, 1)),
+    "store_slot": (3, _slot_word(_PA.I_STORE, 1, 0)),
+    "column_out_of_range": (1, _slot_word(_PA.I_COL, 1, 2)),
+    "store_out_of_range": (3, _slot_word(_PA.I_STORE, 0, 1)),
+    "op_argument": (2, _slot_word(_PA.I_DIV, 0, 1)),
+    "unknown_kind": (2, _slot_word(7, 0)),
+    "push_without_literal_bit": (1, _slot_word(_PA.I_LIT, 1)),
+    "stack_left_over": (3, _slot_word(_PA.I_LIT | _PA.LIT_BIT, 1)),
+    "literal_op_slot": (2, _slot_word(_PA.I_DIV | _PA.LIT_BIT, 0)),
+    "int32_division": None,
+    "stack_overflow": None,
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_PROGRAMS))
+def test_project_kernel_refuses_a_bad_program(dev, bad):
+    """``dacp_project_tiles`` checks an annotated program's slots, indices
+    and kinds before launch and returns cudaErrorInvalidValue for a bad one;
+    the valid program beside it runs."""
+    code = _PA.annotate(*_PA.compile_program((("div", ("col", 0), ("col", 1)),), "float32")[0])
+    table = torch.ones((TILE, 2), dtype=torch.float32, device=dev)
+    out = torch.zeros((TILE, 1), dtype=torch.float32, device=dev)
+
+    def run(prog, is_f32=1):
+        prog = np.ascontiguousarray(prog, np.int32)
+        return _build.library().dacp_project_tiles(
+            table.data_ptr(), 2, TILE, is_f32, prog.ctypes.data, len(prog), out.data_ptr(), 1, _build.stream_of(table)
+        )
+
+    assert run(code) == 0
+    torch.cuda.synchronize()
+    assert _bits(out) == _bits(torch.ones((TILE, 1)))
+    if bad == "int32_division":
+        rc = run(code, is_f32=0)
+    elif bad == "stack_overflow":
+        rc = run([[_slot_word(_PA.I_COL, s, 0), 0] for s in range(_PA.STACK_MAX + 1)])
+    else:
+        i, word = _BAD_PROGRAMS[bad]
+        bad_code = code.copy()
+        bad_code[i, 0] = word
+        rc = run(bad_code)
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 def _groups(rng, n: int, ngroups: int, dist: str) -> np.ndarray:
