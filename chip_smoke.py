@@ -22,7 +22,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      morsel and its D2H copy, and one fused morsel's encode, staging and
      fold on the host clock.  The two attention kernels are held to their
      plain versions within tests/test_kernels.py's tolerances (float32
-     3e-5, bfloat16 2e-2) at the serving shapes of phases 4-5, at ragged
+     3e-5, bfloat16 2e-2) at the serving shapes of phases 4-6 (phase 6's:
+     G = 1 at head dim 128, full attention at the ragged 1500 and at
+     S != T, decode with length the whole cache, each also timed against
+     SDPA's device time), at ragged
      shapes, in float32 and at head dims 32 and 256, and timed beside their
      plain versions and ``F.scaled_dot_product_attention``, SDPA by the
      profiler's device time of its own kernels as ours are (its CUDA-event
@@ -77,7 +80,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      38 ``ssd_scan`` and 6 ``flash_attention`` launches per prefill and
      6 × 32 ``decode_attention`` over the decode) and xlstm-125m (12 blocks,
      d_model 768, 4 heads, 11 mLSTM blocks through ``mlstm_chunk`` and one
-     sLSTM block in PyTorch; exactly 11 launches per prefill).
+     sLSTM block in PyTorch; exactly 11 launches per prefill);
+  6. serving the rest of the model zoo the same way, at full width from
+     DACP prompts: moonshot-v1-16b-a3b (48 MHA layers, d_model 2048, 16
+     heads of head_dim 128, each FFN 64 experts top-6 of d_ff 1408; about
+     2.8 × 10^10 parameters, 56 GB; exactly 48 ``flash_attention`` and
+     48 × 32 ``decode_attention`` launches), held to the plain path within
+     the larger of the rounding model and twice the plain path's spread
+     against a plain bundle that sums attention over the keys in two halves
+     (routing near a tie flips under both), printing the share of top-k
+     routing decisions that agree between the paths and the slots each
+     drops at capacity; and whisper-small (12 encoder + 12 decoder layers,
+     d_model 768, 12 heads, seeded stub frames of 1500 × 768; exactly 36
+     ``flash_attention`` — 12 encoder, 12 self, 12 cross — and 24 × 32
+     ``decode_attention`` launches, the cross-attention's with length
+     1500).
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -914,6 +931,7 @@ SERVE_PROMPT = 1024
 SERVE_NEW = 32
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 3e-5}  # tests/test_kernels.py:14-15, as rtol and atol
 DECODE_SETS = 12  # distinct caches the decode timing cycles through: 12 × 17.3 MB against a 50 MB L2
+ENC_SEQ = 1500  # whisper-small's encoder frames (phase 6)
 
 
 def _attn_inputs(rng, dev, dtype, *shapes):
@@ -990,7 +1008,14 @@ def check_flash(dev, rng) -> KernelRecord:
         ("hd32", 2, 2, 1, 65, 65, 32, torch.float32, True),
         ("hd256", 1, 1, 8, 300, 300, 256, torch.bfloat16, True),
         ("zamba2", b, 32, 1, SERVE_PROMPT, SERVE_PROMPT, 64, torch.bfloat16, True),
+        # phase 6's shapes: moonshot's MHA (G 1 at hd 128); whisper's encoder (full,
+        # ragged 1500), cross-attention at prefill (full, S != T) and self-attention
+        ("moonshot", b, 16, 1, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16, True),
+        ("whisper-encoder", b, 12, 1, ENC_SEQ, ENC_SEQ, 64, torch.bfloat16, False),
+        ("whisper-cross", b, 12, 1, SERVE_PROMPT, ENC_SEQ, 64, torch.bfloat16, False),
+        ("whisper-self", b, 12, 1, SERVE_PROMPT, SERVE_PROMPT, 64, torch.bfloat16, True),
     ]
+    rec.extra["serving_shapes"] = {}
     for label, bb, nk, gg, s, t, d, dtype, causal in cases:
         q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, s, d), (bb, nk, t, d), (bb, nk, t, d))
         got = flash_attention(q, k, v, causal=causal)
@@ -1016,6 +1041,18 @@ def check_flash(dev, rng) -> KernelRecord:
             sdpa = _sdpa_times(_sdpa_call(q.reshape(bb, nk * gg, s, d), k, v, causal=True))
             rec.extra["zamba2_library_ms"] = sdpa["library_ms"]
             rec.extra["zamba2_library_device_ms"] = sdpa["library_device_ms"]
+        elif label.startswith(("moonshot", "whisper")):
+            fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+            sdpa = _sdpa_times(_sdpa_call(q.reshape(bb, nk * gg, s, d), k, v, causal=causal))
+            flops = 4 * bb * nk * gg * s * t * d / (2 if causal else 1)
+            nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+            rec.extra["serving_shapes"][label] = {
+                "shape": f"B={bb} KV={nk} G={gg} S={s} T={t} hd={d} bfloat16 {'causal' if causal else 'full'}",
+                "ms": _kernel_device_ms(fn) or _time_ms(fn),
+                "library_device_ms": sdpa["library_device_ms"],
+                "library_ms": sdpa["library_ms"],
+                "bound_ms": max(_bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3),
+            }
     # bfloat16 runs on the tensor cores (wgmma); float32 on the CUDA cores
     rec.extra["design"] = "wgmma"
     rec.extra["tensor_core_instructions"] = tensor_core_instructions("flash_attn_bf16")
@@ -1039,7 +1076,13 @@ def check_decode(dev, rng) -> KernelRecord:
         ("f32", 2, 2, 4, 1000, 999, 64, torch.float32),
         ("hd32-g1", 3, 2, 1, 70, 1, 32, torch.float32),
         ("hd256-g32", 1, 2, 32, 300, 129, 256, torch.bfloat16),
+        # phase 6's shapes: moonshot's MHA at hd 128; whisper's self-attention,
+        # and its cross-attention over the whole 1500-row memory (length = T)
+        ("moonshot", SERVE_BATCH, 16, 1, t_max, SERVE_PROMPT + 1, 128, torch.bfloat16),
+        ("whisper-self", SERVE_BATCH, 12, 1, t_max, SERVE_PROMPT + 1, 64, torch.bfloat16),
+        ("whisper-cross", SERVE_BATCH, 12, 1, ENC_SEQ, ENC_SEQ, 64, torch.bfloat16),
     ]
+    rec.extra["serving_shapes"] = {}
     for label, bb, nk, gg, t, length, d, dtype in cases:
         q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d))
         got = decode_attention(q, k, v, length)
@@ -1075,6 +1118,24 @@ def check_decode(dev, rng) -> KernelRecord:
             rec.extra["splits"] = split_plan(bb * nk, length, torch.cuda.get_device_properties(dev).multi_processor_count)
             rec.extra["GBps"] = nbytes / (rec.ms * 1e-3) / 1e9
             rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+        elif label.startswith(("moonshot", "whisper")):
+            # over a rotation of DECODE_SETS distinct caches, as the serving shape
+            sets = [(q, k, v)] + [
+                tuple(_attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d)))
+                for _ in range(DECODE_SETS - 1)
+            ]
+            cold = _rotation(lambda q, k, v: decode_attention(q, k, v, length), sets)
+            sdpa = _sdpa_times(_rotation(
+                lambda q, k, v: _sdpa_call(q.reshape(bb, nk * gg, 1, d), k[:, :, :length], v[:, :, :length], False)(),
+                sets))
+            nbytes = 2 * (2 * bb * nk * length * d + 2 * q.numel())
+            rec.extra["serving_shapes"][label] = {
+                "shape": f"B={bb} KV={nk} G={gg} T={t} length={length} hd={d} bfloat16",
+                "ms": _kernel_device_ms(cold) or _time_ms(cold),
+                "library_device_ms": sdpa["library_device_ms"],
+                "library_ms": sdpa["library_ms"],
+                "bound_ms": max(_bytes_bound_ms(nbytes), 4 * bb * nk * gg * length * d / BF16_FLOPS * 1e3),
+            }
     rec.extra["design"] = ("mma.sync m16n8k16 bf16 on transposed products (S^T = K Q^T, out^T = V^T P^T), 16-byte "
                            "cp.async ring, split-K merged within a thread block cluster")
     rec.extra["tensor_core_instructions"] = tensor_core_instructions("decode_attn_tc")
@@ -1612,8 +1673,9 @@ def _cache_index(cache) -> int:
 
 
 def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict, logit_tol: float,
-                reordered=None) -> tuple:
-    """Serve ``arch`` at full width from DACP prompts: check ``width_of(cfg)
+                reordered=None, diagnose=None) -> tuple:
+    """Serve ``arch`` at full width from DACP prompts (an encoder-decoder
+    also takes seeded stub frames): check ``width_of(cfg)
     == width``, prefill SERVE_BATCH × SERVE_PROMPT tokens and greedily decode
     SERVE_NEW, with ``counters`` (the kernel launch counters) zeroed right
     before the served prefill + decode and read right after it; each kernel
@@ -1625,8 +1687,10 @@ def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict
     plain path's function with its float32 sums in another order — the
     limit is at least twice the plain path's own difference from that
     bundle's: a model that amplifies rounding (bfloat16 activations, random
-    weights) moves its logits that far under a mere reordering.  Returns
-    (report, the served run's launch counts)."""
+    weights) moves its logits that far under a mere reordering.  With
+    ``diagnose(kernel api, plain api, params, batch)``, its dict of numbers
+    joins the report, printed and not gated on.  Returns (report, the
+    served run's launch counts)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1644,13 +1708,18 @@ def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     tokens = torch.from_numpy(prompts).to(dev)
-    greedy_generate(kern, params, tokens[:, :64], 2)  # warm-up: cuBLAS handles, allocator pools
+    frames = None
+    if cfg.is_encdec:  # the stub frontend's frame embeddings, as the launcher draws them
+        frames_np = np.random.default_rng(SEED).normal(size=(SERVE_BATCH, cfg.enc_seq, cfg.d_model))
+        frames = torch.from_numpy(frames_np.astype(np.float32)).to(dev)
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+    greedy_generate(kern, params, tokens[:, :64], 2, frames)  # warm-up: cuBLAS handles, allocator pools
     max_seq = SERVE_PROMPT + SERVE_NEW
 
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.reset()
-    out = greedy_generate(kern, params, tokens, SERVE_NEW)
+    out = greedy_generate(kern, params, tokens, SERVE_NEW, frames)
     launches = {name: c.value for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     want = {name: expected.get(name, 0) for name in launches}
@@ -1662,20 +1731,23 @@ def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict
 
     # the kernel path against the plain path: same weights, same tokens
     ids = torch.from_numpy(out["ids"]).to(dev, torch.int32)
-    errs, agree = _compare_paths(kern, plain, params, tokens, ids, cfg.vocab_size)
+    errs, agree = _compare_paths(kern, plain, params, batch, ids, cfg.vocab_size)
     spread = None
     if reordered is not None:
-        spread, _ = _compare_paths(build(cfg, reordered), plain, params, tokens, ids, cfg.vocab_size)
+        spread, _ = _compare_paths(build(cfg, reordered), plain, params, batch, ids, cfg.vocab_size)
         logit_tol = max(logit_tol, 2 * max(spread))
+    diagnosis = {} if diagnose is None else diagnose(kern, plain, params, batch)
+    log(f"{arch}: kernel path against plain path {errs} of max |logit| (limit {logit_tol}), reordered plain "
+        f"path {spread}; " + json.dumps(diagnosis))
     check(max(errs) <= logit_tol,
           f"{arch}: kernel-path logits differ from the plain path's by {max(errs)} of max |logit| (limit {logit_tol})")
 
     # where the time goes: one prefill and one decode step under the profiler
     host_p, host_d = {}, {}
-    prof_prefill, wall_p = _device_times(lambda: kern.prefill(params, {"tokens": tokens}, max_seq), host_p)
-    cache = kern.prefill(params, {"tokens": tokens}, max_seq)[1]
+    prof_prefill, wall_p = _device_times(lambda: kern.prefill(params, batch, max_seq), host_p)
+    cache = kern.prefill(params, batch, max_seq)[1]
     prof_decode, wall_d = _device_times(lambda: kern.decode_step(params, ids[:, :1], cache), host_d)
-    del cache, params
+    del cache, params, batch, frames
     torch.cuda.empty_cache()
 
     def split(times, wall, host):
@@ -1708,19 +1780,20 @@ def serve_model(dev, counters, arch: str, width: tuple, width_of, expected: dict
         "logit_rel_tol": logit_tol,
         "plain_reordered_rel_err": spread,
         "argmax_agreement": agree,
+        **diagnosis,
         "first_ids": out["ids"][:, :8].tolist(),
         "profile_prefill": split(prof_prefill, wall_p, host_p),
         "profile_decode_step": split(prof_decode, wall_d, host_d),
     }, launches
 
 
-def _compare_paths(api_a, api_b, params, tokens, ids, vocab: int) -> tuple:
+def _compare_paths(api_a, api_b, params, batch, ids, vocab: int) -> tuple:
     """([max |Δ logits| / max |logits| of the prefill and of 4
     teacher-forced decode steps], [argmax agreement of each]) of two builds
-    of one model on the same weights and tokens."""
+    of one model on the same weights and inputs."""
     max_seq = SERVE_PROMPT + SERVE_NEW
-    a_logits, a_cache = api_a.prefill(params, {"tokens": tokens}, max_seq)
-    b_logits, b_cache = api_b.prefill(params, {"tokens": tokens}, max_seq)
+    a_logits, a_cache = api_a.prefill(params, batch, max_seq)
+    b_logits, b_cache = api_b.prefill(params, batch, max_seq)
     errs = [_rel_err(a_logits, b_logits, vocab)]
     agree = [(a_logits.argmax(-1) == b_logits.argmax(-1)).float().mean().item()]
     for i in range(4):  # teacher-forced: both paths take the served greedy ids
@@ -1784,6 +1857,113 @@ def serve_hybrids(dev, counters):
         dev, counters, "xlstm-125m", (n_x, 768, 4, s_every, "bfloat16"),
         lambda c: (c.n_layers, c.d_model, c.n_heads, c.slstm_every, c.dtype),
         {"mlstm_chunk": n_m}, _logit_tol(n_m), reordered,
+    )
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve moonshot-v1-16b-a3b (MoE) and whisper-small (encoder-decoder)
+# ---------------------------------------------------------------------------
+def _halves_attention(q, k, v, causal: bool, length: int):
+    """softmax(q k^T hd^-1/2) v over keys ``< length`` (and, if ``causal``,
+    at or before the query's position), q (B, KV, G, S, hd), with the keys
+    in two halves: the maximum of both, each half's unnormalised p rounded
+    to v's type before its PV product, the denominator and the output
+    summed over the halves, then divided.  The plain versions' function
+    with their float32 sums in another order and p rounded at another
+    place, as an online softmax over tiles does."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import NEG_INF
+
+    s, t, hd = q.shape[3], k.shape[2], q.shape[-1]
+    halves = ((0, t // 2), (t // 2, t))
+    scores = []
+    for lo, hi in halves:
+        sc = torch.einsum("bngsh,bnth->bngst", q.float(), k[:, :, lo:hi].float()) * hd**-0.5
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        drop = kpos >= length
+        if causal:
+            drop = drop | (torch.arange(s, device=q.device)[:, None] < kpos)
+        scores.append(sc.masked_fill(drop, NEG_INF))
+    m = torch.maximum(*(sc.amax(-1, keepdim=True) for sc in scores))
+    denom, acc = 0.0, 0.0
+    for sc, (lo, hi) in zip(scores, halves):
+        p = torch.exp(sc - m)
+        denom = denom + p.sum(-1, keepdim=True)
+        acc = acc + torch.einsum("bngst,bnth->bngsh", p.to(v.dtype).float(), v[:, :, lo:hi].float())
+    return (acc / denom).to(q.dtype)
+
+
+def _halves_flash(q, k, v, causal: bool = True):
+    """``flash_attention_plain``'s function, keys in two halves."""
+    return _halves_attention(q, k, v, causal, k.shape[2])
+
+
+def _halves_decode(q, k, v, length):
+    """``decode_attention_plain``'s function, keys in two halves."""
+    return _halves_attention(q[:, :, :, None], k, v, False, int(length))[:, :, :, 0]
+
+
+def moe_routing(kern, plain, params, batch) -> dict:
+    """The MoE layers' routing on each path's prefill: the share of (layer,
+    token, slot) top-k decisions that agree between the paths, the slots
+    dropped at capacity on each, and each layer's dropped share on the
+    kernel path."""
+    from repro_torch.models import moe
+
+    real = moe.moe_apply
+
+    def routed(api):
+        seen = []
+
+        def recording(p, x, cfg, act):
+            _, _, gate_i = moe.route(p, x, cfg)
+            _, _, keep = moe.slot_positions(gate_i, cfg.moe.n_experts, moe.scatter_capacity(x.shape[1], cfg))
+            seen.append((gate_i, int((~keep).sum())))
+            return real(p, x, cfg, act)
+
+        moe.moe_apply = recording
+        try:
+            api.prefill(params, batch, SERVE_PROMPT + SERVE_NEW)
+        finally:
+            moe.moe_apply = real
+        return seen
+
+    a, b = routed(kern), routed(plain)
+    same = sum(int((ga == gb).sum()) for (ga, _), (gb, _) in zip(a, b))
+    slots = sum(ga.numel() for ga, _ in a)
+    return {"routing_agreement": same / slots, "routed_slots": slots,
+            "dropped_slots_kernel": sum(n for _, n in a), "dropped_slots_plain": sum(n for _, n in b),
+            "dropped_share_by_layer": [round(n / ga.numel(), 4) for ga, n in a]}
+
+
+def serve_zoo(dev, counters):
+    """Phase 6: yields (report, launch counts) for moonshot-v1-16b-a3b (48
+    MHA layers through ``flash_attention`` / ``decode_attention``, each with
+    a 64-expert top-6 MoE FFN) and whisper-small (12 encoder layers through
+    ``flash_attention(causal=False)``, 12 decoder layers with causal
+    self-attention and cross-attention over the 1500-frame memory: flash
+    at prefill, ``decode_attention`` with length 1500 a decode step)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    # the plain path with its attention sums in another order: routing near a
+    # tie flips under it as under the kernels, so it measures what flips cost
+    reordered = dataclasses.replace(ops.PLAIN, flash_attention=_halves_flash, decode_attention=_halves_decode)
+    n = 48
+    yield serve_model(
+        dev, counters, "moonshot-v1-16b-a3b", (n, 2048, 16, 16, 128, 64, 6, 1408, "bfloat16"),
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim_, c.moe.n_experts, c.moe.top_k,
+                   c.moe.d_ff_expert, c.dtype),
+        {"flash_attention": n, "decode_attention": n * SERVE_NEW}, _logit_tol(n), reordered, moe_routing,
+    )
+    n_enc, n_dec = 12, 12
+    yield serve_model(
+        dev, counters, "whisper-small", (n_enc, n_dec, 768, 12, 12, 64, ENC_SEQ, "bfloat16"),
+        lambda c: (c.encoder_layers, c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim_, c.enc_seq, c.dtype),
+        {"flash_attention": n_enc + 2 * n_dec, "decode_attention": 2 * n_dec * SERVE_NEW},
+        _logit_tol(n_enc + 2 * n_dec),
     )
 
 
@@ -1874,6 +2054,10 @@ def main() -> None:
         f"(SDPA call {flash.extra['library_call_device_ms']:.6f}, events {flash.library_ms:.6f}); zamba2 shape "
         f"{flash.extra['zamba2_ms']:.6f} against SDPA {flash.extra['zamba2_library_device_ms']:.6f} "
         f"(events {flash.extra['zamba2_library_ms']:.6f})")
+    for r in (flash, records[6]):
+        for label, row in r.extra["serving_shapes"].items():
+            log(f"{r.name} at phase 6's {label} shape {row['shape']}: {row['ms']:.6f} ms device against SDPA "
+                f"{row['library_device_ms']:.6f} (events {row['library_ms']:.6f}), bound {row['bound_ms']:.6f}")
     dec = records[6]
     log(f"decode_attention device ms over {dec.extra['rotation']}: kernel {dec.ms:.6f} (wrapper call "
         f"{dec.extra['call_device_ms']:.6f}) against SDPA {dec.extra['library_device_ms']:.6f} (SDPA call "
@@ -1926,11 +2110,16 @@ def main() -> None:
         for name in ("ssd_scan", "mlstm_chunk"):
             launches[name] = launches.get(name, 0) + serve_launches[name]
 
+    phase_s["serve_hybrids"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    for serving, _ in serve_zoo(dev, ops.LAUNCHES):
+        log("serve: " + json.dumps(serving) + f" on {kind}")
+    phase_s["serve_zoo"] = time.perf_counter() - t_phase
+
     bad = [r.name for r in records if not r.agrees]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     idle = [name for name, n in launches.items() if n == 0]
     check(not idle, f"kernels never launched on the main path: {idle}")
-    phase_s["serve_hybrids"] = time.perf_counter() - t_phase
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(card)

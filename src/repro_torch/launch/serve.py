@@ -1,6 +1,6 @@
 """Serving launcher of the port: batched prefill + greedy decode for any
-configuration the port's model zoo builds (dense attention, zamba2, xlstm),
-on an explicit device.
+configuration the port's model zoo builds (dense and MoE attention, zamba2,
+xlstm, the encoder-decoder), on an explicit device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \
         --batch 4 --prompt-len 64 --new-tokens 32                 # on the card
@@ -8,9 +8,12 @@ on an explicit device.
         --prompts dacp://127.0.0.1:3101/prompts/prompts.jsonl     # prompts from a faird
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \
         --batch 4 --prompt-len 1024 --new-tokens 32               # Mamba2 + shared attention
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --full   # stub frames
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
-with 0.
+with 0.  An encoder-decoder takes stub frame embeddings (B, enc_seq, d),
+drawn from the same seeded numpy generator as random prompts, as the
+reference's launcher draws them.
 Prompts are random token ids unless ``--prompts`` names a DACP text corpus:
 then the server tokenizes and packs them in place (``training_dag``, whose
 ``tokenize_and_pack`` map is registered by importing ``repro_torch.data`` in
@@ -56,8 +59,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def greedy_generate(api, params, tokens: torch.Tensor, new_tokens: int) -> dict:
-    """Prefill ``tokens`` (B, S), then ``new_tokens`` greedy decode steps.
+def greedy_generate(api, params, tokens: torch.Tensor, new_tokens: int, frames: torch.Tensor | None = None) -> dict:
+    """Prefill ``tokens`` (B, S) — with ``frames`` (B, enc_seq, d) for an
+    encoder-decoder — then ``new_tokens`` greedy decode steps.
 
     Returns ``ids`` (B, new_tokens + 1) int64 numpy — the argmax after the
     prefill and after each decode step — the prefill's last logits, the
@@ -67,7 +71,8 @@ def greedy_generate(api, params, tokens: torch.Tensor, new_tokens: int) -> dict:
     max_seq = tokens.shape[1] + new_tokens
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": tokens}, max_seq)
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+    logits, cache = api.prefill(params, batch, max_seq)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     cur = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
@@ -111,14 +116,17 @@ def main(argv=None):
     api = build(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = api.init(gen, dev)
+    r = np.random.default_rng(0)
     if args.prompts:
         prompts = dacp_prompts(args.prompts, args.batch, args.prompt_len)
     else:
-        r = np.random.default_rng(0)
         prompts = r.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     tokens = torch.from_numpy(prompts).to(dev)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.from_numpy(r.normal(size=(args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
 
-    out = greedy_generate(api, params, tokens, args.new_tokens)
+    out = greedy_generate(api, params, tokens, args.new_tokens, frames)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(
         f"arch={cfg.name} device={name} batch={args.batch} prefill({args.prompt_len})={out['prefill_s'] * 1e3:.1f}ms "

@@ -1,5 +1,6 @@
-"""Model zoo of the port: decoder-only LMs — dense attention, zamba2
-(Mamba2 + shared attention) and xLSTM — on the port's kernels."""
+"""Model zoo of the port: decoder-only LMs — dense and MoE attention,
+zamba2 (Mamba2 + shared attention) and xLSTM — and the Whisper-style
+encoder-decoder, on the port's kernels."""
 
 from repro_torch.models.model_zoo import ModelApi, build
 

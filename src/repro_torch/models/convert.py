@@ -7,7 +7,8 @@ array type; each array keeps its float type (the reference keeps the
 Mamba2 ``A_log``, ``D`` and ``dt_bias`` in float32 under a bfloat16
 parameter type).  The KV caches differ in layout: the reference's is
 (layers, B, T, KV, hd), the port's (layers, B, KV, T, hd), the kernels'
-layout.  The Mamba2 and xLSTM states have the reference's layout.
+layout, and so do the encoder-decoder's cross-attention caches.  The
+Mamba2 and xLSTM states have the reference's layout.
 """
 
 from __future__ import annotations
@@ -37,9 +38,14 @@ def params_from_numpy(tree, cfg, device=None) -> dict:
     arrays) as the port's parameters on ``device``; float types other than
     bfloat16 and float32 become ``cfg.param_dtype``.  Both packages then
     compute the same function."""
-    lm.check_supported(cfg)
-    if len(tree["layers"]) != cfg.n_layers:
-        raise ValueError(f"tree has {len(tree['layers'])} layers, {cfg.name} has {cfg.n_layers}")
+    if cfg.is_encdec:
+        stacks = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+    else:
+        lm.check_supported(cfg)
+        stacks = {"layers": cfg.n_layers}
+    for name, n in stacks.items():
+        if len(tree[name]) != n:
+            raise ValueError(f"tree has {len(tree[name])} {name} layers, {cfg.name} has {n}")
     dev = device_mod.resolve(device)
     dtype = Dtypes.from_cfg(cfg).param
 
@@ -58,18 +64,18 @@ def _np(t) -> np.ndarray:
 
 
 def _kv_to_reference(kv) -> dict:
-    return {
-        "k": _np(kv["k"].permute(0, 1, 3, 2, 4)),
-        "v": _np(kv["v"].permute(0, 1, 3, 2, 4)),
-        "index": np.int32(kv["index"]),
-    }
+    """Every (layers, B, KV, T, hd) tensor of ``kv`` as (layers, B, T, KV,
+    hd), and the index."""
+    out = {name: _np(t.permute(0, 1, 3, 2, 4)) for name, t in kv.items() if name != "index"}
+    return dict(out, index=np.int32(kv["index"]))
 
 
 def cache_to_reference(cache) -> dict:
     """A port decode cache as numpy arrays (float32, index int32) in the
-    reference's layout: for ``attn`` {k, v (layers, B, T, KV, hd), index};
-    for ``zamba2`` {ssm: {ssm, conv_x, conv_B, conv_C}, kv: {k, v, index}};
-    for ``xlstm`` {xlstm: one state dict per layer, index}."""
+    reference's layout: for ``attn`` {k, v (layers, B, T, KV, hd), index},
+    and for the encoder-decoder also {cross_k, cross_v} in that layout; for
+    ``zamba2`` {ssm: {ssm, conv_x, conv_B, conv_C}, kv: {k, v, index}}; for
+    ``xlstm`` {xlstm: one state dict per layer, index}."""
     if "ssm" in cache:
         return {"ssm": {k: _np(v) for k, v in cache["ssm"].items()}, "kv": _kv_to_reference(cache["kv"])}
     if "xlstm" in cache:

@@ -1,0 +1,214 @@
+"""Whisper-style encoder-decoder (arXiv:2212.04356) — the port of
+``repro.models.encdec``.
+
+    init(cfg, generator, device)                      -> params
+    encode(params, frames, cfg)                       -> memory (B, enc_seq, d)
+    forward(params, batch, cfg)                       -> (logits, 0.0)
+    prefill(params, batch, cfg, max_seq)              -> (last_logits, cache)
+    decode_step(params, token, cache, cfg)            -> (logits, cache)
+    make_decode_cache(cfg, batch, max_seq, dtype, device)
+
+``batch`` is {frames (B, enc_seq, d), tokens (B, S)}: the conv audio
+frontend is a stub, as in the reference, and the model takes precomputed
+frame embeddings.  Learned positions (no RoPE), LayerNorm, biased q/k/v and
+MLP, tanh GELU, tied embeddings.  Every attention goes through the kernel
+bundle ``kernels`` (``kernels.ops.KERNELS``, or ``PLAIN``), computing the
+reference's function: the encoder's bidirectional attention and the
+cross-attention over the whole memory are ``flash_attention(causal=False)``
+(S = T = enc_seq, and S = prompt over T = enc_seq), the decoder's causal
+self-attention ``attention.attn_apply`` / ``attn_decode``, and each decode
+step's cross-attention ``decode_attention`` with ``length = enc_seq``.
+
+Cache: {k, v (layers, B, KV, T, hd), cross_k, cross_v (layers, B, KV,
+enc_seq, hd), index}; the reference's is (layers, B, T, KV, hd)
+(``models.convert.cache_to_reference``).  ``k`` and ``v`` are updated in
+place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    Dtypes,
+    embed_tokens,
+    embedding_init,
+    logits_apply,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+    normal,
+)
+from repro_torch.models.lm import weights_device
+
+__all__ = ["DEC_POSITIONS", "decode_step", "encode", "forward", "init", "make_decode_cache", "prefill"]
+
+DEC_POSITIONS = 33024  # the reference's decoder position table: decode_32k (32768) + train_4k
+
+
+def init(cfg, generator: torch.Generator, device=None) -> dict:
+    """Random weights with the reference's shapes, names and standard
+    deviations, drawn from ``generator`` on ``device`` (the generator's)."""
+    dev = weights_device(generator, device)
+    dt = Dtypes.from_cfg(cfg)
+    g, d = generator, cfg.d_model
+
+    def ln():
+        return norm_init(d, cfg.norm, dt.param, dev)
+
+    def mlp():
+        return mlp_init(g, d, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias)
+
+    return {
+        "embed": embedding_init(g, cfg.padded_vocab, d, dt.param),
+        "enc_pos": normal(g, (cfg.enc_seq, d), 0.01, dt.param),
+        "dec_pos": normal(g, (DEC_POSITIONS, d), 0.01, dt.param),
+        "enc_final_norm": ln(),
+        "final_norm": ln(),
+        "encoder": [
+            {"ln1": ln(), "attn": attn.attn_init(g, cfg, dt.param), "ln2": ln(), "mlp": mlp()}
+            for _ in range(cfg.encoder_layers)
+        ],
+        "decoder": [
+            {
+                "ln1": ln(),
+                "self_attn": attn.attn_init(g, cfg, dt.param),
+                "ln_x": ln(),
+                "cross_attn": attn.attn_init(g, cfg, dt.param),
+                "ln2": ln(),
+                "mlp": mlp(),
+            }
+            for _ in range(cfg.n_layers)
+        ],
+    }
+
+
+def encode(params, frames, cfg, kernels=ops.KERNELS):
+    """frames (B, enc_seq, d) stub embeddings -> encoder memory."""
+    x = frames + params["enc_pos"][None, : frames.shape[1]].to(frames.dtype)
+    for lp in params["encoder"]:
+        x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, causal=False, kernels=kernels)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+    return norm_apply(params["enc_final_norm"], x, cfg.norm)
+
+
+def _memory_kv(params, memory, cfg) -> tuple:
+    """The cross-attention's k and v of the encoder memory, (B, KV, T, hd)
+    views."""
+    b, t, d = memory.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    m2 = memory.reshape(b * t, d)
+    k = (m2 @ params["wk"]["w"].to(memory.dtype).reshape(d, kv * hd)).reshape(b, t, kv, hd)
+    v = (m2 @ params["wv"]["w"].to(memory.dtype).reshape(d, kv * hd)).reshape(b, t, kv, hd)
+    if "b" in params["wk"]:
+        k = k + params["wk"]["b"].to(memory.dtype)
+        v = v + params["wv"]["b"].to(memory.dtype)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _cross_q(params, x, cfg):
+    """The cross-attention's queries of x (B, S, d): (B, S, KV, G, hd)."""
+    b, s, d = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (x.reshape(b * s, d) @ params["wq"]["w"].to(x.dtype).reshape(d, h * hd)).reshape(b, s, h, hd)
+    if "b" in params["wq"]:
+        q = q + params["wq"]["b"].to(x.dtype)
+    return q.reshape(b, s, kv, h // kv, hd).contiguous()
+
+
+def _cross_attn(params, x, mem_k, mem_v, cfg, kernels):
+    """Cross-attention of x (B, S, d) over the memory's k and v (B, KV, T,
+    hd), every position seeing the whole memory."""
+    b, s, _ = x.shape
+    q = _cross_q(params, x, cfg)
+    out = kernels.flash_attention(q.permute(0, 2, 3, 1, 4), mem_k, mem_v, causal=False)
+    return attn._out_proj(params, out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.n_heads, cfg.head_dim_), x)
+
+
+def _decoder_stack(params, x, cfg, kernels, memory=None, cache=None):
+    """The decoder layers over the whole sequence.  Cross-attention reads
+    the memory's k and v from ``cache`` (a fresh decode cache whose cross_k
+    and cross_v are filled, and whose k and v the layers write), else
+    projects ``memory``."""
+    for li, lp in enumerate(params["decoder"]):
+        layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
+        x = x + attn.attn_apply(
+            lp["self_attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels
+        )
+        if cache is None:
+            mem_k, mem_v = _memory_kv(lp["cross_attn"], memory, cfg)
+        else:
+            mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
+        x = x + _cross_attn(lp["cross_attn"], norm_apply(lp["ln_x"], x, cfg.norm), mem_k, mem_v, cfg, kernels)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+    return x
+
+
+def _embed(params, tokens, start: int, dtype):
+    s = tokens.shape[1]
+    return embed_tokens(params["embed"], tokens, dtype) + params["dec_pos"][None, start : start + s].to(dtype)
+
+
+def _head(params, x, cfg):
+    return logits_apply(params["embed"], norm_apply(params["final_norm"], x, cfg.norm), cfg.vocab_size)
+
+
+def forward(params, batch, cfg, kernels=ops.KERNELS):
+    """batch {frames (B, enc_seq, d), tokens (B, S)} -> (logits (B, S, V), 0.0)."""
+    dt = Dtypes.from_cfg(cfg)
+    memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
+    x = _decoder_stack(params, _embed(params, batch["tokens"], 0, dt.act), cfg, kernels, memory=memory)
+    return _head(params, x, cfg), 0.0
+
+
+def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
+    cache = attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device_mod.resolve(device))
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim_)
+    cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=cache["k"].device)
+    cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=cache["k"].device)
+    return cache
+
+
+def prefill(params, batch, cfg, max_seq: int, kernels=ops.KERNELS):
+    """Encode the frames, run the whole prompt and build the decode cache
+    (the memory's k and v per layer included); returns the last position's
+    logits (B, 1, V)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s > max_seq:
+        raise ValueError(f"prompt of {s} tokens does not fit max_seq {max_seq}")
+    dt = Dtypes.from_cfg(cfg)
+    memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
+    cache = make_decode_cache(cfg, b, max_seq, dt.act, tokens.device)
+    for li, lp in enumerate(params["decoder"]):
+        mem_k, mem_v = _memory_kv(lp["cross_attn"], memory, cfg)
+        cache["cross_k"][li].copy_(mem_k)
+        cache["cross_v"][li].copy_(mem_v)
+    x = _decoder_stack(params, _embed(params, tokens, 0, dt.act), cfg, kernels, cache=cache)
+    cache["index"] = s
+    return _head(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
+    """token: (B, 1) int.  Returns (logits (B, 1, V), the cache one position
+    on); the cache's k and v are updated in place."""
+    dt = Dtypes.from_cfg(cfg)
+    idx = int(cache["index"])
+    x = _embed(params, token, idx, dt.act)
+    b = x.shape[0]
+    for li, lp in enumerate(params["decoder"]):
+        h, _, _ = attn.attn_decode(
+            lp["self_attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
+        )
+        x = x + h
+        xp = lp["cross_attn"]
+        q = _cross_q(xp, norm_apply(lp["ln_x"], x, cfg.norm), cfg)
+        mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
+        out = kernels.decode_attention(q[:, 0], mem_k, mem_v, mem_k.shape[2])  # (B, KV, G, hd)
+        x = x + attn._out_proj(xp, out.reshape(b, 1, cfg.n_heads, cfg.head_dim_), x)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+    return _head(params, x, cfg), dict(cache, index=idx + 1)

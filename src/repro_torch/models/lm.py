@@ -1,5 +1,5 @@
-"""Decoder-only LM for the ``attn``, ``zamba2`` and ``xlstm`` block
-patterns — the port of ``repro.models.lm``.
+"""Decoder-only LM for the ``attn`` (dense or MoE), ``zamba2`` and
+``xlstm`` block patterns — the port of ``repro.models.lm``.
 
     init(cfg, generator, device)                   -> params
     forward(params, tokens, cfg)                   -> (logits, aux)
@@ -11,8 +11,10 @@ Each entry point takes ``kernels``, the bundle of the four kernel functions
 the blocks call (``kernels.ops.KERNELS``, or ``PLAIN`` to hold the kernels
 against their plain versions on the card): attention runs
 ``flash_attention`` / ``decode_attention``, Mamba2 ``ssd_scan`` and mLSTM
-``mlstm_chunk``.  MoE layers come with their own slice and raise
-``NotImplementedError``.  There is no sharding, remat or ZeRO-3 gather:
+``mlstm_chunk``.  In a MoE configuration every ``moe_every``-th ``attn``
+layer takes ``models.moe`` in place of its MLP; ``forward`` returns the
+sum of those layers' load-balancing losses as ``aux`` (0.0 without MoE
+layers).  There is no sharding, remat or ZeRO-3 gather:
 they have no meaning on one card in eager PyTorch.  Training (``loss_fn``)
 comes with ``optim/`` and ``train/`` (ROADMAP Queue 1 item 10).
 
@@ -30,6 +32,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
@@ -47,25 +50,36 @@ __all__ = ["check_supported", "decode_step", "forward", "init", "make_decode_cac
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose blocks the
-    port does not have yet, naming the ROADMAP item that brings them."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the moe slice (ROADMAP Queue 1 item 9b)")
+    """Raise ``ValueError`` for a configuration this module does not build:
+    an encoder-decoder (``models.encdec``) or an unknown block pattern."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: build it with models.encdec")
     if cfg.block_pattern not in ("attn", "zamba2", "xlstm"):
         raise ValueError(f"unknown block pattern {cfg.block_pattern}")
+
+
+def _is_moe_layer(cfg, li: int) -> bool:
+    return cfg.moe is not None and (li + 1) % cfg.moe.moe_every == 0
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+def weights_device(generator: torch.Generator, device=None) -> torch.device:
+    """``device`` resolved (the card unless the caller asks for the CPU);
+    raises ``ValueError`` unless it is the generator's device."""
+    dev = device_mod.resolve(device)
+    if generator.device.type != dev.type or (dev.index is not None and (generator.device.index or 0) != dev.index):
+        raise ValueError(f"generator is on {generator.device}, weights asked for on {dev}")
+    return dev
+
+
 def init(cfg, generator: torch.Generator, device=None) -> dict:
     """Random weights with the reference's shapes, names and standard
     deviations, drawn from ``generator`` on ``device`` (which must be the
     generator's device)."""
     check_supported(cfg)
-    dev = device_mod.resolve(device)
-    if generator.device.type != dev.type or (dev.index is not None and (generator.device.index or 0) != dev.index):
-        raise ValueError(f"generator is on {generator.device}, weights asked for on {dev}")
+    dev = weights_device(generator, device)
     dt = Dtypes.from_cfg(cfg)
     g = generator
     params: dict = {"embed": embedding_init(g, cfg.padded_vocab, cfg.d_model, dt.param)}
@@ -76,14 +90,12 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     for li in range(cfg.n_layers):
         ln = norm_init(cfg.d_model, cfg.norm, dt.param, dev)
         if cfg.block_pattern == "attn":
-            layers.append(
-                {
-                    "ln1": ln,
-                    "attn": attn.attn_init(g, cfg, dt.param),
-                    "ln2": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
-                    "mlp": mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias),
-                }
-            )
+            lp = {"ln1": ln, "attn": attn.attn_init(g, cfg, dt.param), "ln2": norm_init(cfg.d_model, cfg.norm, dt.param, dev)}
+            if _is_moe_layer(cfg, li):
+                lp["moe"] = moe_mod.moe_init(g, cfg, dt.param)
+            else:
+                lp["mlp"] = mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias)
+            layers.append(lp)
         elif cfg.block_pattern == "zamba2":
             layers.append({"ln": ln, "mamba": ssm_mod.mamba_init(g, cfg, dt.param)})
         elif xl.is_slstm(cfg, li):
@@ -104,9 +116,17 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
-def _block(lp, x, cfg, kernels, layer_cache=None):
+def _ffn(lp, x, cfg) -> tuple:
+    """The layer's MLP or MoE FFN on x (already normed): (y, aux)."""
+    if "moe" in lp:
+        return moe_mod.moe_apply(lp["moe"], x, cfg, cfg.act)
+    return mlp_apply(lp["mlp"], x, cfg.act, cfg.glu), 0.0
+
+
+def _block(lp, x, cfg, kernels, layer_cache=None) -> tuple:
     x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
-    return x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+    y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)
+    return x + y, aux
 
 
 def _shared_block(sp, x, cfg, kernels, layer_cache=None):
@@ -122,13 +142,16 @@ def _head(params, x, cfg):
     return logits_apply(emb, x, cfg.vocab_size)
 
 
-def _body(params, x, cfg, kernels, cache=None):
-    """Every layer over the whole sequence.  With ``cache`` (a fresh decode
-    cache) the layers write their decode state into it."""
+def _body(params, x, cfg, kernels, cache=None) -> tuple:
+    """Every layer over the whole sequence: (x, the summed MoE aux loss).
+    With ``cache`` (a fresh decode cache) the layers write their decode
+    state into it."""
+    aux_total = 0.0
     if cfg.block_pattern == "attn":
         for li, lp in enumerate(params["layers"]):
             layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
-            x = _block(lp, x, cfg, kernels, layer_cache)
+            x, aux = _block(lp, x, cfg, kernels, layer_cache)
+            aux_total = aux_total + aux
     elif cfg.block_pattern == "zamba2":
         ai = 0
         for li, lp in enumerate(params["layers"]):
@@ -154,14 +177,14 @@ def _body(params, x, cfg, kernels, cache=None):
             if cache is not None:
                 y, cache["xlstm"][li] = y
             x = x + y
-    return x
+    return x, aux_total
 
 
 def forward(params, tokens, cfg, kernels=ops.KERNELS):
     """tokens: (B, S) -> (logits (B, S, V), aux_losses)."""
     check_supported(cfg)
-    x = embed_tokens(params["embed"], tokens, Dtypes.from_cfg(cfg).act)
-    return _head(params, _body(params, x, cfg, kernels), cfg), 0.0
+    x, aux = _body(params, embed_tokens(params["embed"], tokens, Dtypes.from_cfg(cfg).act), cfg, kernels)
+    return _head(params, x, cfg), aux
 
 
 def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
@@ -187,7 +210,7 @@ def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):
         raise ValueError(f"prompt of {s} tokens does not fit max_seq {max_seq}")
     dt = Dtypes.from_cfg(cfg)
     cache = make_decode_cache(cfg, b, max_seq, dt.act, tokens.device)
-    x = _body(params, embed_tokens(params["embed"], tokens, dt.act), cfg, kernels, cache)
+    x, _ = _body(params, embed_tokens(params["embed"], tokens, dt.act), cfg, kernels, cache)
     if cfg.block_pattern == "zamba2":
         cache["kv"]["index"] = s
     else:
@@ -207,7 +230,7 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
                 lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
             )
             x = x + h
-            x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+            x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)[0]
         cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
     elif cfg.block_pattern == "zamba2":
         sp = params["shared_attn"]

@@ -1,5 +1,6 @@
-"""Unified model API of the port, for decoder-only configurations of the
-``attn``, ``zamba2`` and ``xlstm`` block patterns (the port of
+"""Unified model API of the port over every registered configuration:
+decoder-only LMs of the ``attn`` (dense or MoE), ``zamba2`` and ``xlstm``
+block patterns, and the encoder-decoder (the port of
 ``repro.models.model_zoo``).
 
     api = build(cfg)
@@ -8,9 +9,9 @@
     last, cache   = api.prefill(params, batch, max_seq)
     logits, cache = api.decode_step(params, token, cache)
 
-Encoder-decoder configurations come with ``encdec`` (ROADMAP Queue 1 item
-9e); training (``loss_fn``) with item 10; ``input_specs`` and
-``input_axes`` with the dry-run (item 12).
+``batch`` is {tokens (B, S)}, and for an encoder-decoder also {frames (B,
+enc_seq, d)}.  Training (``loss_fn``) comes with ROADMAP Queue 1 item 10;
+``input_specs`` and ``input_axes`` with the dry-run (item 12).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 __all__ = ["ModelApi", "build"]
 
@@ -40,7 +41,14 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
     functions (``ops.PLAIN`` holds the kernels against their plain versions
     on the card)."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with encdec (ROADMAP Queue 1 item 9e)")
+        return ModelApi(
+            cfg=cfg,
+            init=lambda generator, device=None: encdec.init(cfg, generator, device),
+            forward=lambda p, batch: encdec.forward(p, batch, cfg, kernels),
+            prefill=lambda p, batch, max_seq: encdec.prefill(p, batch, cfg, max_seq, kernels),
+            decode_step=lambda p, tok, cache: encdec.decode_step(p, tok, cache, cfg, kernels),
+            make_decode_cache=lambda b, m, dt, device=None: encdec.make_decode_cache(cfg, b, m, dt, device),
+        )
     lm.check_supported(cfg)
     return ModelApi(
         cfg=cfg,

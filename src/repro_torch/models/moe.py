@@ -1,0 +1,150 @@
+"""Mixture-of-Experts FFN with static-capacity sort-free dispatch — the port
+of ``repro.models.moe``.
+
+Routing: softmax router → top-k → position-in-expert via masked cumsum →
+scatter into an (experts, batch, capacity, d) buffer → expert products
+batched over the experts → gather + weighted combine.  Capacity overflow
+drops slots (GShard semantics); the Switch load-balancing loss is returned
+beside y.  ``cfg.moe_dispatch == "einsum"`` takes GShard's one-hot
+dispatch over token groups instead.  No Pallas kernel is involved in the
+reference: the expert products stay batched matrix products.
+
+Top-k takes ties toward the lower expert index, as ``jax.lax.top_k`` does
+(``torch.topk`` does not promise an order among ties).  Router logits are
+computed in x's type, the softmax and the gate renormalisation in float32,
+and the gate weights are cast to x's type only at the combine.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import ACT, dense_init, mlp_apply, mlp_init, normal
+
+__all__ = ["moe_apply", "moe_apply_einsum", "moe_apply_scatter", "moe_init", "route", "scatter_capacity", "slot_positions"]
+
+
+def moe_init(gen, cfg, dtype) -> dict:
+    """Router (d, E); ``up`` and ``gate`` (E, d, f) with std d^-1/2, ``down``
+    (E, f, d) with std f^-1/2; a shared-expert MLP when the config has one.
+    Each tensor is drawn in float32 on the generator's device and cast."""
+    d, m = cfg.d_model, cfg.moe
+    e, f = m.n_experts, m.d_ff_expert
+    params = {
+        "router": dense_init(gen, (d, e), ("embed", "experts"), dtype),
+        "up": {"w": normal(gen, (e, d, f), d**-0.5, dtype)},
+        "gate": {"w": normal(gen, (e, d, f), d**-0.5, dtype)},
+        "down": {"w": normal(gen, (e, f, d), f**-0.5, dtype)},
+    }
+    if m.n_shared_experts:
+        params["shared"] = mlp_init(gen, d, f * m.n_shared_experts, True, dtype)
+    return params
+
+
+def moe_apply(params, x, cfg, act: str):
+    """x (B, S, D) -> (y (B, S, D), aux) through the dispatch the config
+    names."""
+    if cfg.moe_dispatch == "einsum":
+        return moe_apply_einsum(params, x, cfg, act)
+    return moe_apply_scatter(params, x, cfg, act)
+
+
+def route(params, x, cfg) -> tuple:
+    """(probs float32 (..., E), gate_w float32 (..., k) renormalised,
+    gate_i int64 (..., k)): the top k of the router's softmax in descending
+    order, ties toward the lower expert index."""
+    logits = x @ params["router"]["w"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    gate_w, gate_i = vals[..., :k], idx[..., :k]
+    return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), gate_i
+
+
+def _aux_loss(probs, gate_i, e: int):
+    """Switch's load-balancing loss, E · mean_e(fraction routed top-1 to e ·
+    mean router probability of e), over every token."""
+    frac = F.one_hot(gate_i[..., 0].reshape(-1), e).float().mean(0)
+    return e * (frac * probs.reshape(-1, e).mean(0)).mean()
+
+
+def slot_positions(gate_i, e: int, cap: int) -> tuple:
+    """gate_i (R, n, k) -> (expert of each slot (R, n·k), its 0-based
+    position among the slots routed to that expert in token-major order, and
+    whether that position is below ``cap``)."""
+    flat_i = gate_i.reshape(gate_i.shape[0], -1)
+    oh = F.one_hot(flat_i, e)
+    pos = (oh.cumsum(1) * oh).amax(-1) - 1
+    return flat_i, pos, pos < cap
+
+
+def scatter_capacity(s: int, cfg) -> int:
+    """Slots each expert takes per batch row of ``s`` tokens in the scatter
+    dispatch: the capacity factor's share, at least 1, at most s·k."""
+    m = cfg.moe
+    return min(max(1, int((s * m.top_k / m.n_experts) * m.capacity_factor + 0.9999)), s * m.top_k)
+
+
+def _experts(params, buf, act: str):
+    """buf (E, rows, d) -> the experts' gated FFN outputs (E, rows, d)."""
+    dt = buf.dtype
+    h = ACT[act](torch.bmm(buf, params["gate"]["w"].to(dt))) * torch.bmm(buf, params["up"]["w"].to(dt))
+    return torch.bmm(h, params["down"]["w"].to(dt))
+
+
+def moe_apply_scatter(params, x, cfg, act: str):
+    """x (B, S, D) -> (y, aux).  Capacity is per batch row; a dropped slot
+    adds zeros at position cap - 1 and contributes nothing to y."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    cap = scatter_capacity(s, cfg)
+
+    probs, gate_w, gate_i = route(params, x, cfg)
+    aux = _aux_loss(probs, gate_i, e)
+    flat_i, pos, keep = slot_positions(gate_i, e, cap)
+
+    # row of each (token, slot) in the (E, B, cap) buffer, flattened
+    rows = torch.arange(b, device=x.device)[:, None]
+    slot = ((flat_i * b + rows) * cap + torch.where(keep, pos, cap - 1)).reshape(-1)
+    contrib = x.repeat_interleave(k, dim=1).masked_fill(~keep[..., None], 0).reshape(-1, d)
+    buf = torch.zeros((e * b * cap, d), dtype=x.dtype, device=x.device).index_add_(0, slot, contrib)
+
+    out = _experts(params, buf.view(e, b * cap, d), act).view(-1, d)
+    back = out.index_select(0, slot).view(b, s * k, d).masked_fill(~keep[..., None], 0)
+    y = (back.view(b, s, k, d) * gate_w[..., None].to(x.dtype)).sum(dim=2)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x, act, True)
+    return y, aux
+
+
+def moe_apply_einsum(params, x, cfg, act: str):
+    """GShard's one-hot dispatch (arXiv:2006.16668): tokens regroup into
+    (G, g) with g = min(group_size, tokens), capacity per group."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    tokens = b * s
+    g = min(m.group_size, tokens)
+    if tokens % g:
+        raise ValueError(f"{tokens} tokens do not divide into groups of {g}")
+    G = tokens // g
+    cap = max(1, int((g * k / e) * m.capacity_factor + 0.9999))
+
+    xg = x.reshape(G, g, d)
+    probs, gate_w, gate_i = route(params, xg, cfg)
+    aux = _aux_loss(probs, gate_i, e)
+    _, pos, keep = slot_positions(gate_i, e, cap)
+    oh = F.one_hot(gate_i, e).float()  # (G, g, k, e)
+    # a dropped slot's position one-hot is all zeros, as jax.nn.one_hot(cap, cap)
+    pos_oh = F.one_hot(torch.where(keep, pos, cap).view(G, g, k), cap + 1)[..., :cap].float()
+    disp = torch.einsum("Ggke,Ggkc->Ggec", oh, pos_oh).to(x.dtype)
+    comb = torch.einsum("Ggke,Ggkc,Ggk->Ggec", oh, pos_oh, gate_w).to(x.dtype)
+
+    buf = torch.einsum("Ggec,Ggd->eGcd", disp, xg).reshape(e, G * cap, d)
+    out = _experts(params, buf, act).view(e, G, cap, d)
+    y = torch.einsum("Ggec,eGcd->Ggd", comb, out).reshape(b, s, d)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x, act, True)
+    return y, aux

@@ -583,6 +583,10 @@ def _randn(rng, shape, dtype, dev):
         (2, 2, 2, 100, 300, 128, torch.bfloat16, False),  # full, T > S
         (2, 2, 2, 300, 100, 64, torch.bfloat16, False),  # full, S > T
         (1, 2, 2, 1000, 1000, 256, torch.bfloat16, True),
+        (4, 16, 1, 1024, 1024, 128, torch.bfloat16, True),  # moonshot-v1-16b-a3b's MHA, G 1 at hd 128
+        (4, 12, 1, 1500, 1500, 64, torch.bfloat16, False),  # whisper-small's encoder, ragged 1500
+        (4, 12, 1, 1024, 1500, 64, torch.bfloat16, False),  # whisper-small's cross-attention at prefill
+        (4, 12, 1, 1024, 1024, 64, torch.bfloat16, True),  # whisper-small's decoder self-attention
     ],
 )
 def test_flash_attention_kernel(dev, b, kv, g, s, t, hd, dtype, causal):
@@ -642,6 +646,9 @@ def test_flash_attention_kernel_refuses_misaligned_rows(dev):
         (2, 3, 32, 300, 129, 256, torch.bfloat16),
         (3, 2, 8, 64, 1, 32, torch.float32),
         (1, 1, 4, 4096, 4096, 256, torch.bfloat16),  # 16 chunks: a 16-block cluster, one block per SM
+        (4, 16, 1, 1056, 1025, 128, torch.bfloat16),  # moonshot-v1-16b-a3b, first decode step
+        (4, 12, 1, 1056, 1025, 64, torch.bfloat16),  # whisper-small's self-attention
+        (4, 12, 1, 1500, 1500, 64, torch.bfloat16),  # whisper-small's cross-attention: length the whole cache
     ],
 )
 def test_decode_attention_kernel(dev, b, kv, g, t, length, hd, dtype):
@@ -913,3 +920,41 @@ def test_hybrid_kernel_path_matches_plain_path_on_the_card(dev, arch):
     else:
         n_m = sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
         assert counts == {"mlstm_chunk": n_m}
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "whisper-small"])
+def test_moe_and_encdec_kernel_path_matches_plain_path_on_the_card(dev, arch):
+    """Reduced MoE LMs and the reduced encoder-decoder in float32 on the
+    card: prefill and three decode steps through the kernels against the
+    plain versions, with the exact launch counts of each path (whisper: one
+    flash launch per encoder layer and two per decoder layer per prefill,
+    two decode launches per decoder layer per step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    cfg = get_config(arch).reduced()
+    kern, plain = build(cfg), build(cfg, ops.PLAIN)
+    params = kern.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, 259, (3, 45)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens[:, :40]}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(3, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    for c in ops.LAUNCHES.values():
+        c.reset()
+    got, cache_k = kern.prefill(params, batch, 48)
+    want, cache_p = plain.prefill(params, batch, 48)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        tok = tokens[:, 40 + i : 41 + i]
+        got, cache_k = kern.decode_step(params, tok, cache_k)
+        want, cache_p = plain.decode_step(params, tok, cache_p)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    counts = {n: c.value for n, c in ops.LAUNCHES.items() if c.value}
+    if cfg.is_encdec:
+        assert counts == {"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers, "decode_attention": 6 * cfg.n_layers}
+        torch.testing.assert_close(cache_k["cross_k"], cache_p["cross_k"], rtol=1e-5, atol=1e-5)
+    else:
+        assert counts == {"flash_attention": cfg.n_layers, "decode_attention": 3 * cfg.n_layers}
+    torch.testing.assert_close(cache_k["k"], cache_p["k"], rtol=1e-5, atol=1e-5)

@@ -2,8 +2,10 @@
 (``repro.models``) on the CPU, in float32, from the same weights carried
 over with ``params_from_numpy``: forward logits, prefill's last logits and
 decode cache, and three decode steps, for every reduced dense attention
-configuration and for reduced zamba2-1.2b (Mamba2 + shared attention) and
-xlstm-125m (mLSTM + sLSTM).
+configuration, the two MoE configurations (moonshot top-2 and llama4-scout
+top-1 at reduced size, load-balancing loss included) and reduced
+zamba2-1.2b (Mamba2 + shared attention) and xlstm-125m (mLSTM + sLSTM);
+every registered configuration builds and serves at reduced size.
 
 Tolerance: 1e-4 absolute and relative on logits and cache entries (about
 |logit| ≤ 5).  Both sides compute in float32 and differ only in the order of
@@ -25,12 +27,13 @@ from numpy.testing import assert_allclose  # noqa: E402
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.models import build as ref_build  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import build, layers, lm  # noqa: E402
 from repro_torch.models.convert import cache_to_reference, params_from_numpy  # noqa: E402
 
 DENSE = ["paper-lm-100m", "qwen1.5-0.5b", "gemma-2b", "stablelm-1.6b", "granite-3-8b", "chameleon-34b"]
 HYBRID = ["zamba2-1.2b", "xlstm-125m"]
+MOE = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -45,7 +48,7 @@ def _assert_cache_close(mine, want):
         assert_allclose(np.asarray(g, np.float32), np.asarray(w, np.float32), **TOL, err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.fixture(scope="module", params=DENSE + HYBRID)
+@pytest.fixture(scope="module", params=DENSE + MOE + HYBRID)
 def pair(request):
     """(reference api, reference params, port api, port params) of one
     reduced configuration, with the reference's weights carried over."""
@@ -63,10 +66,12 @@ def _tokens(cfg, b=2, s=21, seed=3):
 def test_forward_matches_reference(pair):
     rapi, rparams, api, params = pair
     toks = _tokens(api.cfg)
-    want, _ = rapi.forward(rparams, {"tokens": jnp.asarray(toks)})
+    want, want_aux = rapi.forward(rparams, {"tokens": jnp.asarray(toks)})
     got, aux = api.forward(params, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 21, api.cfg.padded_vocab) and aux == 0.0
+    assert got.shape == (2, 21, api.cfg.padded_vocab)
     assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the summed load-balancing loss of the MoE layers; 0.0 on both sides without them
+    assert abs(float(aux) - float(want_aux)) < 1e-5 and (api.cfg.moe is not None or aux == 0.0)
 
 
 def test_prefill_matches_reference(pair):
@@ -116,7 +121,7 @@ def test_long_prompt_prefill_and_decode_match_reference(arch):
     _assert_cache_close(cache_to_reference(got_cache), want_cache)
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_init_matches_reference_shapes_and_scales(arch):
     """The port draws its own weights with the reference's names, shapes and
     standard deviations."""
@@ -137,7 +142,7 @@ def test_init_matches_reference_shapes_and_scales(arch):
     assert abs(float(wo.std()) - (cfg.n_heads * cfg.head_dim_) ** -0.5) < 0.1 * (cfg.n_heads * cfg.head_dim_) ** -0.5
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_decode_matches_forward(arch):
     """The port's own consistency: prefill + decode give the forward logits
     (as tests/test_models_smoke.py::test_decode_matches_forward checks the
@@ -156,21 +161,25 @@ def test_decode_matches_forward(arch):
     assert max(errs) / float(full.abs().max()) < 2e-3
 
 
-@pytest.mark.parametrize(
-    "arch,item",
-    [
-        ("moonshot-v1-16b-a3b", "9b"),
-        ("llama4-scout-17b-a16e", "9b"),
-        ("whisper-small", "9e"),
-    ],
-)
-def test_unported_configurations_raise(arch, item):
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_registered_configuration_builds(arch):
+    """Every configuration the port registers builds and serves at reduced
+    size on the CPU: forward, prefill and a decode step give finite logits
+    of the padded vocabulary, and the cache index moves on."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        build(cfg)
-    if not cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            lm.init(cfg, torch.Generator(), "cpu")
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(2), "cpu")
+    r = np.random.default_rng(9)
+    batch = {"tokens": torch.from_numpy(_tokens(cfg, s=9))}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(r.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    logits, _ = api.forward(params, batch)
+    assert logits.shape == (2, 9, cfg.padded_vocab) and torch.isfinite(logits).all()
+    last, cache = api.prefill(params, batch, 12)
+    assert last.shape == (2, 1, cfg.padded_vocab)
+    logits, cache = api.decode_step(params, batch["tokens"][:, :1], cache)
+    assert logits.shape == (2, 1, cfg.padded_vocab) and torch.isfinite(logits).all()
+    assert (cache["kv"] if cfg.block_pattern == "zamba2" else cache)["index"] == 10
 
 
 @pytest.mark.parametrize("arch", HYBRID)
