@@ -94,7 +94,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      d_model 768, 12 heads, seeded stub frames of 1500 × 768; exactly 36
      ``flash_attention`` — 12 encoder, 12 self, 12 cross — and 24 × 32
      ``decode_attention`` launches, the cross-attention's with length
-     1500).
+     1500);
+  7. training — (a) on card tensors that need a gradient,
+     ``flash_attention`` (bfloat16 at zamba2's and granite's serving
+     shapes, float32), ``ssd_scan`` (zamba2's training microbatch) and
+     ``mlstm_chunk`` (xlstm's serving shape) return outputs with a
+     ``grad_fn`` whose input gradients hold to the plain version's within
+     the forward tolerances, and ``decode_attention`` raises; (b)
+     zamba2-1.2b at full width (bfloat16, remat ``full``, random weights
+     drawn on the card) trains 4 steps of 4 × 1024 tokens that a port
+     ``FairdServer`` over TCP tokenizes in place (``training_dag`` →
+     ``TorchFeed``) through ``Trainer`` (2 microbatches, int8 gradient
+     compression, ``warmup_cosine``), printing each step's loss, grad norm,
+     lr, CUDA-synchronised ms, tokens/s and launches (exactly 152
+     ``ssd_scan`` and 12 ``flash_attention`` a step: remat runs each Mamba2
+     block's forward twice), the peak memory and one profiled step (device
+     against wall ms, top kernels, the plain backward's share); the losses
+     and grad norms must be finite and the loss on step 1's batch after
+     step 4 below step 1's; (c) one loss + backward through the kernels
+     against one through the plain versions on the same weights and batch
+     (loss within 1e-2 relative, gradient norm within 2%, every leaf
+     above 1e-3 of the largest leaf norm at cosine 0.99 or more); (d)
+     reduced zamba2 in bfloat16 trains 2 steps and saves a checkpoint, and a
+     new ``Trainer`` resumes it bit for bit and takes a third step.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -1967,6 +1989,332 @@ def serve_zoo(dev, counters):
     )
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train zamba2-1.2b at full width from a DACP feed
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "zamba2-1.2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 1024, 2, 4
+TRAIN_LR = 3e-4  # warmup_cosine peak: 2 warm-up steps of 4
+GRAD_TOL = {"flash_attention/bfloat16": 2e-2, "flash_attention/float32": 3e-5, "ssd_scan": SSD_TOL,
+            "mlstm_chunk": MLSTM_TOL}  # the forward tolerances, on max |Δ grad| over max |grad|
+PATHS_LOSS_TOL, PATHS_NORM_TOL, PATHS_COS_MIN = 1e-2, 2e-2, 0.99  # kernel path against plain path
+
+
+def _grad_case(fn, plain, inputs, rng, used=None) -> float:
+    """max |Δ| / max |want| over the input gradients of ``fn`` (a kernel
+    wrapper on card tensors that need a gradient) against ``plain``'s, for
+    the same seeded output gradients (on the outputs ``used`` picks, all
+    by default); fails unless ``fn``'s outputs carry a ``grad_fn``."""
+    import torch
+
+    args = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    check(all(o.grad_fn is not None for o in outs), f"{fn}: an output on the card has no grad_fn")
+    used = used or range(len(outs))
+    gouts = [torch.from_numpy(rng.standard_normal(tuple(outs[i].shape)).astype(np.float32)).to(outs[i].device,
+                                                                                             outs[i].dtype)
+             for i in used]
+    got = torch.autograd.grad([outs[i] for i in used], args, gouts, allow_unused=True)
+    pouts = plain(*args)
+    pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+    want = torch.autograd.grad([pouts[i] for i in used], args, gouts, allow_unused=True)
+    worst = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            check(g is None, "a kernel gradient where the plain version has none")
+            continue
+        check(bool(torch.isfinite(g.float()).all()), "a non-finite kernel gradient")
+        worst = max(worst, float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-30)))
+    return worst
+
+
+def check_kernel_grads(dev, rng) -> dict:
+    """Phase 7a: ``flash_attention`` (bfloat16 at zamba2's and granite's
+    serving shapes, float32), ``ssd_scan`` and ``mlstm_chunk`` (their
+    serving shapes, bfloat16) on card tensors that need a gradient return
+    outputs with a ``grad_fn`` whose input gradients hold to the plain
+    version's within the forward tolerances; ``ssd_scan`` also with y alone
+    used; ``decode_attention`` raises."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    worst: dict = {}
+
+    def case(key, fn, plain, inputs, used=None):
+        err = _grad_case(fn, plain, inputs, rng, used)
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for label, b, kv, g, s, hd, dtype in (("zamba2", SERVE_BATCH, 32, 1, SERVE_PROMPT, 64, torch.bfloat16),
+                                         ("granite", SERVE_BATCH, 8, 4, SERVE_PROMPT, 128, torch.bfloat16),
+                                         ("f32", 2, 2, 2, 200, 64, torch.float32)):
+        q, k, v = _attn_inputs(rng, dev, dtype, (b, kv, g, s, hd), (b, kv, s, hd), (b, kv, s, hd))
+        case(f"flash_attention/{str(dtype)[6:]}", ops.flash_attention, ops.flash_attention_plain, (q, k, v))
+    b, s, h, p, n = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 64, 64, 64  # zamba2's training microbatch, one layer
+    x, B, C = _attn_inputs(rng, dev, torch.bfloat16, (b, s, h, p), (b, s, n), (b, s, n))
+    dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
+    A = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), h)).astype(np.float32)).to(dev)
+    for used in (None, (0,)):
+        case("ssd_scan", ops.ssd_scan, ops.ssd_scan_plain, (x, dt, A, B, C), used)
+    b, s, h, d = SERVE_BATCH, SERVE_PROMPT, 4, 384
+    q, k, v = _attn_inputs(rng, dev, torch.bfloat16, (b, s, h, d), (b, s, h, d), (b, s, h, d))
+    li = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)).to(dev)
+    lf = torch.from_numpy((rng.standard_normal((b, s, h)) - 1.0).astype(np.float32)).to(dev)
+    case("mlstm_chunk", ops.mlstm_chunk, ops.mlstm_chunk_plain, (q, k, v, li, lf))
+    q, k, v = _attn_inputs(rng, dev, torch.bfloat16, (2, 2, 2, 64), (2, 2, 64, 64), (2, 2, 64, 64))
+    try:
+        ops.decode_attention(q.requires_grad_(True), k, v, 64)
+        fail("decode_attention took an input that needs a gradient")
+    except RuntimeError as e:
+        check("decode_attention" in str(e), f"decode_attention's refusal does not name it: {e}")
+    for key, err in worst.items():
+        check(err <= GRAD_TOL[key], f"{key}: input gradients differ from the plain version's by {err} of max |grad| "
+                                    f"(limit {GRAD_TOL[key]})")
+    return {"max_rel_grad_err": worst, "limits": GRAD_TOL, "decode_attention_under_grad": "raises"}
+
+
+def _train_server(corpus_dir: str):
+    """A port ``FairdServer`` on the card over TCP serving ``corpus_dir``;
+    returns (server, its authority)."""
+    import socket
+
+    import repro_torch.data  # noqa: F401  registers tokenize_and_pack for the server in this process
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.server import FairdServer
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    server = FairdServer(f"127.0.0.1:{port}", executor=ExecutorConfig(device="cuda"))
+    server.catalog.register_path("corpus", corpus_dir)
+    server.serve_tcp(port=port)
+    return server, f"127.0.0.1:{port}"
+
+
+def _endless_feed(client, authority: str, seq: int, batch: int, dev):
+    """{tokens, labels} batches of ``batch`` × ``seq`` on ``dev``: a
+    ``training_dag`` COOK tokenizes the corpus in place and ``TorchFeed``
+    splits its (seq + 1)-token rows; the stream is opened again at its end."""
+    from repro_torch.client.torch_adapter import TorchFeed
+    from repro_torch.data import training_dag
+
+    dag = training_dag(f"dacp://{authority}/corpus/docs.jsonl", seq_len=seq, batch_rows=batch)
+    feed = TorchFeed(lambda: client.cook(dag), token_column="tokens", seq_len=seq + 1, global_batch=batch, device=dev)
+    while True:
+        yield from feed
+
+
+def _profile_step(fn) -> dict:
+    """One call of ``fn`` (a training step) under the profiler: wall and
+    device ms, the device busy share, the top device kernels, the port's
+    kernels by name, and the device time under the plain backwards
+    (``PlainBackwardBackward`` nodes: the plain versions' forward and
+    backward run in the kernels' backward)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device: dict = {}
+    plain_bwd = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            device[e.key] = device.get(e.key, 0.0) + float(us if us is not None else e.self_cuda_time_total)
+        elif "PlainBackwardBackward" in e.key:  # the node and its engine frame hold the same kernels: take one
+            us = getattr(e, "device_time_total", None)
+            plain_bwd = max(plain_bwd, float(us if us is not None else e.cuda_time_total))
+    total = sum(device.values()) / 1e3
+    return {
+        "wall_ms": wall * 1e3,
+        "device_ms": total,
+        "device_busy_share": total / (wall * 1e3),
+        "plain_backward_device_ms": plain_bwd / 1e3,
+        "plain_backward_share": plain_bwd / 1e3 / total if total else None,
+        "port_kernels_by_name_ms": {n: sum(v for k, v in device.items() if n in k) / 1e3 for n in _OUR_KERNELS
+                                    if any(n in k for k in device)},
+        "top": sorted(((round(v / 1e3, 3), k[:70]) for k, v in device.items()), reverse=True)[:10],
+    }
+
+
+def _bits(t) -> bytes:
+    from repro_torch.checkpoint.manager import to_host
+
+    return to_host(t).tobytes()
+
+
+def train_full_width(dev, counters, card: str) -> dict:
+    """Phase 7b-d: zamba2-1.2b at full width (bfloat16, remat ``full``)
+    trains TRAIN_STEPS steps of TRAIN_BATCH × TRAIN_SEQ tokens from a DACP
+    feed (``Trainer``: TRAIN_MICRO microbatches, int8 gradient compression,
+    ``warmup_cosine``), with ``counters`` zeroed right before each step and
+    read right after it: under remat each Mamba2 block's forward runs twice,
+    so a step launches exactly TRAIN_MICRO × 2 × 38 ``ssd_scan`` and
+    TRAIN_MICRO × 6 ``flash_attention`` (the shared block is not
+    recomputed; the backward launches none); the losses and grad norms must
+    be finite and the loss on step 1's batch after the last step below step
+    1's.  Then one profiled step; one loss + backward through the kernels
+    against one through the plain versions on the same weights and batch;
+    and a bfloat16 checkpoint round trip of reduced zamba2 (2 steps,
+    ``save_async`` + ``wait``, a new ``Trainer`` resumes bit for bit and
+    takes a third step)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.client import TcpNetwork
+    from repro_torch.configs import get_config
+    from repro_torch.data import write_token_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.optim.accumulate import value_and_grad
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    width = (cfg.n_layers, cfg.d_model, cfg.ssm.d_state, cfg.ssm.head_dim, cfg.attn_every, cfg.n_heads, cfg.dtype,
+             cfg.param_dtype, cfg.remat, cfg.remat_policy)
+    check(width == (38, 2048, 64, 64, 6, 32, "bfloat16", "bfloat16", True, "full"),
+          f"{TRAIN_ARCH} is not at full width with bf16 and full remat: {width}")
+    n_mamba, n_attn = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    expected = {"ssd_scan": TRAIN_MICRO * 2 * n_mamba, "flash_attention": TRAIN_MICRO * n_attn}
+    tmp = tempfile.mkdtemp(prefix="dacp_train_")
+    server, net = None, TcpNetwork()
+    try:
+        write_token_corpus(os.path.join(tmp, "docs.jsonl"), docs=TRAIN_STEPS * TRAIN_BATCH, seed=SEED)
+        server, authority = _train_server(tmp)
+        client = net.client_for(authority)
+        stream = _endless_feed(client, authority, TRAIN_SEQ, TRAIN_BATCH, dev)
+        first: list = []
+
+        def batches():
+            for b in stream:
+                if not first:
+                    first.append(b)
+                yield b
+
+        it = batches()
+        optim_cfg = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, lambda: it, optim_cfg, n_micro=TRAIN_MICRO, compress_grads=True, seed=SEED,
+                          log_every=1, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = []
+        for _ in range(TRAIN_STEPS):
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run(1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {name: c.value for name, c in counters.items()}
+            m = trainer.metrics_log[-1]
+            row = {"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"], "step_ms": ms,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+                   "launches": {k: v for k, v in launches.items() if v}}
+            log(f"train {TRAIN_ARCH} step {row['step']}: " + json.dumps(row) + f" on {card}")
+            steps.append(row)
+            want = {name: expected.get(name, 0) for name in launches}
+            check(launches == want, f"train step {row['step']} made launches {launches}, expected {want}")
+            check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                  f"train step {row['step']}: loss {m['loss']}, grad norm {m['grad_norm']}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        kern, plain = build(cfg), build(cfg, ops.PLAIN)
+        params = trainer.state["params"]
+        with torch.no_grad():
+            after = float(kern.loss_fn(params, first[0])[0])
+        check(after < steps[0]["loss"], f"the loss on step 1's batch after {TRAIN_STEPS} steps is {after}, step 1's "
+                                        f"{steps[0]['loss']}")
+        profile = _profile_step(lambda: trainer.run(1))
+        # the profiler's own host work stretches the profiled step: the busy
+        # share of an unprofiled step reads its device time over the mean
+        # step time after the first
+        steady_ms = sum(r["step_ms"] for r in steps[1:]) / (len(steps) - 1)
+        profile["unprofiled_step_ms"] = steady_ms
+        profile["device_busy_share_unprofiled"] = profile["device_ms"] / steady_ms
+
+        # 7c: one loss + backward through the kernels and through the plain versions
+        batch = first[0]
+        lk, _, gk = value_and_grad(kern.loss_fn, params, batch)
+        lp, _, gp = value_and_grad(plain.loss_fn, params, batch)
+        gk, gp = tree_leaves(gk), tree_leaves(gp)
+        del trainer, params
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        norm_k = torch.sqrt(sum((g.float() ** 2).sum() for g in gk))
+        norm_p = torch.sqrt(sum((g.float() ** 2).sum() for g in gp))
+        norm_rel = float((norm_k - norm_p).abs() / norm_p)
+        leaf_norms = [float(g.float().norm()) for g in gp]
+        big = max(leaf_norms)
+        cos = [float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0))
+               for a, b, nrm in zip(gk, gp, leaf_norms) if nrm > 1e-3 * big]
+        del gk, gp
+        paths = {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel_err": loss_rel,
+                 "grad_norm_kernel": float(norm_k), "grad_norm_plain": float(norm_p), "grad_norm_rel_err": norm_rel,
+                 "leaves_compared": len(cos), "min_leaf_cosine": min(cos),
+                 "limits": {"loss": PATHS_LOSS_TOL, "grad_norm": PATHS_NORM_TOL, "cosine": PATHS_COS_MIN}}
+        log("train kernel path against plain path: " + json.dumps(paths) + f" on {card}")
+        check(loss_rel <= PATHS_LOSS_TOL and norm_rel <= PATHS_NORM_TOL and min(cos) >= PATHS_COS_MIN,
+              f"kernel-path loss and gradients differ from the plain path's: {paths}")
+        torch.cuda.empty_cache()
+
+        # 7d: a bfloat16 checkpoint of reduced zamba2 resumes bit for bit
+        small = dataclasses.replace(cfg.reduced(), param_dtype="bfloat16", dtype="bfloat16")
+        small_it = _endless_feed(client, authority, 64, TRAIN_BATCH, dev)
+        ckdir = os.path.join(tmp, "ckpt")
+
+        def small_trainer():
+            return Trainer(small, lambda: small_it, optim_cfg, ckpt_dir=ckdir, ckpt_every=2, n_micro=TRAIN_MICRO,
+                           compress_grads=True, seed=SEED, log_every=1, device=dev)
+
+        first_run = small_trainer()
+        first_run.run(2)  # save_async at step 2, then the final save (already durable) and wait
+        saved = {k: [_bits(t) for t in tree_leaves(v)] for k, v in first_run.state.items()}
+        resumed = small_trainer()
+        check(resumed.step == 2, f"the resumed trainer starts at step {resumed.step}, not 2")
+        same = {k: saved[k] == [_bits(t) for t in tree_leaves(v)] for k, v in resumed.state.items()}
+        check(set(same) == {"params", "opt", "err"} and all(same.values()),
+              f"the resumed state differs from the saved one: {same}")
+        m3 = resumed.run(1)
+        check(resumed.step == 3 and math.isfinite(m3["loss"]), f"the resumed step: {m3}")
+        ckpt = {"arch": f"{TRAIN_ARCH} reduced, bfloat16", "resumed_at": 2, "bitwise_equal": same,
+                "step3_loss": m3["loss"], "leaves": sum(len(v) for v in saved.values())}
+        log("train checkpoint round trip: " + json.dumps(ckpt) + f" on {card}")
+    finally:
+        net.close_all()
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "arch": TRAIN_ARCH,
+        "params": n_params,
+        "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ,
+        "n_micro": TRAIN_MICRO,
+        "compress_grads": True,
+        "remat": cfg.remat_policy,
+        "init_s": init_s,
+        "steps": steps,
+        "loss_on_step1_batch_after": after,
+        "peak_memory_gb": peak / 1e9,
+        "expected_launches_per_step": expected,
+        "profile_step": profile,
+        "kernel_vs_plain": paths,
+        "checkpoint": ckpt,
+    }
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2114,7 +2462,12 @@ def main() -> None:
 
     for serving, _ in serve_zoo(dev, ops.LAUNCHES):
         log("serve: " + json.dumps(serving) + f" on {kind}")
-    phase_s["serve_zoo"] = time.perf_counter() - t_phase
+    phase_s["serve_zoo"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    log("kernel gradients: " + json.dumps(check_kernel_grads(dev, rng)) + f" on {kind}")
+    training = train_full_width(dev, ops.LAUNCHES, f"{kind} ({card})")
+    log("train: " + json.dumps(training) + f" on {kind}")
+    phase_s["train"] = time.perf_counter() - t_phase
 
     bad = [r.name for r in records if not r.agrees]
     check(not bad, f"kernels disagree with their plain versions: {bad}")

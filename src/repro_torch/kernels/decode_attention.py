@@ -11,7 +11,9 @@ TPU kernel needs T to divide its tile).
 For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/decode_attention.cu`` (float32 or bfloat16, hd 32/64/128/256, G at
 most 32, q/k/v with any strides and a contiguous head dim) or raises; for a
-CPU tensor it runs ``decode_attention_plain``.  The work is bound by bytes
+CPU tensor it runs ``decode_attention_plain``.  It is on no training path
+and has no gradient: on the card it raises for inputs that need one
+(``grad.refuse``).  The work is bound by bytes
 (each step reads the cache up to ``length`` once), so the kernel splits the
 positions into chunks, one block per (chunk, b·kv), up to two blocks on
 each SM in one wave (at most ``MAX_SPLITS`` chunks), and the chunks' partial (m, l,
@@ -29,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 from repro_torch.kernels.flash_attention import DTYPE_CODES, NEG_INF, check_inputs
 
 __all__ = ["MAX_GROUP", "MAX_SPLITS", "TILE", "decode_attention", "decode_attention_plain", "launches", "split_plan"]
@@ -81,6 +83,7 @@ def decode_attention(q, k, v, length, block_k: int = 1024):
         return decode_attention_plain(q, k, v, length)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, got {q.device}")
+    grad.refuse("decode_attention", q, k, v)  # on no training path: no gradient
     check_inputs("decode_attention", q, k, v, 4)
     b, kv, g, hd = q.shape
     t = k.shape[2]

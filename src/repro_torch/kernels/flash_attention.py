@@ -11,7 +11,9 @@ For a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/flash_attention.cu`` (float32 or bfloat16, hd 32/64/128/256, any
 strides with a contiguous head dim — the model passes permuted views of its
 projections without copying, and the output takes q's memory layout) or
-raises; for a CPU tensor it runs ``flash_attention_plain``.  The kernel is
+raises; for a CPU tensor it runs ``flash_attention_plain``.  On a card
+tensor that needs a gradient the kernel's output carries the plain
+version's backward (``grad.PlainBackward``).  The kernel is
 bound by operations.  For bfloat16, every serving call, both products run
 on the tensor cores as Hopper's ``wgmma`` (bf16 -> float32): one block of
 two warpgroups per (b·kv, g, 128 query rows), two blocks per SM, q and k/v
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 
 __all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "flash_attention_plain", "launches"]
 
@@ -101,6 +103,13 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: i
         return flash_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    if grad.needs_grad(q, k, v):
+        return grad.PlainBackward.apply(_launch, flash_attention_plain, {"causal": causal}, q, k, v)
+    return _launch(q, k, v, causal)
+
+
+def _launch(q, k, v, causal: bool):
+    """The CUDA kernel on card tensors; raises on what it does not take."""
     check_inputs("flash_attention", q, k, v, 5)
     if q.dtype == torch.bfloat16:
         _check_rows_aligned(q, k, v)

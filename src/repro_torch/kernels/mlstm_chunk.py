@@ -14,7 +14,9 @@ shorter (the same as padding with log f = 0 and log i = -inf).
 For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/mlstm_chunk.cu`` (q, k, v float32 or bfloat16; d 32, 64, 128, 256
 or 384; chunk at most 256; bfloat16 rows 16-byte aligned) or raises; for a
-CPU tensor it runs ``mlstm_chunk_plain``.  Which kernels run is decided by
+CPU tensor it runs ``mlstm_chunk_plain``.  On card tensors that need a
+gradient, y and the final (C, n, m) carry the plain version's backward
+(``grad.PlainBackward``).  Which kernels run is decided by
 dtype.  bfloat16 runs two kernels on the tensor cores, counted as one
 launch: the carry chunk after chunk over tiles of C (keeping the state
 before each chunk), then every chunk's outputs in parallel, the float32
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 
 __all__ = ["HEAD_DIMS", "MAX_CHUNK", "NEG", "launches", "mlstm_chunk", "mlstm_chunk_plain"]
 
@@ -123,6 +125,13 @@ def mlstm_chunk(q, k, v, log_i, log_f, chunk: int = 256):
         return mlstm_chunk_plain(q, k, v, log_i, log_f, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cuda or cpu, got {q.device}")
+    if grad.needs_grad(q, k, v, log_i, log_f):
+        return grad.PlainBackward.apply(_launch, mlstm_chunk_plain, {"chunk": chunk}, q, k, v, log_i, log_f)
+    return _launch(q, k, v, log_i, log_f, chunk)
+
+
+def _launch(q, k, v, log_i, log_f, chunk: int):
+    """The CUDA kernels on card tensors; raises on what they do not take."""
     _check(q, k, v, log_i, log_f, chunk)
     b, s, h, d = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -7,6 +7,10 @@ use) or raises; on the CPU it runs the kernel's plain PyTorch version.
 ``LAUNCHES`` maps each wrapper to its thread-safe launch counter.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
+On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``
+and ``mlstm_chunk`` launch their kernel forward and take the plain
+version's backward (``grad.PlainBackward``); ``decode_attention`` raises.
+
 ``ssd_scan`` and ``mlstm_chunk`` return their final state beside y (the
 TPU kernels return y alone), because the model's prefill hands it to the
 decode cache.

@@ -14,7 +14,9 @@ pads it with dt = 0, which leaves the state unchanged and adds nothing).
 For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32
 or 64; chunk at most 256; bfloat16 rows 16-byte aligned) or raises; for a
-CPU tensor it runs ``ssd_scan_plain``.  Which kernels run is decided by
+CPU tensor it runs ``ssd_scan_plain``.  On card tensors that need a
+gradient, y and the final state carry the plain version's backward
+(``grad.PlainBackward``).  Which kernels run is decided by
 dtype.  bfloat16 runs three kernels on the tensor cores, counted as one
 launch: every chunk's own end state at once, the carry over the chunks,
 then every chunk's outputs, the float32 operands of the products split
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, grad
 
 __all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "launches", "ssd_scan", "ssd_scan_plain"]
 
@@ -135,6 +137,13 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
+    if grad.needs_grad(x, dt, A, B, C):
+        return grad.PlainBackward.apply(_launch, ssd_scan_plain, {"chunk": chunk}, x, dt, A, B, C)
+    return _launch(x, dt, A, B, C, chunk)
+
+
+def _launch(x, dt, A, B, C, chunk: int):
+    """The CUDA kernels on card tensors; raises on what they do not take."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]

@@ -4,6 +4,7 @@
     init(cfg, generator, device)                      -> params
     encode(params, frames, cfg)                       -> memory (B, enc_seq, d)
     forward(params, batch, cfg)                       -> (logits, 0.0)
+    loss_fn(params, batch, cfg)                       -> (loss, {ce})
     prefill(params, batch, cfg, max_seq)              -> (last_logits, cache)
     decode_step(params, token, cache, cfg)            -> (logits, cache)
     make_decode_cache(cfg, batch, max_seq, dtype, device)
@@ -43,9 +44,9 @@ from repro_torch.models.layers import (
     norm_init,
     normal,
 )
-from repro_torch.models.lm import weights_device
+from repro_torch.models.lm import cross_entropy, weights_device
 
-__all__ = ["DEC_POSITIONS", "decode_step", "encode", "forward", "init", "make_decode_cache", "prefill"]
+__all__ = ["DEC_POSITIONS", "decode_step", "encode", "forward", "init", "loss_fn", "make_decode_cache", "prefill"]
 
 DEC_POSITIONS = 33024  # the reference's decoder position table: decode_32k (32768) + train_4k
 
@@ -163,6 +164,15 @@ def forward(params, batch, cfg, kernels=ops.KERNELS):
     memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
     x = _decoder_stack(params, _embed(params, batch["tokens"], 0, dt.act), cfg, kernels, memory=memory)
     return _head(params, x, cfg), 0.0
+
+
+def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
+    """batch {frames, tokens, labels} -> (loss, {ce}): the decoder's mean
+    token cross-entropy (no remat: the reference wraps no encoder-decoder
+    block)."""
+    logits, _ = forward(params, batch, cfg, kernels)
+    loss = cross_entropy(logits, batch["labels"], cfg.loss_impl)
+    return loss, {"ce": loss}
 
 
 def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:

@@ -3,6 +3,7 @@
 
     init(cfg, generator, device)                   -> params
     forward(params, tokens, cfg)                   -> (logits, aux)
+    loss_fn(params, batch, cfg)                    -> (loss, {ce, aux})
     prefill(params, tokens, cfg, max_seq)          -> (last_logits, cache)
     decode_step(params, token, cache, cfg)         -> (logits, cache)
     make_decode_cache(cfg, batch, max_seq, dtype, device)
@@ -14,9 +15,19 @@ against their plain versions on the card): attention runs
 ``mlstm_chunk``.  In a MoE configuration every ``moe_every``-th ``attn``
 layer takes ``models.moe`` in place of its MLP; ``forward`` returns the
 sum of those layers' load-balancing losses as ``aux`` (0.0 without MoE
-layers).  There is no sharding, remat or ZeRO-3 gather:
-they have no meaning on one card in eager PyTorch.  Training (``loss_fn``)
-comes with ``optim/`` and ``train/`` (ROADMAP Queue 1 item 10).
+layers).  There is no sharding or ZeRO-3 gather: they have no meaning on
+one card in eager PyTorch.
+
+Training: ``loss_fn`` is the mean token cross-entropy (``cross_entropy``,
+``cfg.loss_impl`` ``logp`` or ``lse``) plus ``router_aux_weight`` times
+``aux`` under MoE.  With ``cfg.remat`` and grad mode on, ``forward``
+recomputes in the backward what the reference's ``jax.checkpoint`` does
+(``torch.utils.checkpoint``, non-reentrant): each ``attn`` block and each
+zamba2 Mamba2 block, not zamba2's shared block nor any xlstm block;
+``remat_policy="dots"`` keeps the matrix products' outputs
+(``mm``/``bmm``/``addmm``) and recomputes the rest.  A recomputed block
+launches its kernels again.  The kernels' gradients are their plain
+versions' (``kernels.grad``).
 
 Caches: ``attn`` {k, v (layers, B, KV, T, hd), index}; ``zamba2`` {ssm:
 {ssm, conv_x, conv_B, conv_C} stacked over the Mamba layers, kv: the
@@ -27,7 +38,10 @@ shared block's {k, v, index}, one cache layer per application}; ``xlstm``
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import device as device_mod
 from repro_torch.kernels import ops
@@ -46,7 +60,16 @@ from repro_torch.models.layers import (
     norm_init,
 )
 
-__all__ = ["check_supported", "decode_step", "forward", "init", "make_decode_cache", "prefill"]
+__all__ = [
+    "check_supported",
+    "cross_entropy",
+    "decode_step",
+    "forward",
+    "init",
+    "loss_fn",
+    "make_decode_cache",
+    "prefill",
+]
 
 
 def check_supported(cfg) -> None:
@@ -129,11 +152,37 @@ def _block(lp, x, cfg, kernels, layer_cache=None) -> tuple:
     return x + y, aux
 
 
+def _mamba_block(lp, x, cfg, kernels, return_state: bool = False):
+    """One zamba2 layer's Mamba2 block on x: its residual branch."""
+    return ssm_mod.mamba_apply(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, return_state, kernels)
+
+
 def _shared_block(sp, x, cfg, kernels, layer_cache=None):
     """zamba2's shared attention + MLP block, after every ``attn_every``-th
     Mamba block; its weights are shared by every application."""
     x = x + attn.attn_apply(sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
     return x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu)
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the matrix products' outputs, recompute
+    the rest (the reference's ``checkpoint_dots``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg, fn):
+    """``fn`` recomputed in the backward when ``cfg.remat`` and grad mode
+    is on, else ``fn`` itself.  The model draws no random numbers, so no RNG
+    state is kept for the recomputation."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kwargs = {"use_reentrant": False, "preserve_rng_state": False}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_products)
+    return functools.partial(checkpoint, fn, **kwargs)
 
 
 def _head(params, x, cfg):
@@ -149,17 +198,18 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
     aux_total = 0.0
     if cfg.block_pattern == "attn":
         for li, lp in enumerate(params["layers"]):
-            layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
-            x, aux = _block(lp, x, cfg, kernels, layer_cache)
+            if cache is None:
+                x, aux = _remat_wrap(cfg, functools.partial(_block, lp, cfg=cfg, kernels=kernels))(x)
+            else:
+                x, aux = _block(lp, x, cfg, kernels, (cache["k"][li], cache["v"][li]))
             aux_total = aux_total + aux
     elif cfg.block_pattern == "zamba2":
         ai = 0
         for li, lp in enumerate(params["layers"]):
-            y = ssm_mod.mamba_apply(
-                lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, return_state=cache is not None, kernels=kernels
-            )
-            if cache is not None:
-                y, st = y
+            if cache is None:
+                y = _remat_wrap(cfg, functools.partial(_mamba_block, lp, cfg=cfg, kernels=kernels))(x)
+            else:
+                y, st = _mamba_block(lp, x, cfg, kernels, return_state=True)
                 for name, t in st.items():
                     cache["ssm"][name][li].copy_(t)
             x = x + y
@@ -185,6 +235,27 @@ def forward(params, tokens, cfg, kernels=ops.KERNELS):
     check_supported(cfg)
     x, aux = _body(params, embed_tokens(params["embed"], tokens, Dtypes.from_cfg(cfg).act), cfg, kernels)
     return _head(params, x, cfg), aux
+
+
+def cross_entropy(logits, labels, impl: str = "logp"):
+    """Mean token cross-entropy in float32.  ``logp`` materialises the
+    log-softmax; ``lse`` is logsumexp(z) minus the label's logit."""
+    labels = labels[..., None].long()
+    z32 = logits.float()
+    if impl == "lse":
+        return (torch.logsumexp(z32, dim=-1) - torch.gather(z32, -1, labels)[..., 0]).mean()
+    return -torch.gather(torch.log_softmax(z32, dim=-1), -1, labels)[..., 0].mean()
+
+
+def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
+    """batch {tokens, labels (B, S)} -> (loss, {ce, aux}), float32 0-d
+    tensors; the loss adds ``router_aux_weight`` times the MoE layers'
+    load-balancing loss."""
+    logits, aux = forward(params, batch["tokens"], cfg, kernels)
+    ce = cross_entropy(logits, batch["labels"], cfg.loss_impl)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe is not None else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:

@@ -6,12 +6,13 @@ block patterns, and the encoder-decoder (the port of
     api = build(cfg)
     params        = api.init(generator, device)
     logits, aux   = api.forward(params, batch)
+    loss, metrics = api.loss_fn(params, batch)
     last, cache   = api.prefill(params, batch, max_seq)
     logits, cache = api.decode_step(params, token, cache)
 
 ``batch`` is {tokens (B, S)}, and for an encoder-decoder also {frames (B,
-enc_seq, d)}.  Training (``loss_fn``) comes with ROADMAP Queue 1 item 10;
-``input_specs`` and ``input_axes`` with the dry-run (item 12).
+enc_seq, d)}; ``loss_fn`` also takes {labels (B, S)}.  ``input_specs`` and
+``input_axes`` come with the dry-run (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ class ModelApi:
     cfg: ArchConfig
     init: Callable
     forward: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     make_decode_cache: Callable
@@ -45,6 +47,7 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
             cfg=cfg,
             init=lambda generator, device=None: encdec.init(cfg, generator, device),
             forward=lambda p, batch: encdec.forward(p, batch, cfg, kernels),
+            loss_fn=lambda p, batch: encdec.loss_fn(p, batch, cfg, kernels),
             prefill=lambda p, batch, max_seq: encdec.prefill(p, batch, cfg, max_seq, kernels),
             decode_step=lambda p, tok, cache: encdec.decode_step(p, tok, cache, cfg, kernels),
             make_decode_cache=lambda b, m, dt, device=None: encdec.make_decode_cache(cfg, b, m, dt, device),
@@ -54,6 +57,7 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
         cfg=cfg,
         init=lambda generator, device=None: lm.init(cfg, generator, device),
         forward=lambda p, batch: lm.forward(p, batch["tokens"], cfg, kernels),
+        loss_fn=lambda p, batch: lm.loss_fn(p, batch, cfg, kernels),
         prefill=lambda p, batch, max_seq: lm.prefill(p, batch["tokens"], cfg, max_seq, kernels),
         decode_step=lambda p, tok, cache: lm.decode_step(p, tok, cache, cfg, kernels),
         make_decode_cache=lambda b, m, dt, device=None: lm.make_decode_cache(cfg, b, m, dt, device),

@@ -958,3 +958,119 @@ def test_moe_and_encdec_kernel_path_matches_plain_path_on_the_card(dev, arch):
     else:
         assert counts == {"flash_attention": cfg.n_layers, "decode_attention": 3 * cfg.n_layers}
     torch.testing.assert_close(cache_k["k"], cache_p["k"], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# gradients through the model kernels, and training steps on the card
+# ---------------------------------------------------------------------------
+def _grads(fn, inputs, gouts, used):
+    args = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad([outs[i] for i in used], args, [gouts[i] for i in used], allow_unused=True)
+
+
+def _kernel_case(kernel, dtype, dev, rng):
+    """(kernel, plain version, inputs, forward tolerance) at reduced shapes."""
+    from repro_torch.kernels import ops
+
+    if kernel == "flash_attention":
+        q, k, v = (_randn(rng, sh, dtype, dev) for sh in ((2, 2, 2, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64)))
+        return ops.flash_attention, ops.flash_attention_plain, (q, k, v), _attn_tol(dtype)["rtol"]
+    if kernel == "ssd_scan":
+        x, B, C = (_randn(rng, sh, dtype, dev) for sh in ((2, 300, 8, 32), (2, 300, 16), (2, 300, 16)))
+        dt = torch.from_numpy((np.abs(rng.standard_normal((2, 300, 8))) * 0.1).astype(np.float32)).to(dev)
+        A = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), 8)).astype(np.float32)).to(dev)
+        return ops.ssd_scan, ops.ssd_scan_plain, (x, dt, A, B, C), 2e-4
+    q, k, v = (_randn(rng, (2, 100, 2, 64), dtype, dev) for _ in range(3))
+    li = torch.from_numpy(rng.standard_normal((2, 100, 2)).astype(np.float32)).to(dev)
+    lf = torch.from_numpy((rng.standard_normal((2, 100, 2)) - 1.0).astype(np.float32)).to(dev)
+    return ops.mlstm_chunk, ops.mlstm_chunk_plain, (q, k, v, li, lf), 5e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk"])
+def test_model_kernel_gradients_match_plain_version_on_the_card(dev, kernel, dtype):
+    """On card tensors that need a gradient each kernel launches once and
+    returns outputs with a grad_fn; the input gradients (every output used,
+    then the first alone) hold to the plain version's within the forward
+    tolerance of max |grad|."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(17)
+    fn, plain, inputs, tol = _kernel_case(kernel, dtype, dev, rng)
+    outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gouts = [_randn(rng, tuple(o.shape), o.dtype, dev) for o in outs]
+    for used in (range(len(outs)), (0,)):
+        before = ops.LAUNCHES[kernel].value
+        got_outs, got = _grads(fn, inputs, gouts, used)
+        assert ops.LAUNCHES[kernel].value == before + 1
+        assert all(o.grad_fn is not None for o in got_outs)
+        _, want = _grads(plain, inputs, gouts, used)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert float((g.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+
+def test_decode_attention_refuses_a_gradient_on_the_card(dev):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(5)
+    q, k, v = (_randn(rng, sh, torch.bfloat16, dev) for sh in ((2, 2, 2, 64), (2, 2, 64, 64), (2, 2, 64, 64)))
+    before = ops.LAUNCHES["decode_attention"].value
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        ops.decode_attention(q.requires_grad_(True), k, v, 64)
+    assert ops.LAUNCHES["decode_attention"].value == before
+    with torch.no_grad():
+        assert ops.decode_attention(q, k, v, 64).shape == (2, 2, 2, 64)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "xlstm-125m"])
+def test_train_step_kernel_path_matches_plain_path_on_the_card(dev, arch):
+    """A reduced configuration in float32 on the card (remat on): one loss
+    + backward and one train step (two microbatches) through the kernels
+    and through the plain versions from the same weights and batch.  The
+    losses are finite; the kernel path launches its kernels (a recomputed
+    attention block launches again; xlstm has no remat) and the plain path
+    none; loss, grad norm and every gradient leaf agree within the CPU
+    tests' tolerances (1e-4 attention, 5e-4 mLSTM, of the largest
+    gradient)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.optim.accumulate import value_and_grad
+    from repro_torch.train import make_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    tol = 1e-4 if arch.startswith("granite") else 5e-4
+    if arch.startswith("granite"):
+        kernel, per_micro = "flash_attention", 2 * cfg.n_layers
+    else:
+        kernel, per_micro = "mlstm_chunk", sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 259, (4, 65)).astype(np.int64)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    lk, _, gk = value_and_grad(build(cfg).loss_fn, params, batch)
+    lp, _, gp = value_and_grad(build(cfg, ops.PLAIN).loss_fn, params, batch)
+    assert np.isfinite(float(lk)) and abs(float(lk) - float(lp)) <= tol * abs(float(lp))
+    scale = max(float(g.abs().max()) for g in tree_leaves(gp))
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert float((a - b).abs().max()) <= tol * scale
+    opt = AdamWConfig(lr=warmup_cosine(1e-3, 1, 4))
+    metrics = []
+    for kernels, launches in ((ops.KERNELS, 2 * per_micro), (ops.PLAIN, 0)):
+        for c in ops.LAUNCHES.values():
+            c.reset()
+        state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
+        _, m = make_train_step(cfg, opt, 2, kernels=kernels)(state, batch)
+        torch.cuda.synchronize()
+        assert {n: c.value for n, c in ops.LAUNCHES.items() if c.value} == ({kernel: launches} if launches else {})
+        assert np.isfinite(float(m["loss"]))
+        metrics.append(m)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(metrics[0][key]) - float(metrics[1][key])) <= tol * float(metrics[1][key])

@@ -75,5 +75,7 @@ def test_the_sweep_covers_every_kernel_and_model_module():
 
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     for mod in ("kernels.flash_attention", "kernels.decode_attention", "kernels.ssd_scan", "kernels.mlstm_chunk",
-                "models.attention", "models.ssm", "models.xlstm", "models.lm", "models.convert", "launch.serve"):
+                "models.attention", "models.ssm", "models.xlstm", "models.lm", "models.convert", "launch.serve",
+                "kernels.grad", "optim.adamw", "optim.schedule", "optim.accumulate", "optim.grad_compress",
+                "train.steps", "train.loop", "checkpoint.manager", "launch.train", "tree"):
         assert f"repro_torch.{mod}" in names, mod
