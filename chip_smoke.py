@@ -116,7 +116,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (loss within 1e-2 relative, gradient norm within 2%, every leaf
      above 1e-3 of the largest leaf norm at cosine 0.99 or more); (d)
      reduced zamba2 in bfloat16 trains 2 steps and saves a checkpoint, and a
-     new ``Trainer`` resumes it bit for bit and takes a third step.
+     new ``Trainer`` resumes it bit for bit and takes a third step;
+  8. distribution — (a) four gloo ranks in four processes on the one card,
+     with CUDA tensors, run ``seq_sharded_decode_attention`` at zamba2-1.2b's
+     long_500k shared-attention shape (B 1, KV 32, G 1, T 524288, 131072 a
+     rank, hd 64, bf16, index 499999; K and V 4.3 GB) and at granite-3-8b's
+     decode shape of phase 4 (B 4, KV 8, G 4, T 1056, hd 128, length 1025),
+     each held to one ``decode_attention`` launch over the whole cache
+     within the bf16 attention tolerance, printing each call's wall time and
+     the bytes each rank all-reduces; (b) ``compressed_psum`` of a
+     granite-3-8b padded_vocab × 4096 float32 leaf (809.5 MB a rank) on the
+     card ranks, equal bit for bit to the same ranks' call on CPU tensors;
+     (c) ``TorchFeed(mesh=make_smoke_mesh())`` on NCCL world 1 gives phase
+     7's feed's batches as card DTensors; (d) the dry-run of granite-3-8b
+     train_4k and zamba2-1.2b long_500k on the single production mesh (256
+     fake ranks, meta tensors: host work) prints its roofline terms with the
+     H100's rates.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -2327,6 +2342,235 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the distributed paths (four gloo ranks on the card, NCCL world 1,
+# the dry-run on a fake 256-rank mesh)
+# ---------------------------------------------------------------------------
+DIST_RANKS = 4
+# (label, B, KV, G, T, hd, index): zamba2-1.2b's long_500k shared attention
+# (T 524288, 131072 a rank; K and V 4.3 GB) and granite-3-8b's decode at
+# phase 4's shape (T 1056, 264 a rank, length 1025)
+SEQ_CASES = (("zamba2 long_500k", 1, 32, 1, 524288, 64, 499_999), ("granite decode", 4, 8, 4, 1056, 128, 1024))
+# the sequence-sharded decode's limit: max |err| <= SEQ_ERR_UNITS · 2^-8 · max |want| (bf16's half ulp
+# at the output's peak, times a count set from the sound runs; PERF.md §6 has their readings and the
+# planted faults': rank 0's shard dropped, an all-zero output)
+SEQ_ERR_UNITS = 4
+PSUM_ARCH = "granite-3-8b"  # compressed_psum over its padded_vocab × d_model embedding, float32
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("zamba2-1.2b", "long_500k"))
+
+
+def _seq_shard(case: int, rank: int, shape: tuple, dev):
+    """Rank ``rank``'s k and v slice of SEQ_CASES[case] (bfloat16 from a
+    seeded generator on the card; the whole cache is the ranks' slices in
+    order), and the query every rank holds."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 * case + rank)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    return k, v
+
+
+def _seq_query(case: int, shape: tuple, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 * case + 99)
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+
+def _dist_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of DIST_RANKS gloo ranks on the one card: 8a each SEQ_CASES decode
+    sharded over the ranks, 8b ``compressed_psum`` of a full-width embedding
+    on the card and on the CPU; rank 0 writes the results to ``out_dir``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import compressed_psum, seq_sharded_decode_attention
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=DIST_RANKS)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        mesh = init_device_mesh("cuda", (DIST_RANKS,), mesh_dim_names=("data",))
+        out: dict = {"seq": []}
+        for case, (label, b, kv, g, t, hd, index) in enumerate(SEQ_CASES):
+            k, v = _seq_shard(case, rank, (b, kv, t // DIST_RANKS, hd), dev)
+            q = _seq_query(case, (b, kv, g, hd), dev)
+            walls = []
+            for _ in range(3):  # the first call warms up; the last one's output is kept
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                got = seq_sharded_decode_attention(mesh, q, k, v, index, seq_axis="data")
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            reduced = 4 * b * kv * g * (2 + hd)  # m and l (B, KV, G, 1) and acc (B, KV, G, hd), float32
+            # a planted fault for the limit: rank 0 attends to no position, so its shard drops out
+            dropped = seq_sharded_decode_attention(mesh, q, k, v, -1 if rank == 0 else index, seq_axis="data")
+            out["seq"].append({"label": label, "wall_ms": walls, "all_reduce_bytes_per_rank": reduced,
+                               "out": got.float().cpu(), "dropped": dropped.float().cpu()})
+            del k, v
+        cfg = get_config(PSUM_ARCH)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7 + rank)
+        x = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        on_card = compressed_psum(mesh, x, axis="data")
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        x_cpu = x.cpu()
+        dist.barrier()
+        t0 = time.perf_counter()
+        on_cpu = compressed_psum(mesh, x_cpu, axis="data")  # the same gloo ranks, CPU tensors
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(on_card.cpu().view(torch.int32), on_cpu.view(torch.int32))
+        flags = torch.tensor([int(same)], dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+        out["psum"] = {"shape": list(x.shape), "bytes_per_rank": x.numel() * 4, "card_ms": card_ms,
+                       "cpu_ms": cpu_ms, "bit_exact_on_every_rank": bool(flags.item()),
+                       "max_abs": float(on_cpu.abs().max())}
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "ranks.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_paths(dev, card: str) -> dict:
+    """Phase 8.  (8d) starts the dry-run of DRYRUN_CELLS on the single
+    production mesh (256 fake ranks, meta tensors: host work) in
+    subprocesses; (8a, 8b) DIST_RANKS gloo ranks on the card run
+    ``seq_sharded_decode_attention`` at SEQ_CASES, each held to one
+    ``decode_attention`` launch over the whole cache within SEQ_ERR_UNITS
+    half ulps of bf16 at the output's peak (and the limit held to refuse
+    two planted faults), and ``compressed_psum`` of PSUM_ARCH's embedding,
+    bit for bit against the same call on CPU tensors; (8c)
+    ``TorchFeed(mesh=make_smoke_mesh())`` (NCCL, world 1) gives phase 7's
+    feed's batches; then the dry-run's records are read."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import ops
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    dry_dir = tempfile.mkdtemp(prefix="dacp_dryrun_")  # a directory of its own: a user's records stay as they are
+    dry = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                             "--mesh", "single", "--out", dry_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True) for arch, shape in DRYRUN_CELLS]
+    report: dict = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="dacp_dist_")
+    try:
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        t0 = time.perf_counter()
+        mp.start_processes(_dist_rank, args=(port, tmp), nprocs=DIST_RANKS, start_method="spawn")
+        report["ranks_s"] = time.perf_counter() - t0
+        ranks = torch.load(os.path.join(tmp, "ranks.pt"))
+        seq = []
+        for case, (label, b, kv, g, t, hd, index) in enumerate(SEQ_CASES):
+            shards = [_seq_shard(case, r, (b, kv, t // DIST_RANKS, hd), dev) for r in range(DIST_RANKS)]
+            k = torch.cat([s[0] for s in shards], dim=2)
+            v = torch.cat([s[1] for s in shards], dim=2)
+            del shards
+            q = _seq_query(case, (b, kv, g, hd), dev)
+            before = ops.LAUNCHES["decode_attention"].value
+            with torch.no_grad():
+                want = ops.decode_attention(q, k, v, index + 1).float().cpu()
+            launched = ops.LAUNCHES["decode_attention"].value - before
+            check(launched == 1, f"{label}: the whole-cache reference launched decode_attention {launched} times")
+            got = ranks["seq"][case]["out"]
+            peak = float(want.abs().max())
+            unit = 2.0**-8 * peak  # half an ulp of bf16 at the output's peak
+            err = float((got - want).abs().max())
+            dropped = float((ranks["seq"][case]["dropped"] - want).abs().max())
+            ok = peak > 0 and err <= SEQ_ERR_UNITS * unit
+            seq.append({"case": label, "shape": f"B={b} KV={kv} G={g} T={t} ({t // DIST_RANKS} a rank) hd={hd} "
+                        f"index={index}", "kv_bytes": 2 * k.numel() * k.element_size(),
+                        "wall_ms": ranks["seq"][case]["wall_ms"],
+                        "all_reduce_bytes_per_rank": ranks["seq"][case]["all_reduce_bytes_per_rank"],
+                        "max_abs_err": err, "max_abs_want": peak, "limit": SEQ_ERR_UNITS * unit,
+                        "units": {"sound": err / unit if unit else None, "rank 0 dropped": dropped / unit if unit
+                                  else None, "zeroed": 2.0**8, "limit": SEQ_ERR_UNITS}, "agrees": ok})
+            log(f"  8a {label}: max |want| {peak:.6g}, max |err| {err:.6g}; in half ulps of bf16 at the peak: "
+                f"sound {err / unit if unit else float('nan'):.3f}, rank 0's shard dropped "
+                f"{dropped / unit if unit else float('nan'):.3f}, zeroed 256, limit {SEQ_ERR_UNITS}")
+            check(peak > 0, f"seq_sharded_decode_attention at {label}: the whole-cache output is all zero")
+            check(ok, f"seq_sharded_decode_attention at {label} disagrees with decode_attention: max |err| {err}"
+                  f" > {SEQ_ERR_UNITS} · 2^-8 · {peak}")
+            check(dropped > SEQ_ERR_UNITS * unit, f"{label}: the limit passes a merge with rank 0's shard dropped")
+            del k, v
+            torch.cuda.empty_cache()
+        report["seq_sharded_decode"] = seq
+        report["compressed_psum"] = ranks["psum"]
+        check(ranks["psum"]["bit_exact_on_every_rank"], "compressed_psum on the card differs from the CPU ranks'")
+        report["torch_feed_mesh"] = _feed_over_mesh(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dryrun_out = [p.communicate(timeout=600) for p in dry]
+    cells = []
+    try:
+        for (arch, shape), p, (out, err) in zip(DRYRUN_CELLS, dry, dryrun_out):
+            check(p.returncode == 0, f"dry-run of {arch} {shape} failed: {err[-2000:]} {out[-2000:]}")
+            with open(os.path.join(dry_dir, f"{arch}__{shape}__single.json")) as f:
+                rec = json.load(f)
+            check(rec["status"] == "ok", f"dry-run of {arch} {shape}: {rec.get('error')}")
+            cells.append({k: rec[k] for k in ("arch", "shape", "mesh", "n_chips", "trace_s", "flops_per_device",
+                                              "bytes_per_device", "collective_bytes_per_device", "collective_counts",
+                                              "by_site", "roofline", "useful_flops_ratio", "memory_analysis")})
+    finally:
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    report["dryrun"] = cells
+    return report
+
+
+def _feed_over_mesh(dev) -> dict:
+    """8c: TorchFeed over ``make_smoke_mesh()`` (NCCL, world 1, on the card)
+    against the unsharded feed of phase 7's corpus, batch for batch."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.client import TcpNetwork
+    from repro_torch.client.torch_adapter import TorchFeed
+    from repro_torch.data import training_dag, write_token_corpus
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    tmp = tempfile.mkdtemp(prefix="dacp_feed_")
+    server, net = None, TcpNetwork()
+    try:
+        write_token_corpus(os.path.join(tmp, "docs.jsonl"), docs=TRAIN_STEPS * TRAIN_BATCH, seed=SEED)
+        server, authority = _train_server(tmp)
+        client = net.client_for(authority)
+        dag = training_dag(f"dacp://{authority}/corpus/docs.jsonl", seq_len=TRAIN_SEQ, batch_rows=TRAIN_BATCH)
+        whole = list(TorchFeed(lambda: client.cook(dag), "tokens", TRAIN_SEQ + 1, TRAIN_BATCH, device=dev))
+        mesh = make_smoke_mesh()
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "the smoke mesh is not NCCL world 1")
+        sharded = list(TorchFeed(lambda: client.cook(dag), "tokens", TRAIN_SEQ + 1, TRAIN_BATCH, mesh=mesh))
+        check(len(sharded) == len(whole) == TRAIN_STEPS, f"feeds gave {len(sharded)} and {len(whole)} batches")
+        for s, w in zip(sharded, whole):
+            for name in ("tokens", "labels"):
+                t = s[name]
+                check(isinstance(t, DTensor) and t.to_local().device.type == "cuda", "the mesh feed gave no card DTensor")
+                check(torch.equal(t.to_local(), w[name]), f"the mesh feed's {name} differ from the unsharded feed's")
+        return {"batches": len(sharded), "shape": list(sharded[0]["tokens"].shape),
+                "placements": [str(p) for p in sharded[0]["tokens"].placements], "equal": True}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        net.close_all()
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     try:
         import torch
@@ -2467,7 +2711,10 @@ def main() -> None:
     log("kernel gradients: " + json.dumps(check_kernel_grads(dev, rng)) + f" on {kind}")
     training = train_full_width(dev, ops.LAUNCHES, f"{kind} ({card})")
     log("train: " + json.dumps(training) + f" on {kind}")
-    phase_s["train"] = time.perf_counter() - t_phase
+    phase_s["train"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    log("distributed: " + json.dumps(distributed_paths(dev, card)) + f" on {kind}")
+    phase_s["distributed"] = time.perf_counter() - t_phase
 
     bad = [r.name for r in records if not r.agrees]
     check(not bad, f"kernels disagree with their plain versions: {bad}")

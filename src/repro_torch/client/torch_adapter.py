@@ -10,7 +10,9 @@ training loops (the port of ``repro.client.jax_adapter``).
   * ``TorchFeed`` stages each batch in pinned host memory and copies it to
     the card with ``non_blocking``, so the upload overlaps the host's next
     batch.  The device is explicit: ``"cuda"`` unless the caller asks for
-    ``"cpu"``.
+    ``"cpu"``.  Over a ``DeviceMesh`` it returns DTensors laid out as
+    ``P(batch_axes, None)``, as ``JaxFeed(mesh=)`` does: each rank uploads
+    only its own rows.
 
 ``batch_to_arrays``, ``tokens_from_blob_column`` and ``PrefetchIterator``
 are numpy-only and identical to the reference's.
@@ -106,9 +108,12 @@ class TorchFeed:
         ...
 
     ``tokens`` is every row but its last token and ``labels`` every row but
-    its first, as in ``JaxFeed``.  ``mesh`` and ``batch_axes`` keep
-    ``JaxFeed``'s signature; a mesh has no meaning on one card yet, so
-    passing one raises (ROADMAP Queue 1 item 11, ``distributed/``).
+    its first, as in ``JaxFeed``.  With ``mesh`` (a ``DeviceMesh``) each
+    batch is a pair of DTensors sharded over ``batch_axes`` on the rows
+    (``P(batch_axes, None)``) and replicated over the other mesh axes: the
+    rank at flat coordinate r over ``batch_axes`` (of n) holds rows
+    [r·B/n, (r+1)·B/n) of the global batch, on the mesh's device type
+    (``device`` is then not taken).  Every rank reads the same stream.
     """
 
     def __init__(
@@ -124,21 +129,35 @@ class TorchFeed:
         drop_remainder: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TorchFeed places batches on one device; sharding over a mesh comes with the "
-                "distributed/ port (ROADMAP Queue 1 item 11)"
-            )
         from repro_torch import device as device_mod
 
         self.stream_factory = stream_factory
         self.token_column = token_column
         self.seq_len = int(seq_len)
         self.global_batch = int(global_batch)
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
         self.dtype = dtype
         self.prefetch = prefetch
         self.drop_remainder = drop_remainder
-        self.device = device_mod.resolve(device)
+        if mesh is None:
+            self.device = device_mod.resolve(device)
+            return
+        if device is not None:
+            raise ValueError("TorchFeed over a mesh places batches on the mesh's devices: pass no device")
+        self.device = device_mod.resolve(mesh.device_type)
+        names = mesh.mesh_dim_names
+        missing = [a for a in self.batch_axes if a not in names]
+        if missing:
+            raise ValueError(f"batch axes {missing} are not axes of the mesh {names}")
+        # the rank's flat coordinate over batch_axes, major to minor in mesh order
+        coord = mesh.get_coordinate()
+        self._shards, self._shard = 1, 0
+        for i, name in enumerate(names):
+            if name in self.batch_axes:
+                self._shards, self._shard = self._shards * mesh.size(i), self._shard * mesh.size(i) + coord[i]
+        if self.global_batch % self._shards:
+            raise ValueError(f"global batch {self.global_batch} does not split over {self._shards} batch shards")
 
     def _host_batches(self):
         pending: list = []
@@ -160,12 +179,30 @@ class TorchFeed:
     def _to_device(self, host: np.ndarray) -> dict:
         import torch
 
+        if self.mesh is not None:
+            if len(host) % self._shards:
+                raise ValueError(f"a batch of {len(host)} rows does not split over {self._shards} batch shards")
+            rows = len(host) // self._shards
+            host = host[self._shard * rows : (self._shard + 1) * rows]
         tokens = torch.from_numpy(np.array(host, dtype=self.dtype))  # a writable copy of the blob view
         if self.device.type == "cuda":
             # pinned staging: the copy runs asynchronously on the current
             # stream, which orders it before any kernel that reads the batch
             tokens = tokens.pin_memory().to(self.device, non_blocking=True)
-        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if self.mesh is None:
+            return batch
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.sharding import placements_for
+
+        placements = placements_for((self.batch_axes, None), self.mesh)
+        n = self._shards * len(host)
+        return {
+            k: DTensor.from_local(v.contiguous(), self.mesh, placements, run_check=False,
+                                  shape=(n, v.shape[1]), stride=(v.shape[1], 1))
+            for k, v in batch.items()
+        }
 
     def __iter__(self):
         host_it = PrefetchIterator(self._host_batches(), depth=self.prefetch)

@@ -3,7 +3,9 @@
 Every entry point that touches a device takes it as an argument: ``"cuda"``
 (the default everywhere) or ``"cpu"``, which a caller must ask for.  A
 CUDA request on a host without a usable card raises instead of quietly
-running on the CPU.  Nothing here runs at import time.
+running on the CPU.  ``"meta"`` holds shapes and no data: the dry-run
+traces the model on it (``launch.dryrun``), and weights are never drawn
+there.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ DEFAULT_DEVICE = "cuda"
 def resolve(device: str | torch.device | None = None) -> torch.device:
     """``torch.device`` for ``device`` (None means ``"cuda"``).  Raises
     ``RuntimeError`` for a CUDA device when ``torch.cuda.is_available()`` is
-    false, and ``ValueError`` for any type other than cuda or cpu."""
+    false, and ``ValueError`` for any type other than cuda, cpu or meta."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +28,6 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
-    raise ValueError(f"unsupported device {str(dev)!r}: expected 'cuda', 'cuda:N' or 'cpu'")
+    raise ValueError(f"unsupported device {str(dev)!r}: expected 'cuda', 'cuda:N', 'cpu' or 'meta'")

@@ -1,0 +1,162 @@
+"""The model kernels on DTensors: each rank runs the kernel on its own shard.
+
+Attention and the two scans are independent across the batch and across
+heads, so on a mesh each rank can call the kernel wrapper (the CUDA kernel
+on a card, the plain version on the CPU or on meta tensors) on its local
+slice: the SPMD lowering the reference's compiler performs.  ``run`` lays
+every operand out so that the mesh dims sharding the leading operand's
+batch or head dim shard the same role in every operand, replicates the
+rest, calls the wrapper on the local tensors and wraps its outputs back as
+DTensors.  ``on_shards`` puts the four model kernels of a ``ModelKernels``
+bundle behind ``run`` with their dim maps (``models.build`` does so for
+every bundle); plain tensors go straight to the kernel.
+
+A KV cache whose positions are sharded (``cache_seq_long``) runs the
+flash-decoding merge of ``collectives.seq_sharded_decode_attention`` over
+that mesh dim instead of gathering the cache, on CPU and meta tensors: its
+partials are plain PyTorch, as the reference's are.  On card tensors it
+raises, because the ``decode_attention`` kernel does not hand out its
+split-K partials yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import cost_site
+from repro_torch.kernels import _build
+from repro_torch.kernels.ops import ModelKernels
+
+__all__ = ["is_dtensor", "on_shards", "replicated", "run", "write_at"]
+
+
+def is_dtensor(t) -> bool:
+    if type(t) is torch.Tensor:  # the common case, without importing DTensor
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def run(fn, args: tuple, dims: tuple, out_dims: tuple, lead: int = 0, seq_merge=None):
+    """``fn(*local args)`` on every rank's shard.  ``dims[i]`` maps the roles
+    of ``args[i]`` ("batch", "heads", "seq") to its tensor dims, and
+    ``out_dims`` those of each output (one dict per output, a tuple of
+    outputs when ``fn`` returns one).  The mesh dims that shard a role dim
+    of ``args[lead]`` shard that role everywhere.  A mesh dim sharding the
+    "seq" role calls ``seq_merge(mesh, axis name, *local args)`` in place
+    of ``fn``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = args[lead].device_mesh
+    by_dim = {d: role for role, d in dims[lead].items()}
+    roles = [by_dim.get(p.dim) if p.is_shard() else None for p in args[lead].placements]
+
+    def placements(dmap: dict) -> tuple:
+        return tuple(Shard(dmap[r]) if r in dmap else Replicate() for r in roles)
+
+    local = []
+    for a, dmap in zip(args, dims):
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        want = placements(dmap)
+        if tuple(a.placements) != want:
+            a = a.redistribute(mesh, want)
+        local.append(a.to_local())
+    seq_axes = [mesh.mesh_dim_names[i] for i, r in enumerate(roles) if r == "seq"]
+    if len(seq_axes) > 1:
+        raise ValueError(f"positions sharded over more than one mesh axis: {seq_axes}")
+    out = seq_merge(mesh, seq_axes[0], *local) if seq_axes else fn(*local)
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    wrapped = tuple(
+        DTensor.from_local(o, mesh, placements(dmap), run_check=False) for o, dmap in zip(outs, out_dims, strict=True)
+    )
+    return wrapped[0] if single else wrapped
+
+
+def write_at(cache, new, index: int, dim: int) -> None:
+    """``cache``'s position ``index`` along ``dim`` set to ``new`` (the
+    cache's shape without ``dim``), in place, for a DTensor cache: ``new`` is
+    laid out as the cache on its other dims, and only the ranks whose slice
+    of ``dim`` holds ``index`` write, into their local tensor.  A cache
+    sharded along ``dim`` (a long context's positions) is not gathered."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    want = tuple(
+        Replicate() if p.is_shard(dim) else Shard(p.dim - 1) if p.is_shard() and p.dim > dim else p
+        for p in cache.placements
+    )
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    start, size = 0, cache.shape[dim]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(cache.placements):  # nested splits of dim, major to minor in mesh order
+        if p.is_shard(dim):
+            size //= mesh.size(i)
+            start += coord[i] * size
+    if start <= index < start + size:
+        cache.to_local().select(dim, index - start).copy_(new.to_local())
+
+
+def replicated(fn, *args):
+    """``fn(*args)``; when any of ``args`` is a DTensor, every rank runs ``fn``
+    on the whole (replicated) operands and the result is a replicated
+    DTensor: for an op DTensor has no sharding strategy for.  The forward's
+    work is filed under the cost site "replicated"."""
+    lead = next((i for i, a in enumerate(args) if is_dtensor(a)), None)
+    if lead is None:
+        return fn(*args)
+    with cost_site("replicated"):  # work GSPMD would not run: counted apart by the dry-run
+        return run(fn, args, ({},) * len(args), ({},), lead=lead)
+
+
+_Q = {"batch": 0, "heads": 1, "groups": 2}  # (B, KV, G, ...) queries and outputs
+_BH = {"batch": 0, "heads": 2}  # (b, s, h, ...)
+_ST = {"batch": 0, "heads": 1}  # (b, h, ...) states
+# kernel: (each tensor operand's roles, each output's roles, the operand whose layout leads)
+_ROLES = {
+    "flash_attention": ((_Q, _ST, _ST), (_Q,), 0),
+    "decode_attention": ((_Q, dict(_ST, seq=2), dict(_ST, seq=2)), (_Q,), 1),
+    "ssd_scan": ((_BH, _BH, {"heads": 0}, {"batch": 0}, {"batch": 0}), (_BH, _ST), 0),
+    "mlstm_chunk": ((_BH,) * 5, (_BH, _ST, _ST, _ST), 0),
+}
+
+
+def _decode_merge(length):
+    def merge(mesh, axis, q, k, v):  # positions sharded: flash-decoding across ranks
+        if not _build.runs_plain(k):
+            raise NotImplementedError(
+                "decode_attention on card tensors whose positions are sharded needs the kernel's split-K "
+                "partials, which it does not hand out"
+            )
+        return collectives.seq_sharded_decode_attention(mesh, q, k, v, int(length) - 1, seq_axis=axis)
+
+    return merge
+
+
+def _sharded(name: str, fn):
+    dims, out_dims, lead = _ROLES[name]
+    n = len(dims)
+
+    def call(*args, **kwargs):
+        if not is_dtensor(args[lead]):
+            return fn(*args, **kwargs)
+        rest = args[n:]
+        merge = None
+        if name == "decode_attention":
+            merge = _decode_merge(rest[0] if rest else kwargs["length"])
+        return run(lambda *local: fn(*local, *rest, **kwargs), args[:n], dims, out_dims, lead=lead, seq_merge=merge)
+
+    return call
+
+
+def on_shards(kernels: ModelKernels) -> ModelKernels:
+    """``kernels`` with each function run per rank on DTensor operands."""
+    return ModelKernels(**{f.name: _sharded(f.name, getattr(kernels, f.name)) for f in dataclasses.fields(kernels)})

@@ -24,7 +24,17 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "LaunchCounter", "build", "check", "check_tensor", "library", "stream_of"]
+__all__ = [
+    "NVCC_FLAGS",
+    "SOURCES",
+    "LaunchCounter",
+    "build",
+    "check",
+    "check_tensor",
+    "library",
+    "runs_plain",
+    "stream_of",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
@@ -183,6 +193,18 @@ def library() -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
                 _lib = lib
     return _lib
+
+
+def runs_plain(t) -> bool:
+    """True when a wrapper runs its kernel's plain version on ``t``: a CPU
+    tensor, or one that holds shapes and no data (the meta device, or a
+    ``FakeTensor``, as the dry-run traces the model).  Neither is a card,
+    so this is no fallback."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)
 
 
 def stream_of(t) -> int:

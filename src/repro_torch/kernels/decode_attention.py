@@ -79,7 +79,7 @@ def decode_attention(q, k, v, length, block_k: int = 1024):
 
     ``block_k`` keeps the signature of ``repro.kernels.ops.decode_attention``;
     it sizes the TPU kernel's tile and changes nothing here."""
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return decode_attention_plain(q, k, v, length)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, got {q.device}")

@@ -111,7 +111,7 @@ def filter_select_planes(pred_planes, table, scalars, op: str = "gt", kind: str 
     output columns; scalars: ``[n_rows, t_hi bits, t_lo bits]`` on the host.
     Returns (per-tile-compacted (N, D) int32 planes, counts (N // tile,)
     int32) on the inputs' device."""
-    if table.device.type == "cpu":
+    if _build.runs_plain(table):
         return filter_select_planes_plain(pred_planes, table, scalars, op, kind, tile)
     if table.device.type != "cuda":
         raise ValueError(f"filter_select_planes runs on cuda or cpu, got {table.device}")

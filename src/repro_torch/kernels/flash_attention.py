@@ -99,7 +99,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: i
     ``repro.kernels.ops.flash_attention``; they size the TPU kernel's tiles
     and change nothing here (the CUDA kernel's tiles are 128 × 64 in
     bfloat16, 64 × 32 in float32)."""
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return flash_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")

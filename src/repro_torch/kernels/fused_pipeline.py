@@ -199,7 +199,7 @@ def fused_chain_tiles(scalars, pred, gidx, pass_tbl, limb_tbl, mmf, mmi, af, ai,
     survivor counts, and per-group limb sums ``[passthrough | in-kernel
     csums]``, counts, min/max extremes, and the minimum surviving row index
     (``2^31-1`` for groups with no survivors)."""
-    if pass_tbl.device.type == "cpu":
+    if _build.runs_plain(pass_tbl):
         return fused_chain_tiles_plain(
             scalars, pred, gidx, pass_tbl, limb_tbl, mmf, mmi, af, ai, op=op, kind=kind, descrs_f=descrs_f,
             descrs_i=descrs_i, csums=csums, fns_f=fns_f, fns_i=fns_i, with_gidx=with_gidx, segmented=segmented,

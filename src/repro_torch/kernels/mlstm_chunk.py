@@ -121,7 +121,7 @@ def _check(q, k, v, log_i, log_f, chunk: int) -> None:
 def mlstm_chunk(q, k, v, log_i, log_f, chunk: int = 256):
     """q/k/v (b, s, h, d); log_i/log_f (b, s, h) f32 -> (y (b, s, h, d),
     C (b, h, d, d), n (b, h, d), m (b, h)), all f32."""
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return mlstm_chunk_plain(q, k, v, log_i, log_f, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cuda or cpu, got {q.device}")

@@ -263,7 +263,7 @@ def project_tiles(table, descrs, tile: int = 256):
     tuple of expression descriptors.  Returns (N, len(descrs)) in the table
     dtype on the table's device; padding rows hold the program's value on
     the zero padding (the caller trims to the morsel size)."""
-    if table.device.type == "cpu":
+    if _build.runs_plain(table):
         return project_tiles_plain(table, descrs, tile)
     if table.device.type != "cuda":
         raise ValueError(f"project_tiles runs on cuda or cpu, got {table.device}")

@@ -77,7 +77,7 @@ def segment_sum_tiles(gidx, limbs, n_rows, ngroups: int, tile: int = 256):
     """gidx: (N,) int32 in [0, ngroups); limbs: (N, S) int32 8-bit limb
     planes; rows >= n_rows are padding.  Returns (limb sums (ngroups, S)
     int32, counts (ngroups,) int32) on the inputs' device."""
-    if limbs.device.type == "cpu":
+    if _build.runs_plain(limbs):
         return segment_sum_tiles_plain(gidx, limbs, n_rows, ngroups, tile)
     if limbs.device.type != "cuda":
         raise ValueError(f"segment_sum_tiles runs on cuda or cpu, got {limbs.device}")
@@ -138,7 +138,7 @@ def segment_minmax_tiles(gidx, vals, n_rows, ngroups: int, fns, tile: int = 256)
     fns = tuple(fns)
     if any(fn not in ("min", "max") for fn in fns):
         raise ValueError(f"fns must be 'min' or 'max', got {fns}")
-    if vals.device.type == "cpu":
+    if _build.runs_plain(vals):
         return segment_minmax_tiles_plain(gidx, vals, n_rows, ngroups, fns, tile)
     if vals.device.type != "cuda":
         raise ValueError(f"segment_minmax_tiles runs on cuda or cpu, got {vals.device}")

@@ -97,7 +97,7 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 256):
     prev_states = torch.stack(prev, dim=1)  # (b, c, h, p, n): the state before each chunk
 
     # 4. the state before a chunk, read by each of its rows
-    q = torch.exp(dA_cs).permute(0, 1, 3, 2)  # (b, c, l, h)
+    q = torch.exp(dA_cs).permute(0, 1, 3, 2).contiguous()  # (b, c, l, h)
     y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, prev_states, q)
     y = (y_diag + y_off).reshape(b, s, nh, p)[:, :s_orig]
     return y, S
@@ -133,7 +133,7 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     """x (b, s, h, p); dt (b, s, h) f32; A (h,) f32; B/C (b, s, n), x's type
     -> (y (b, s, h, p) f32, S_final (b, h, p, n) f32)."""
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")

@@ -16,18 +16,42 @@ their plain versions on the card.
 Shapes: x (B, S, D); q (B, S, KV, G, hd); k/v (B, S, KV, hd).  The port's
 KV cache is (layers, B, KV, T, hd), the kernels' layout, where the
 reference's is (layers, B, T, KV, hd) (``models.convert.cache_to_reference``
-maps one to the other).  Decode writes the new k and v into the cache in
-place.
+maps one to the other), so its logical axes (``cache_axes``) are the
+reference's with the T and KV labels swapped.  Decode writes the new k and
+v into the cache in place.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import per_shard
+from repro_torch.distributed.sharding import axis_divides, constrain
 from repro_torch.kernels.ops import KERNELS, PLAIN, ModelKernels
-from repro_torch.models.layers import apply_rope, dense_init, norm_apply, rope_freqs
+from repro_torch.models.layers import (
+    apply_rope,
+    dense_axes,
+    dense_init,
+    flat_rows,
+    flat_weight,
+    merge_heads,
+    norm_apply,
+    rope_freqs,
+    split_heads,
+    unflatten_rows,
+)
 
-__all__ = ["KERNELS", "PLAIN", "ModelKernels", "attn_apply", "attn_decode", "attn_init", "make_cache"]
+__all__ = [
+    "KERNELS",
+    "PLAIN",
+    "ModelKernels",
+    "attn_apply",
+    "attn_axes",
+    "attn_decode",
+    "attn_init",
+    "cache_axes",
+    "make_cache",
+]
 
 
 def attn_init(gen, cfg, dtype) -> dict:
@@ -46,14 +70,30 @@ def attn_init(gen, cfg, dtype) -> dict:
     return params
 
 
+def attn_axes(cfg) -> dict:
+    """The logical axes of ``attn_init``'s parameters."""
+    bias_ax = ("heads", "head_dim") if cfg.qkv_bias else None
+    bias_ax_kv = ("kv_heads", "head_dim") if cfg.qkv_bias else None
+    axes = {
+        "wq": dense_axes(("embed", "heads", "head_dim"), bias_ax),
+        "wk": dense_axes(("embed", "kv_heads", "head_dim"), bias_ax_kv),
+        "wv": dense_axes(("embed", "kv_heads", "head_dim"), bias_ax_kv),
+        "wo": dense_axes(("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        axes["q_norm"] = {"scale": ("head_dim",)}
+        axes["k_norm"] = {"scale": ("head_dim",)}
+    return axes
+
+
 def _project_qkv(params, x, cfg, positions):
     """q (B, S, KV, G, hd), k and v (B, S, KV, hd), all contiguous."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    x2 = x.reshape(b * s, d)
-    q = (x2 @ params["wq"]["w"].to(x.dtype).reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = (x2 @ params["wk"]["w"].to(x.dtype).reshape(d, kv * hd)).reshape(b, s, kv, hd)
-    v = (x2 @ params["wv"]["w"].to(x.dtype).reshape(d, kv * hd)).reshape(b, s, kv, hd)
+    x2 = flat_rows(x)
+    q = unflatten_rows(split_heads(x2 @ flat_weight(params["wq"]["w"].to(x.dtype), (d, h * hd)), h, hd), b, s)
+    k = unflatten_rows(split_heads(x2 @ flat_weight(params["wk"]["w"].to(x.dtype), (d, kv * hd)), kv, hd), b, s)
+    v = unflatten_rows(split_heads(x2 @ flat_weight(params["wv"]["w"].to(x.dtype), (d, kv * hd)), kv, hd), b, s)
     if "b" in params["wq"]:
         q = q + params["wq"]["b"].to(x.dtype)
         k = k + params["wk"]["b"].to(x.dtype)
@@ -65,13 +105,17 @@ def _project_qkv(params, x, cfg, positions):
         inv, rot = rope_freqs(hd, cfg.partial_rotary, cfg.rope_theta, device=x.device)
         q = apply_rope(q, positions, inv, rot)
         k = apply_rope(k, positions, inv, rot)
+    if type(q) is not torch.Tensor:  # on a mesh the heads split into (KV, G) over KV, if the model axis divides it
+        q = constrain(q, ("act_batch", None, "act_heads" if axis_divides("act_heads", kv) else None, None))
     return q.reshape(b, s, kv, h // kv, hd).contiguous(), k.contiguous(), v.contiguous()
 
 
-def _out_proj(params, out, x):
-    """(B, S, H, hd) attention output through wo (H, hd, D)."""
+def _out_proj(params, out, x, kv: int):
+    """(B, S, H, hd) attention output through wo (H, hd, D); ``kv`` is the KV
+    head count H splits back into."""
     b, s, h, hd = out.shape
-    return out.reshape(b, s, h * hd) @ params["wo"]["w"].to(x.dtype).reshape(h * hd, -1)
+    w = params["wo"]["w"]
+    return merge_heads(out, kv) @ flat_weight(w.to(x.dtype), (h * hd, w.shape[-1]))
 
 
 def attn_apply(params, x, cfg, positions=None, causal=True, layer_cache=None, kernels=KERNELS):
@@ -94,7 +138,7 @@ def attn_apply(params, x, cfg, positions=None, causal=True, layer_cache=None, ke
     # output in the same layout, so the permute back is free
     out = kernels.flash_attention(q.permute(0, 2, 3, 1, 4), k_t, v_t, causal=causal)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.n_heads, cfg.head_dim_)
-    return _out_proj(params, out, x)
+    return _out_proj(params, out, x, cfg.n_kv_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +154,17 @@ def make_cache(cfg, batch: int, max_seq: int, n_layers: int, dtype, device) -> d
     }
 
 
+def cache_axes(long_context: bool = False) -> dict:
+    """The logical axes of ``make_cache``'s tensors: (layers, B, KV, T, hd),
+    T sharded over ``cache_seq_long`` for a long context."""
+    seq_ax = "cache_seq_long" if long_context else None
+    return {
+        "k": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
+        "v": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
+        "index": (),
+    }
+
+
 def attn_decode(params, x, cfg, layer_k, layer_v, index: int, kernels=KERNELS):
     """One-token decode: x (B, 1, D); layer_k / layer_v (B, KV, T, hd) of the
     port's cache.  Writes the token's k and v at ``index`` (in place), then
@@ -119,8 +174,12 @@ def attn_decode(params, x, cfg, layer_k, layer_v, index: int, kernels=KERNELS):
     b = x.shape[0]
     positions = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
-    layer_k[:, :, index] = k_new[:, 0].to(layer_k.dtype)
-    layer_v[:, :, index] = v_new[:, 0].to(layer_v.dtype)
+    if per_shard.is_dtensor(layer_k):  # on a mesh: the rank holding the position writes it
+        per_shard.write_at(layer_k, k_new[:, 0].to(layer_k.dtype), index, 2)
+        per_shard.write_at(layer_v, v_new[:, 0].to(layer_v.dtype), index, 2)
+    else:
+        layer_k[:, :, index] = k_new[:, 0].to(layer_k.dtype)
+        layer_v[:, :, index] = v_new[:, 0].to(layer_v.dtype)
     out = kernels.decode_attention(q[:, 0], layer_k, layer_v, index + 1)  # (B, KV, G, hd)
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
-    return _out_proj(params, out, x), layer_k, layer_v
+    return _out_proj(params, out, x, cfg.n_kv_heads), layer_k, layer_v

@@ -23,7 +23,9 @@ step's cross-attention ``decode_attention`` with ``length = enc_seq``.
 Cache: {k, v (layers, B, KV, T, hd), cross_k, cross_v (layers, B, KV,
 enc_seq, hd), index}; the reference's is (layers, B, T, KV, hd)
 (``models.convert.cache_to_reference``).  ``k`` and ``v`` are updated in
-place.
+place.  ``param_axes`` and ``decode_cache_axes`` give the logical axes of
+the parameters and the cache (T and KV swapped for the port's layout);
+activations are constrained at the reference's sites.
 """
 
 from __future__ import annotations
@@ -31,22 +33,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.distributed.sharding import constrain, shard_tree
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Dtypes,
     embed_tokens,
+    embedding_axes,
     embedding_init,
+    flat_rows,
+    flat_weight,
     logits_apply,
     mlp_apply,
+    mlp_axes,
     mlp_init,
     norm_apply,
+    norm_axes,
     norm_init,
     normal,
+    split_heads,
+    unflatten_rows,
 )
-from repro_torch.models.lm import cross_entropy, weights_device
+from repro_torch.models.lm import ACT_AXES, LOGIT_AXES, cross_entropy, weights_device
 
-__all__ = ["DEC_POSITIONS", "decode_step", "encode", "forward", "init", "loss_fn", "make_decode_cache", "prefill"]
+__all__ = [
+    "DEC_POSITIONS",
+    "decode_cache_axes",
+    "decode_step",
+    "encode",
+    "forward",
+    "init",
+    "loss_fn",
+    "make_decode_cache",
+    "param_axes",
+    "prefill",
+]
 
 DEC_POSITIONS = 33024  # the reference's decoder position table: decode_32k (32768) + train_4k
 
@@ -88,12 +109,45 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     }
 
 
+def param_axes(cfg) -> dict:
+    """The logical-axes tree of ``init(cfg, ...)``'s parameters, leaf for
+    leaf the reference's ``init`` axes."""
+
+    def mlp():
+        return mlp_axes(cfg.glu, bias=cfg.mlp_bias)
+
+    return {
+        "embed": embedding_axes(),
+        "enc_pos": (None, "embed"),
+        "dec_pos": (None, "embed"),
+        "enc_final_norm": norm_axes(cfg.norm),
+        "final_norm": norm_axes(cfg.norm),
+        "encoder": [
+            {"ln1": norm_axes(cfg.norm), "attn": attn.attn_axes(cfg), "ln2": norm_axes(cfg.norm), "mlp": mlp()}
+            for _ in range(cfg.encoder_layers)
+        ],
+        "decoder": [
+            {
+                "ln1": norm_axes(cfg.norm),
+                "self_attn": attn.attn_axes(cfg),
+                "ln_x": norm_axes(cfg.norm),
+                "cross_attn": attn.attn_axes(cfg),
+                "ln2": norm_axes(cfg.norm),
+                "mlp": mlp(),
+            }
+            for _ in range(cfg.n_layers)
+        ],
+    }
+
+
 def encode(params, frames, cfg, kernels=ops.KERNELS):
     """frames (B, enc_seq, d) stub embeddings -> encoder memory."""
-    x = frames + params["enc_pos"][None, : frames.shape[1]].to(frames.dtype)
+    x = constrain(frames + params["enc_pos"][None, : frames.shape[1]].to(frames.dtype), ACT_AXES)
     for lp in params["encoder"]:
         x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, causal=False, kernels=kernels)
+        x = constrain(x, ACT_AXES)
         x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+        x = constrain(x, ACT_AXES)
     return norm_apply(params["enc_final_norm"], x, cfg.norm)
 
 
@@ -102,9 +156,9 @@ def _memory_kv(params, memory, cfg) -> tuple:
     views."""
     b, t, d = memory.shape
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    m2 = memory.reshape(b * t, d)
-    k = (m2 @ params["wk"]["w"].to(memory.dtype).reshape(d, kv * hd)).reshape(b, t, kv, hd)
-    v = (m2 @ params["wv"]["w"].to(memory.dtype).reshape(d, kv * hd)).reshape(b, t, kv, hd)
+    m2 = flat_rows(memory)
+    k = unflatten_rows(split_heads(m2 @ flat_weight(params["wk"]["w"].to(memory.dtype), (d, kv * hd)), kv, hd), b, t)
+    v = unflatten_rows(split_heads(m2 @ flat_weight(params["wv"]["w"].to(memory.dtype), (d, kv * hd)), kv, hd), b, t)
     if "b" in params["wk"]:
         k = k + params["wk"]["b"].to(memory.dtype)
         v = v + params["wv"]["b"].to(memory.dtype)
@@ -115,7 +169,7 @@ def _cross_q(params, x, cfg):
     """The cross-attention's queries of x (B, S, d): (B, S, KV, G, hd)."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x.reshape(b * s, d) @ params["wq"]["w"].to(x.dtype).reshape(d, h * hd)).reshape(b, s, h, hd)
+    q = unflatten_rows(split_heads(flat_rows(x) @ flat_weight(params["wq"]["w"].to(x.dtype), (d, h * hd)), h, hd), b, s)
     if "b" in params["wq"]:
         q = q + params["wq"]["b"].to(x.dtype)
     return q.reshape(b, s, kv, h // kv, hd).contiguous()
@@ -127,7 +181,8 @@ def _cross_attn(params, x, mem_k, mem_v, cfg, kernels):
     b, s, _ = x.shape
     q = _cross_q(params, x, cfg)
     out = kernels.flash_attention(q.permute(0, 2, 3, 1, 4), mem_k, mem_v, causal=False)
-    return attn._out_proj(params, out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.n_heads, cfg.head_dim_), x)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    return attn._out_proj(params, out, x, cfg.n_kv_heads)
 
 
 def _decoder_stack(params, x, cfg, kernels, memory=None, cache=None):
@@ -135,17 +190,24 @@ def _decoder_stack(params, x, cfg, kernels, memory=None, cache=None):
     the memory's k and v from ``cache`` (a fresh decode cache whose cross_k
     and cross_v are filled, and whose k and v the layers write), else
     projects ``memory``."""
+    # not a reference site: on a mesh the embedded tokens plus the position
+    # table are laid out over the batch (value and gradient) before the
+    # first layer, or the lookup's backward gets a gradient it cannot flatten
+    x = constrain(x, ACT_AXES)
     for li, lp in enumerate(params["decoder"]):
         layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
         x = x + attn.attn_apply(
             lp["self_attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels
         )
+        x = constrain(x, ACT_AXES)
         if cache is None:
             mem_k, mem_v = _memory_kv(lp["cross_attn"], memory, cfg)
         else:
             mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
         x = x + _cross_attn(lp["cross_attn"], norm_apply(lp["ln_x"], x, cfg.norm), mem_k, mem_v, cfg, kernels)
+        x = constrain(x, ACT_AXES)
         x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+        x = constrain(x, ACT_AXES)
     return x
 
 
@@ -163,7 +225,7 @@ def forward(params, batch, cfg, kernels=ops.KERNELS):
     dt = Dtypes.from_cfg(cfg)
     memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
     x = _decoder_stack(params, _embed(params, batch["tokens"], 0, dt.act), cfg, kernels, memory=memory)
-    return _head(params, x, cfg), 0.0
+    return constrain(_head(params, x, cfg), LOGIT_AXES), 0.0
 
 
 def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
@@ -183,6 +245,17 @@ def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict
     return cache
 
 
+def decode_cache_axes(cfg, long_context: bool = False) -> dict:
+    seq_ax = "cache_seq_long" if long_context else None
+    return {
+        "k": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
+        "v": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
+        "cross_k": ("layers", "cache_batch", "kv_heads", None, "head_dim"),
+        "cross_v": ("layers", "cache_batch", "kv_heads", None, "head_dim"),
+        "index": (),
+    }
+
+
 def prefill(params, batch, cfg, max_seq: int, kernels=ops.KERNELS):
     """Encode the frames, run the whole prompt and build the decode cache
     (the memory's k and v per layer included); returns the last position's
@@ -193,7 +266,7 @@ def prefill(params, batch, cfg, max_seq: int, kernels=ops.KERNELS):
         raise ValueError(f"prompt of {s} tokens does not fit max_seq {max_seq}")
     dt = Dtypes.from_cfg(cfg)
     memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
-    cache = make_decode_cache(cfg, b, max_seq, dt.act, tokens.device)
+    cache = shard_tree(make_decode_cache(cfg, b, max_seq, dt.act, tokens.device), decode_cache_axes(cfg))
     for li, lp in enumerate(params["decoder"]):
         mem_k, mem_v = _memory_kv(lp["cross_attn"], memory, cfg)
         cache["cross_k"][li].copy_(mem_k)
@@ -208,7 +281,7 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
     on); the cache's k and v are updated in place."""
     dt = Dtypes.from_cfg(cfg)
     idx = int(cache["index"])
-    x = _embed(params, token, idx, dt.act)
+    x = constrain(_embed(params, token, idx, dt.act), ACT_AXES)  # as lm.decode_step's
     b = x.shape[0]
     for li, lp in enumerate(params["decoder"]):
         h, _, _ = attn.attn_decode(
@@ -219,6 +292,6 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
         q = _cross_q(xp, norm_apply(lp["ln_x"], x, cfg.norm), cfg)
         mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
         out = kernels.decode_attention(q[:, 0], mem_k, mem_v, mem_k.shape[2])  # (B, KV, G, hd)
-        x = x + attn._out_proj(xp, out.reshape(b, 1, cfg.n_heads, cfg.head_dim_), x)
+        x = x + attn._out_proj(xp, out.reshape(b, 1, cfg.n_heads, cfg.head_dim_), x, cfg.n_kv_heads)
         x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
     return _head(params, x, cfg), dict(cache, index=idx + 1)

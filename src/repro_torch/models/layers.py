@@ -4,8 +4,10 @@
 Parameters are nested dicts of tensors with the reference's names and
 shapes — ``wq["w"]`` is (d, h, hd), ``embed["table"]`` is (V, d) — so the
 reference's weights carry over by name (``models.convert``).  The
-reference's logical sharding axes have no counterpart on one card: the
-``*_init`` functions return the parameters alone.  Weights are drawn from
+``*_init`` functions return the parameters alone; the reference's logical
+sharding axes of the same tree come from the ``*_axes`` functions beside
+them (``repro_torch.distributed.sharding`` maps them onto a mesh).
+Weights are drawn from
 an explicit ``torch.Generator`` with the reference's standard deviations
 (its ``jax.random`` bits cannot be reproduced, so tests convert weights).
 """
@@ -18,24 +20,35 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import axis_divides, constrain, current_mesh, layout_grad, sharding_for
+
 __all__ = [
     "ACT",
     "Dtypes",
     "apply_rope",
     "causal_conv_silu",
     "dense_apply",
+    "dense_axes",
     "dense_init",
     "embed_tokens",
+    "embedding_axes",
     "embedding_init",
+    "flat_rows",
+    "flat_weight",
     "logits_apply",
+    "merge_heads",
     "mlp_apply",
+    "mlp_axes",
     "mlp_init",
     "norm_apply",
+    "norm_axes",
     "norm_init",
     "normal",
     "rope_freqs",
     "softplus",
+    "split_heads",
     "torch_dtype",
+    "unflatten_rows",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -104,6 +117,82 @@ def dense_init(gen, shape, axes, dtype, bias_axis=None, scale=None) -> dict:
     return params
 
 
+def dense_axes(axes, bias_axis=None) -> dict:
+    """The logical axes of ``dense_init``'s parameters."""
+    ax = {"w": tuple(axes)}
+    if bias_axis is not None:
+        ax["b"] = tuple(a for a in axes if a in bias_axis)
+    return ax
+
+
+class _FlatWeight(torch.autograd.Function):
+    """A DTensor weight viewed as 2-D, whose gradient is laid out whole
+    along the flat dim before it is viewed back (DTensor cannot split a
+    sharded dim over a head count its mesh axis does not divide)."""
+
+    @staticmethod
+    def forward(ctx, w, shape):
+        ctx.w_shape, ctx.flat = w.shape, shape
+        return w.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        split = 1 if ctx.w_shape[0] == ctx.flat[0] else 0  # the flat dim: (d, n·hd) or (n·hd, d)
+        placements = [Replicate() if p.is_shard(split) else p for p in g.placements]
+        return g.redistribute(g.device_mesh, placements).reshape(ctx.w_shape), None
+
+
+def flat_weight(w, shape):
+    """``w.reshape(shape)``; for a DTensor the gradient is taken back through
+    ``_FlatWeight`` so that it can be viewed as ``w`` again."""
+    if type(w) is torch.Tensor:
+        return w.reshape(shape)
+    return _FlatWeight.apply(w, tuple(shape))
+
+
+def merge_heads(y, n: int):
+    """y (..., h, hd) as (..., h·hd).  On a mesh the gradient comes back laid
+    out as ``n`` allows, sharded over the heads' mesh axis only when it
+    divides n (the head count the gradient is split back over: KV for
+    grouped attention), and over the batch axes on the leading dim."""
+    flat = y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1])
+    mesh = current_mesh()
+    if mesh is None or type(y) is torch.Tensor:
+        return flat
+    axes = ("act_batch",) + (None,) * (flat.dim() - 2) + ("act_heads" if axis_divides("act_heads", n) else None,)
+    return layout_grad(flat, sharding_for(axes, flat.shape))
+
+
+def flat_rows(x):
+    """x (B, S, D) as (B·S, D).  On a mesh the rows are first laid out over
+    the batch axes alone (a sharded dim flattens only as the outer one)."""
+    b, s, d = x.shape
+    return constrain(x, ("act_batch", None, None)).reshape(b * s, d)
+
+
+def unflatten_rows(y, b: int, s: int):
+    """y (B·S, ...) as (B, S, ...).  On a mesh its gradient comes back laid
+    out as the value is, which the backward's flatten can take (DTensor
+    may otherwise hand it back sharded over S)."""
+    out = y.reshape(b, s, *y.shape[1:])
+    if type(out) is torch.Tensor:
+        return out
+    return layout_grad(out, out.placements)
+
+
+def split_heads(y, n: int, hd: int):
+    """y (..., n·hd) as (..., n, hd).  On a mesh the flat dim is first laid
+    out as the head count allows, sharded over the heads' mesh axis only
+    when it divides n (a sharded dim splits only over its outer part), and
+    the leading dim over the batch axes."""
+    if type(y) is not torch.Tensor:  # a DTensor; a plain tensor (the card's path) splits as it is
+        lead = ("act_batch",) + (None,) * (y.dim() - 2)
+        y = constrain(y, lead + ("act_heads" if axis_divides("act_heads", n) else None,))
+    return y.reshape(*y.shape[:-1], n, hd)
+
+
 def dense_apply(params, x, contract: str):
     """einsum-style apply.  ``contract`` like 'bsd,dh->bsh'."""
     y = torch.einsum(contract, x, params["w"].to(x.dtype))
@@ -119,6 +208,12 @@ def norm_init(d: int, kind: str, dtype, device) -> dict:
     if kind == "rmsnorm":
         return {"scale": torch.ones((d,), dtype=dtype, device=device)}
     return {"scale": torch.ones((d,), dtype=dtype, device=device), "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def norm_axes(kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def norm_apply(params, x, kind: str, eps: float = 1e-6):
@@ -141,9 +236,17 @@ def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
     return {"table": normal(gen, (vocab, d), d**-0.5, dtype)}
 
 
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
 def embed_tokens(params, tokens, act_dtype):
-    # gather, then cast: the rows the reference takes from the cast table
-    return F.embedding(tokens, params["table"]).to(act_dtype)
+    # gather, then cast: the rows the reference takes from the cast table.
+    # On a mesh the lookup reads a vocab-whole table (not a reference site):
+    # DTensor's vocab-sharded lookup leaves masked partial sums whose
+    # gradient it cannot take back
+    table = constrain(params["table"], (None, "embed"), site="embed_whole")
+    return F.embedding(tokens, table).to(act_dtype)
 
 
 def logits_apply(emb_params, x, real_vocab: int):
@@ -166,6 +269,14 @@ def mlp_init(gen, d: int, d_ff: int, glu: bool, dtype, bias: bool = False) -> di
         gen, (d_ff, d), ("ffn", "embed"), dtype, bias_axis=("embed",) if bias else None, scale=d_ff**-0.5
     )
     return params
+
+
+def mlp_axes(glu: bool, bias: bool = False) -> dict:
+    axes = {"up": dense_axes(("embed", "ffn"), ("ffn",) if bias else None)}
+    if glu:
+        axes["gate"] = dense_axes(("embed", "ffn"))
+    axes["down"] = dense_axes(("ffn", "embed"), ("embed",) if bias else None)
+    return axes
 
 
 def mlp_apply(params, x, act: str, glu: bool):

@@ -15,8 +15,16 @@ against their plain versions on the card): attention runs
 ``mlstm_chunk``.  In a MoE configuration every ``moe_every``-th ``attn``
 layer takes ``models.moe`` in place of its MLP; ``forward`` returns the
 sum of those layers' load-balancing losses as ``aux`` (0.0 without MoE
-layers).  There is no sharding or ZeRO-3 gather: they have no meaning on
-one card in eager PyTorch.
+layers).
+
+Sharding: ``param_axes(cfg)`` is the logical-axes tree of ``init``'s
+parameters and ``decode_cache_axes`` that of the decode cache (the
+reference's, with the KV cache's T and KV labels swapped for the port's
+layout).  The activations are constrained at the reference's sites
+(``distributed.sharding.constrain``: its input itself outside a mesh), and
+with ``cfg.zero3_gather`` each ``attn`` block re-lays its weights out
+TP-only at use (``_gather_weights``), the reference's ZeRO-3
+unshard-at-use.
 
 Training: ``loss_fn`` is the mean token cross-entropy (``cross_entropy``,
 ``cfg.loss_impl`` ``logp`` or ``lse``) plus ``router_aux_weight`` times
@@ -44,6 +52,8 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import device as device_mod
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -52,24 +62,32 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     Dtypes,
     embed_tokens,
+    embedding_axes,
     embedding_init,
     logits_apply,
     mlp_apply,
+    mlp_axes,
     mlp_init,
     norm_apply,
+    norm_axes,
     norm_init,
 )
 
 __all__ = [
     "check_supported",
     "cross_entropy",
+    "decode_cache_axes",
     "decode_step",
     "forward",
     "init",
     "loss_fn",
     "make_decode_cache",
+    "param_axes",
     "prefill",
 ]
+
+ACT_AXES = ("act_batch", None, None)
+LOGIT_AXES = ("act_batch", None, "act_vocab")
 
 
 def check_supported(cfg) -> None:
@@ -92,6 +110,8 @@ def weights_device(generator: torch.Generator, device=None) -> torch.device:
     """``device`` resolved (the card unless the caller asks for the CPU);
     raises ``ValueError`` unless it is the generator's device."""
     dev = device_mod.resolve(device)
+    if dev.type == "meta":
+        raise ValueError("unsupported device 'meta' for weights: they are drawn on cuda or cpu")
     if generator.device.type != dev.type or (dev.index is not None and (generator.device.index or 0) != dev.index):
         raise ValueError(f"generator is on {generator.device}, weights asked for on {dev}")
     return dev
@@ -136,6 +156,70 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     return params
 
 
+def param_axes(cfg) -> dict:
+    """The logical-axes tree of ``init(cfg, ...)``'s parameters, leaf for
+    leaf the reference's ``init`` axes."""
+    check_supported(cfg)
+    axes: dict = {"embed": embedding_axes()}
+    if not cfg.tie_embeddings:
+        axes["embed_out"] = embedding_axes()
+    axes["final_norm"] = norm_axes(cfg.norm)
+    layers = []
+    for li in range(cfg.n_layers):
+        ln = norm_axes(cfg.norm)
+        if cfg.block_pattern == "attn":
+            la = {"ln1": ln, "attn": attn.attn_axes(cfg), "ln2": norm_axes(cfg.norm)}
+            if _is_moe_layer(cfg, li):
+                la["moe"] = moe_mod.moe_axes(cfg)
+            else:
+                la["mlp"] = mlp_axes(cfg.glu, bias=cfg.mlp_bias)
+            layers.append(la)
+        elif cfg.block_pattern == "zamba2":
+            layers.append({"ln": ln, "mamba": ssm_mod.mamba_axes(cfg)})
+        elif xl.is_slstm(cfg, li):
+            layers.append({"ln": ln, "slstm": xl.slstm_axes(cfg)})
+        else:
+            layers.append({"ln": ln, "mlstm": xl.mlstm_axes(cfg)})
+    axes["layers"] = layers
+    if cfg.block_pattern == "zamba2":
+        axes["shared_attn"] = {
+            "ln_a": norm_axes(cfg.norm),
+            "attn": attn.attn_axes(cfg),
+            "ln_m": norm_axes(cfg.norm),
+            "mlp": mlp_axes(cfg.glu),
+        }
+    return axes
+
+
+def _gather_weights(tree, axes_tree):
+    """Explicit ZeRO-3 unshard-at-use: every DTensor weight of ``tree``
+    redistributed to its TP-only layout ('model' axes kept, 'data' / 'pod'
+    dropped), so each use all-gathers a weight instead of reducing
+    activation-sized partial sums over the FSDP axis.  ``tree`` itself
+    outside a mesh."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return tree
+    tp_rules = {}
+    for k, v in sharding.DEFAULT_RULES.items():
+        axes = (v,) if isinstance(v, str) else tuple(v)
+        tp_rules[k] = tuple(a for a in axes if a == "model")
+
+    def one(ax, p):
+        if ax is None or not hasattr(p, "placements"):
+            return p
+        placements = sharding.placements_for(sharding.pspec_for(ax, p.shape, mesh, tp_rules), mesh)
+        return p if tuple(p.placements) == placements else p.redistribute(p.device_mesh, placements)
+
+    return sharding.map_with_axes(one, axes_tree, tree)
+
+
+def _maybe_gather(cfg, subtree, axes_subtree):
+    if not cfg.zero3_gather or axes_subtree is None:
+        return subtree
+    return _gather_weights(subtree, axes_subtree)
+
+
 # ---------------------------------------------------------------------------
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
@@ -146,10 +230,12 @@ def _ffn(lp, x, cfg) -> tuple:
     return mlp_apply(lp["mlp"], x, cfg.act, cfg.glu), 0.0
 
 
-def _block(lp, x, cfg, kernels, layer_cache=None) -> tuple:
+def _block(lp, x, cfg, kernels, layer_cache=None, lp_axes=None) -> tuple:
+    lp = _maybe_gather(cfg, lp, lp_axes)
     x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
+    x = constrain(x, ACT_AXES)
     y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)
-    return x + y, aux
+    return constrain(x + y, ACT_AXES), aux
 
 
 def _mamba_block(lp, x, cfg, kernels, return_state: bool = False):
@@ -161,7 +247,8 @@ def _shared_block(sp, x, cfg, kernels, layer_cache=None):
     """zamba2's shared attention + MLP block, after every ``attn_every``-th
     Mamba block; its weights are shared by every application."""
     x = x + attn.attn_apply(sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
-    return x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu)
+    x = constrain(x, ACT_AXES)
+    return constrain(x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu), ACT_AXES)
 
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
@@ -188,7 +275,7 @@ def _remat_wrap(cfg, fn):
 def _head(params, x, cfg):
     x = norm_apply(params["final_norm"], x, cfg.norm)
     emb = params["embed_out"] if not cfg.tie_embeddings else params["embed"]
-    return logits_apply(emb, x, cfg.vocab_size)
+    return constrain(logits_apply(emb, x, cfg.vocab_size), LOGIT_AXES)
 
 
 def _body(params, x, cfg, kernels, cache=None) -> tuple:
@@ -196,12 +283,15 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
     With ``cache`` (a fresh decode cache) the layers write their decode
     state into it."""
     aux_total = 0.0
+    x = constrain(x, ACT_AXES)
     if cfg.block_pattern == "attn":
+        gather_axes = param_axes(cfg)["layers"] if cfg.zero3_gather else [None] * cfg.n_layers
         for li, lp in enumerate(params["layers"]):
             if cache is None:
-                x, aux = _remat_wrap(cfg, functools.partial(_block, lp, cfg=cfg, kernels=kernels))(x)
+                block = functools.partial(_block, lp, cfg=cfg, kernels=kernels, lp_axes=gather_axes[li])
+                x, aux = _remat_wrap(cfg, block)(x)
             else:
-                x, aux = _block(lp, x, cfg, kernels, (cache["k"][li], cache["v"][li]))
+                x, aux = _block(lp, x, cfg, kernels, (cache["k"][li], cache["v"][li]), gather_axes[li])
             aux_total = aux_total + aux
     elif cfg.block_pattern == "zamba2":
         ai = 0
@@ -212,7 +302,7 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
                 y, st = _mamba_block(lp, x, cfg, kernels, return_state=True)
                 for name, t in st.items():
                     cache["ssm"][name][li].copy_(t)
-            x = x + y
+            x = constrain(x + y, ACT_AXES)
             if (li + 1) % cfg.attn_every == 0:
                 layer_cache = None if cache is None else (cache["kv"]["k"][ai], cache["kv"]["v"][ai])
                 x = _shared_block(params["shared_attn"], x, cfg, kernels, layer_cache)
@@ -226,7 +316,7 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
                 y = xl.mlstm_apply(lp["mlstm"], h, cfg, return_state=cache is not None, kernels=kernels)
             if cache is not None:
                 y, cache["xlstm"][li] = y
-            x = x + y
+            x = constrain(x + y, ACT_AXES)
     return x, aux_total
 
 
@@ -271,6 +361,17 @@ def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict
     return {"xlstm": xl.make_xlstm_cache(cfg, batch, dtype, dev), "index": 0}
 
 
+def decode_cache_axes(cfg, long_context: bool = False):
+    """The logical axes of ``make_decode_cache``'s tree; a long context
+    shards the KV cache's T over ``cache_seq_long``."""
+    check_supported(cfg)
+    if cfg.block_pattern == "attn":
+        return attn.cache_axes(long_context)
+    if cfg.block_pattern == "zamba2":
+        return {"ssm": ssm_mod.ssm_cache_axes(), "kv": attn.cache_axes(long_context)}
+    return {"xlstm": xl.xlstm_cache_axes(cfg), "index": ()}
+
+
 def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):
     """Run the whole prompt, build the decode cache, return the last
     position's logits (B, 1, V).  Only the last position goes through the
@@ -280,7 +381,7 @@ def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit max_seq {max_seq}")
     dt = Dtypes.from_cfg(cfg)
-    cache = make_decode_cache(cfg, b, max_seq, dt.act, tokens.device)
+    cache = sharding.shard_tree(make_decode_cache(cfg, b, max_seq, dt.act, tokens.device), decode_cache_axes(cfg))
     x, _ = _body(params, embed_tokens(params["embed"], tokens, dt.act), cfg, kernels, cache)
     if cfg.block_pattern == "zamba2":
         cache["kv"]["index"] = s
@@ -293,7 +394,9 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
     """token: (B, 1) int.  Returns (logits (B, 1, V), the cache one position
     on); the ``attn`` and ``zamba2`` caches' tensors are updated in place."""
     check_supported(cfg)
-    x = embed_tokens(params["embed"], token, Dtypes.from_cfg(cfg).act)
+    # not a reference site: on a mesh the vocab-sharded lookup's partial sums
+    # must reduce before the first norm, which DTensor cannot do in place
+    x = constrain(embed_tokens(params["embed"], token, Dtypes.from_cfg(cfg).act), ACT_AXES)
     if cfg.block_pattern == "attn":
         idx = int(cache["index"])
         for li, lp in enumerate(params["layers"]):

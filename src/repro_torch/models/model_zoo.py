@@ -9,10 +9,15 @@ block patterns, and the encoder-decoder (the port of
     loss, metrics = api.loss_fn(params, batch)
     last, cache   = api.prefill(params, batch, max_seq)
     logits, cache = api.decode_step(params, token, cache)
+    axes          = api.param_axes()            # the reference's init axes
+    cache_axes    = api.decode_cache_axes(long)
 
 ``batch`` is {tokens (B, S)}, and for an encoder-decoder also {frames (B,
-enc_seq, d)}; ``loss_fn`` also takes {labels (B, S)}.  ``input_specs`` and
-``input_axes`` come with the dry-run (ROADMAP Queue 1 item 12).
+enc_seq, d)}; ``loss_fn`` also takes {labels (B, S)}.
+
+``input_specs(cfg, shape)`` gives meta-device stand-ins for every input of
+the step lowered at a shape (no allocation), and ``input_axes`` their
+logical axes: the dry-run's inputs.
 """
 
 from __future__ import annotations
@@ -20,11 +25,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed import per_shard
 from repro_torch.kernels import ops
 from repro_torch.models import encdec, lm
+from repro_torch.models.layers import torch_dtype
+from repro_torch.tree import tree_map
 
-__all__ = ["ModelApi", "build"]
+__all__ = ["ModelApi", "build", "input_axes", "input_specs", "meta_like"]
 
 
 @dataclass(frozen=True)
@@ -36,12 +46,15 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     make_decode_cache: Callable
+    param_axes: Callable
+    decode_cache_axes: Callable
 
 
 def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
     """The model's functions bound to ``cfg``; ``kernels`` picks the kernel
     functions (``ops.PLAIN`` holds the kernels against their plain versions
-    on the card)."""
+    on the card), each run per rank on DTensor operands."""
+    kernels = per_shard.on_shards(kernels)
     if cfg.is_encdec:
         return ModelApi(
             cfg=cfg,
@@ -51,6 +64,8 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
             prefill=lambda p, batch, max_seq: encdec.prefill(p, batch, cfg, max_seq, kernels),
             decode_step=lambda p, tok, cache: encdec.decode_step(p, tok, cache, cfg, kernels),
             make_decode_cache=lambda b, m, dt, device=None: encdec.make_decode_cache(cfg, b, m, dt, device),
+            param_axes=lambda: encdec.param_axes(cfg),
+            decode_cache_axes=lambda long=False: encdec.decode_cache_axes(cfg, long),
         )
     lm.check_supported(cfg)
     return ModelApi(
@@ -61,4 +76,54 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
         prefill=lambda p, batch, max_seq: lm.prefill(p, batch["tokens"], cfg, max_seq, kernels),
         decode_step=lambda p, tok, cache: lm.decode_step(p, tok, cache, cfg, kernels),
         make_decode_cache=lambda b, m, dt, device=None: lm.make_decode_cache(cfg, b, m, dt, device),
+        param_axes=lambda: lm.param_axes(cfg),
+        decode_cache_axes=lambda long=False: lm.decode_cache_axes(cfg, long),
     )
+
+
+def meta_like(tree):
+    """Every tensor of ``tree`` as an empty tensor of its shape and dtype on
+    the meta device; other leaves (the cache's int index) as they are."""
+    return tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta") if isinstance(t, torch.Tensor) else t, tree
+    )
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, act_dtype=None) -> dict:
+    """Meta-device stand-ins for the inputs of the step lowered at this
+    shape: {tokens, labels} (train), {tokens} (prefill), and {frames} for an
+    encoder-decoder; {token, cache} (decode).  Nothing is allocated: the
+    decode cache is built under ``FakeTensorMode`` and carried to meta."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    act = torch_dtype(act_dtype or cfg.dtype)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _meta((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, s), torch.int32)
+        if cfg.is_encdec:
+            specs["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), act)
+        return specs
+    if shape.kind == "decode":
+        with FakeTensorMode():
+            cache = build(cfg).make_decode_cache(b, s, act, "cpu")
+        return {"token": _meta((b, 1), torch.int32), "cache": meta_like(cache)}
+    raise ValueError(shape.kind)
+
+
+def input_axes(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Logical axes matching ``input_specs``."""
+    if shape.kind in ("train", "prefill"):
+        ax = {"tokens": ("act_batch", None)}
+        if shape.kind == "train":
+            ax["labels"] = ("act_batch", None)
+        if cfg.is_encdec:
+            ax["frames"] = ("act_batch", None, None)
+        return ax
+    long = shape.seq_len > 100_000
+    return {"token": ("act_batch", None), "cache": build(cfg).decode_cache_axes(long)}

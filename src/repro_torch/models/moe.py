@@ -13,6 +13,12 @@ Top-k takes ties toward the lower expert index, as ``jax.lax.top_k`` does
 (``torch.topk`` does not promise an order among ties).  Router logits are
 computed in x's type, the softmax and the gate renormalisation in float32,
 and the gate weights are cast to x's type only at the combine.
+
+Under a mesh (``distributed.sharding.use_mesh``) the dispatch buffers and
+expert outputs are constrained at the reference's sites; the port's
+buffers are (experts, batch rows, capacity, d), so their logical axes are
+the reference's with the first two swapped.  Outside a mesh ``constrain``
+returns its input.
 """
 
 from __future__ import annotations
@@ -20,9 +26,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ACT, dense_init, mlp_apply, mlp_init, normal
+from repro_torch.distributed import per_shard
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.layers import ACT, dense_axes, dense_init, mlp_apply, mlp_axes, mlp_init, normal
 
-__all__ = ["moe_apply", "moe_apply_einsum", "moe_apply_scatter", "moe_init", "route", "scatter_capacity", "slot_positions"]
+__all__ = [
+    "moe_apply",
+    "moe_apply_einsum",
+    "moe_apply_scatter",
+    "moe_axes",
+    "moe_init",
+    "route",
+    "scatter_capacity",
+    "slot_positions",
+]
+
+BUF_AXES = ("act_experts", "act_batch", None, None)
 
 
 def moe_init(gen, cfg, dtype) -> dict:
@@ -40,6 +59,19 @@ def moe_init(gen, cfg, dtype) -> dict:
     if m.n_shared_experts:
         params["shared"] = mlp_init(gen, d, f * m.n_shared_experts, True, dtype)
     return params
+
+
+def moe_axes(cfg) -> dict:
+    """The logical axes of ``moe_init``'s parameters."""
+    axes = {
+        "router": dense_axes(("embed", "experts")),
+        "up": {"w": ("experts", "embed", "ffn")},
+        "gate": {"w": ("experts", "embed", "ffn")},
+        "down": {"w": ("experts", "ffn", "embed")},
+    }
+    if cfg.moe.n_shared_experts:
+        axes["shared"] = mlp_axes(True)
+    return axes
 
 
 def moe_apply(params, x, cfg, act: str):
@@ -109,10 +141,15 @@ def moe_apply_scatter(params, x, cfg, act: str):
     rows = torch.arange(b, device=x.device)[:, None]
     slot = ((flat_i * b + rows) * cap + torch.where(keep, pos, cap - 1)).reshape(-1)
     contrib = x.repeat_interleave(k, dim=1).masked_fill(~keep[..., None], 0).reshape(-1, d)
-    buf = torch.zeros((e * b * cap, d), dtype=x.dtype, device=x.device).index_add_(0, slot, contrib)
+    # on a mesh every rank scatters and gathers the flat rows whole (DTensor
+    # has no sharding strategy for index_add_); the buffer and the experts'
+    # outputs are laid out at the reference's sites
+    buf = per_shard.replicated(lambda sl, c: c.new_zeros((e * b * cap, d)).index_add_(0, sl, c), slot, contrib)
+    buf = constrain(buf.view(e, b, cap, d), BUF_AXES)
 
-    out = _experts(params, buf.view(e, b * cap, d), act).view(-1, d)
-    back = out.index_select(0, slot).view(b, s * k, d).masked_fill(~keep[..., None], 0)
+    out = constrain(_experts(params, buf.view(e, b * cap, d), act).view(e, b, cap, d), BUF_AXES)
+    back = per_shard.replicated(lambda o, sl: o.reshape(-1, d).index_select(0, sl), out, slot)
+    back = back.view(b, s * k, d).masked_fill(~keep[..., None], 0)
     y = (back.view(b, s, k, d) * gate_w[..., None].to(x.dtype)).sum(dim=2)
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x, act, True)
@@ -132,18 +169,20 @@ def moe_apply_einsum(params, x, cfg, act: str):
     G = tokens // g
     cap = max(1, int((g * k / e) * m.capacity_factor + 0.9999))
 
-    xg = x.reshape(G, g, d)
+    xg = constrain(x.reshape(G, g, d), ("act_batch", None, None))
     probs, gate_w, gate_i = route(params, xg, cfg)
     aux = _aux_loss(probs, gate_i, e)
     _, pos, keep = slot_positions(gate_i, e, cap)
     oh = F.one_hot(gate_i, e).float()  # (G, g, k, e)
     # a dropped slot's position one-hot is all zeros, as jax.nn.one_hot(cap, cap)
     pos_oh = F.one_hot(torch.where(keep, pos, cap).view(G, g, k), cap + 1)[..., :cap].float()
-    disp = torch.einsum("Ggke,Ggkc->Ggec", oh, pos_oh).to(x.dtype)
-    comb = torch.einsum("Ggke,Ggkc,Ggk->Ggec", oh, pos_oh, gate_w).to(x.dtype)
+    disp = constrain(torch.einsum("Ggke,Ggkc->Ggec", oh, pos_oh).to(x.dtype), ("act_batch", None, "act_experts", None))
+    comb = constrain(
+        torch.einsum("Ggke,Ggkc,Ggk->Ggec", oh, pos_oh, gate_w).to(x.dtype), ("act_batch", None, "act_experts", None)
+    )
 
-    buf = torch.einsum("Ggec,Ggd->eGcd", disp, xg).reshape(e, G * cap, d)
-    out = _experts(params, buf, act).view(e, G, cap, d)
+    buf = constrain(torch.einsum("Ggec,Ggd->eGcd", disp, xg), BUF_AXES)
+    out = constrain(_experts(params, buf.reshape(e, G * cap, d), act).view(e, G, cap, d), BUF_AXES)
     y = torch.einsum("Ggec,eGcd->Ggd", comb, out).reshape(b, s, d)
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x, act, True)

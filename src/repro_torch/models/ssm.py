@@ -18,10 +18,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv_silu, dense_init, norm_apply, normal, softplus
+from repro_torch.models.layers import (
+    causal_conv_silu,
+    dense_axes,
+    dense_init,
+    merge_heads,
+    norm_apply,
+    normal,
+    softplus,
+    split_heads,
+)
 
-__all__ = ["make_ssm_cache", "mamba_apply", "mamba_decode", "mamba_init"]
+__all__ = ["make_ssm_cache", "mamba_apply", "mamba_axes", "mamba_decode", "mamba_init", "ssm_cache_axes"]
+
+_PROJ_AXES = [
+    ("wz", ("embed", "ssm_in")),
+    ("wx", ("embed", "ssm_in")),
+    ("wB", ("embed", "state")),
+    ("wC", ("embed", "state")),
+    ("wdt", ("embed", "ssm_heads")),
+]
 
 
 def mamba_init(gen, cfg, dtype) -> dict:
@@ -32,14 +50,8 @@ def mamba_init(gen, cfg, dtype) -> dict:
     n = s.d_state
     dev = gen.device
     params = {}
-    for name, shape, ax in [
-        ("wz", (d, d_in), ("embed", "ssm_in")),
-        ("wx", (d, d_in), ("embed", "ssm_in")),
-        ("wB", (d, n), ("embed", "state")),
-        ("wC", (d, n), ("embed", "state")),
-        ("wdt", (d, nh), ("embed", "ssm_heads")),
-    ]:
-        params[name] = dense_init(gen, shape, ax, dtype)
+    for (name, ax), cols in zip(_PROJ_AXES, (d_in, d_in, n, n, nh)):
+        params[name] = dense_init(gen, (d, cols), ax, dtype)
     params["conv_x"] = normal(gen, (s.conv_kernel, d_in), 0.1, dtype)
     params["conv_B"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
     params["conv_C"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
@@ -51,13 +63,29 @@ def mamba_init(gen, cfg, dtype) -> dict:
     return params
 
 
+def mamba_axes(cfg) -> dict:
+    """The logical axes of ``mamba_init``'s parameters."""
+    axes = {name: dense_axes(ax) for name, ax in _PROJ_AXES}
+    axes.update(
+        conv_x=("conv_k", "ssm_in"),
+        conv_B=("conv_k", "state"),
+        conv_C=("conv_k", "state"),
+        A_log=("ssm_heads",),
+        D=("ssm_heads",),
+        dt_bias=("ssm_heads",),
+        norm={"scale": ("ssm_in",)},
+        out=dense_axes(("ssm_in", "embed")),
+    )
+    return axes
+
+
 def _in_proj(params, x):
     """The five input projections: z, x, B, C (x's type) and dt_raw."""
     return tuple(x @ params[name]["w"].to(x.dtype) for name in ("wz", "wx", "wB", "wC", "wdt"))
 
 
 def _out(params, y, z, x_dtype, shape):
-    y = y.reshape(shape).to(x_dtype)
+    y = merge_heads(y, y.shape[-2]).reshape(shape).to(x_dtype)
     y = y * F.silu(z)
     y = norm_apply(params["norm"], y, "rmsnorm")
     return y @ params["out"]["w"].to(x_dtype)
@@ -74,9 +102,10 @@ def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     xr, conv_x_state = causal_conv_silu(xr, params["conv_x"])
     Bm, conv_B_state = causal_conv_silu(Bm, params["conv_B"])
     Cm, conv_C_state = causal_conv_silu(Cm, params["conv_C"])
+    xr = constrain(xr, ("act_batch", None, "act_ffn"))
     dt = softplus(dt_raw.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"])
-    xh = xr.reshape(b, s, nh, s_cfg.head_dim)
+    xh = split_heads(xr, nh, s_cfg.head_dim)
     y, S_final = kernels.ssd_scan(xh, dt, A, Bm, Cm, s_cfg.chunk)
     y = y + params["D"][None, None, :, None] * xh.float()
     out = _out(params, y, z, x.dtype, (b, s, d_in))
@@ -98,6 +127,15 @@ def make_ssm_cache(cfg, batch: int, n_layers: int, dtype, device) -> dict:
         "conv_x": torch.zeros((n_layers, batch, k - 1, d_in), dtype=dtype, device=device),
         "conv_B": torch.zeros((n_layers, batch, k - 1, s.d_state), dtype=dtype, device=device),
         "conv_C": torch.zeros((n_layers, batch, k - 1, s.d_state), dtype=dtype, device=device),
+    }
+
+
+def ssm_cache_axes() -> dict:
+    return {
+        "ssm": ("layers", "cache_batch", "ssm_heads", None, None),
+        "conv_x": ("layers", "cache_batch", None, "ssm_in"),
+        "conv_B": ("layers", "cache_batch", None, "state"),
+        "conv_C": ("layers", "cache_batch", None, "state"),
     }
 
 

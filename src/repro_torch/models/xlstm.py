@@ -20,19 +20,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import per_shard
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv_silu, dense_init, norm_apply, normal, softplus
+from repro_torch.models.layers import (
+    causal_conv_silu,
+    dense_axes,
+    dense_init,
+    merge_heads,
+    norm_apply,
+    normal,
+    softplus,
+    split_heads,
+)
 
 __all__ = [
     "MLSTM_CHUNK",
     "is_slstm",
     "make_xlstm_cache",
     "mlstm_apply",
+    "mlstm_axes",
     "mlstm_decode",
     "mlstm_init",
     "slstm_apply",
+    "slstm_axes",
     "slstm_decode",
     "slstm_init",
+    "xlstm_cache_axes",
 ]
 
 MLSTM_CHUNK = 256  # the TPU kernel's default chunk; the CUDA kernel's largest
@@ -41,24 +54,35 @@ MLSTM_CHUNK = 256  # the TPU kernel's default chunk; the CUDA kernel's largest
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
+_MLSTM_AXES = [
+    ("up", ("embed", "ssm_in")),
+    ("gate", ("embed", "ssm_in")),
+    ("wq", ("ssm_in", None)),
+    ("wk", ("ssm_in", None)),
+    ("wv", ("ssm_in", None)),
+    ("wif", ("ssm_in", None)),
+    ("down", ("ssm_in", "embed")),
+]
+
+
 def mlstm_init(gen, cfg, dtype) -> dict:
     d = cfg.d_model
     d_in = 2 * d  # projection factor 2
     nh = cfg.n_heads
     params = {}
-    for name, shape, ax in [
-        ("up", (d, d_in), ("embed", "ssm_in")),
-        ("gate", (d, d_in), ("embed", "ssm_in")),
-        ("wq", (d_in, d_in), ("ssm_in", None)),
-        ("wk", (d_in, d_in), ("ssm_in", None)),
-        ("wv", (d_in, d_in), ("ssm_in", None)),
-        ("wif", (d_in, 2 * nh), ("ssm_in", None)),
-        ("down", (d_in, d), ("ssm_in", "embed")),
-    ]:
+    shapes = [(d, d_in), (d, d_in), (d_in, d_in), (d_in, d_in), (d_in, d_in), (d_in, 2 * nh), (d_in, d)]
+    for (name, ax), shape in zip(_MLSTM_AXES, shapes):
         params[name] = dense_init(gen, shape, ax, dtype, scale=shape[0] ** -0.5)
     params["conv"] = normal(gen, (4, d_in), 0.1, dtype)
     params["norm"] = {"scale": torch.ones((d_in,), dtype=dtype, device=gen.device)}
     return params
+
+
+def mlstm_axes(cfg) -> dict:
+    """The logical axes of ``mlstm_init``'s parameters."""
+    axes = {name: dense_axes(ax) for name, ax in _MLSTM_AXES}
+    axes.update(conv=("conv_k", "ssm_in"), norm={"scale": ("ssm_in",)})
+    return axes
 
 
 def _log_sigmoid(x):
@@ -73,16 +97,15 @@ def _mlstm_in(params, x, nh, conv_state=None):
     g = x @ params["gate"]["w"].to(x.dtype)
     hd = u.shape[-1] // nh
     c, conv_state = causal_conv_silu(u, params["conv"], conv_state)
-    q = (c @ params["wq"]["w"].to(x.dtype)).reshape(b, s, nh, hd)
-    k = (c @ params["wk"]["w"].to(x.dtype)).reshape(b, s, nh, hd)
-    v = (u @ params["wv"]["w"].to(x.dtype)).reshape(b, s, nh, hd)
+    q = split_heads(c @ params["wq"]["w"].to(x.dtype), nh, hd)
+    k = split_heads(c @ params["wk"]["w"].to(x.dtype), nh, hd)
+    v = split_heads(u @ params["wv"]["w"].to(x.dtype), nh, hd)
     gates = (c @ params["wif"]["w"].to(x.dtype)).float()
     return q, k, v, gates[..., :nh].contiguous(), _log_sigmoid(gates[..., nh:]).contiguous(), g, conv_state
 
 
 def _mlstm_out(params, h, g, x_dtype):
-    b, s = h.shape[:2]
-    y = h.reshape(b, s, -1).to(x_dtype)
+    y = merge_heads(h, h.shape[2]).to(x_dtype)
     y = norm_apply(params["norm"], y, "rmsnorm")
     y = y * F.silu(g)
     return y @ params["down"]["w"].to(x_dtype)
@@ -139,6 +162,20 @@ def slstm_init(gen, cfg, dtype) -> dict:
     return params
 
 
+def slstm_axes(cfg) -> dict:
+    """The logical axes of ``slstm_init``'s parameters."""
+    axes = {name: dense_axes(("embed", None)) for name in ("wz", "wi", "wf", "wo")}
+    axes.update({name: {"w": (None, "head_dim", "head_dim")} for name in ("rz", "ri", "rf")})
+    axes.update(
+        conv=("conv_k", "embed"),
+        norm={"scale": ("embed",)},
+        ffn_up=dense_axes(("embed", "ffn")),
+        ffn_gate=dense_axes(("embed", "ffn")),
+        ffn_down=dense_axes(("ffn", "embed")),
+    )
+    return axes
+
+
 def _slstm_cell_scan(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
     """z/i/f/o inputs (B, S, D), the input part of each pre-activation; the
     recurrent part is added step by step.  Returns (h (B, S, D) f32, final
@@ -157,7 +194,7 @@ def _slstm_cell_scan(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
     o = torch.sigmoid(o_in.float())  # depends on the input alone
 
     def rec(h, r):  # block-diagonal recurrent product, (B, D) -> (B, D)
-        return torch.einsum("bnk,nkl->bnl", h.reshape(b, nh, hd), r).reshape(b, d)
+        return merge_heads(torch.einsum("bnk,nkl->bnl", split_heads(h, nh, hd), r), nh)
 
     hs = []
     for t in range(s):
@@ -175,6 +212,26 @@ def _slstm_cell_scan(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
     return torch.stack(hs, dim=1), {"h": h, "c": c, "n": n, "m": m}
 
 
+_CELL = ("h", "c", "n", "m")
+
+
+def _slstm_scan_per_shard(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
+    """``_slstm_cell_scan`` on DTensors: the recurrence mixes no batch rows,
+    so each rank scans its own rows on local tensors (``per_shard.run``)
+    instead of running every step's ops through DTensor."""
+    st = [] if state is None else [state[k] for k in _CELL]
+
+    def scan(z, i, f, o, rz, ri, rf, *s):
+        weights = {"rz": {"w": rz}, "ri": {"w": ri}, "rf": {"w": rf}}
+        hs, cell = _slstm_cell_scan(z, i, f, o, weights, nh, hd, dict(zip(_CELL, s)) if s else None)
+        return (hs, *(cell[k] for k in _CELL))
+
+    b = {"batch": 0}
+    args = (z_in, i_in, f_in, o_in, params["rz"]["w"], params["ri"]["w"], params["rf"]["w"], *st)
+    out = per_shard.run(scan, args, (b,) * 4 + ({},) * 3 + (b,) * len(st), (b,) * 5)
+    return out[0], dict(zip(_CELL, out[1:]))
+
+
 def slstm_apply(params, x, cfg, return_state: bool = False, state=None):
     """sLSTM block.  x (B, S, D) -> (B, S, D); ``state`` {cell, conv}
     continues from a decode state."""
@@ -185,7 +242,8 @@ def slstm_apply(params, x, cfg, return_state: bool = False, state=None):
     o_in = x @ params["wo"]["w"].to(x.dtype)
     i_in = cx @ params["wi"]["w"].to(x.dtype)
     f_in = cx @ params["wf"]["w"].to(x.dtype)
-    h, cell = _slstm_cell_scan(z_in, i_in, f_in, o_in, params, nh, hd, None if state is None else state["cell"])
+    scan = _slstm_scan_per_shard if per_shard.is_dtensor(z_in) else _slstm_cell_scan
+    h, cell = scan(z_in, i_in, f_in, o_in, params, nh, hd, None if state is None else state["cell"])
     h = norm_apply(params["norm"], h.to(x.dtype), "rmsnorm")
     up = h @ params["ffn_up"]["w"].to(x.dtype)
     gate = h @ params["ffn_gate"]["w"].to(x.dtype)
@@ -229,3 +287,22 @@ def make_xlstm_cache(cfg, batch: int, dtype, device) -> list:
                 }
             )
     return caches
+
+
+def xlstm_cache_axes(cfg) -> list:
+    """The logical axes of ``make_xlstm_cache``'s states, layer by layer."""
+
+    def ax(li: int):
+        if is_slstm(cfg, li):
+            return {
+                "cell": {k: ("cache_batch", None) for k in ("h", "c", "n", "m")},
+                "conv": ("cache_batch", None, None),
+            }
+        return {
+            "C": ("cache_batch", None, None, None),
+            "n": ("cache_batch", None, None),
+            "m": ("cache_batch", None),
+            "conv": ("cache_batch", None, "ssm_in"),
+        }
+
+    return [ax(li) for li in range(cfg.n_layers)]

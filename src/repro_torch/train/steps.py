@@ -32,7 +32,8 @@ def make_train_state(cfg, optim_cfg: AdamWConfig, generator: torch.Generator, co
                      device=None) -> dict:
     """Random weights from ``generator`` on ``device`` (the generator's),
     zero AdamW state and, with ``compress``, a zero error buffer.  The
-    port's ``init`` returns no logical axes: see ``opt_axes``."""
+    port's ``init`` returns the parameters alone; their logical axes are
+    ``build(cfg).param_axes()``, the state's ``opt_axes`` of those."""
     params = build(cfg).init(generator, device)
     state = {"params": params, "opt": adamw_init(params)}
     if compress:
@@ -42,8 +43,8 @@ def make_train_state(cfg, optim_cfg: AdamWConfig, generator: torch.Generator, co
 
 def opt_axes(param_axes, compress: bool = False):
     """The train state's logical-axes tree from the parameters' (the
-    reference's); nothing in the port shards by it yet (ROADMAP Queue 1
-    item 11)."""
+    reference's); the dry-run lays the state out on its mesh by it
+    (``launch.dryrun``)."""
     ax = {"params": param_axes, "opt": {"m": param_axes, "v": param_axes, "step": ()}}
     if compress:
         ax["err"] = param_axes

@@ -12,6 +12,8 @@ CUDA kernels themselves are checked on the card (``test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
 
+import functools
+import types
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,13 +165,20 @@ def test_decode_split_plan_at_the_serving_shape():
 
 @pytest.mark.parametrize("fn", ["flash_attention", "decode_attention"])
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu(fn):
+    """A device other than cuda or cpu raises; meta tensors hold shapes
+    alone (the dry-run's), so they take the plain version's shapes."""
     q = torch.zeros((1, 1, 1, 4, 32), device="meta")
     k = torch.zeros((1, 1, 4, 32), device="meta")
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    if fn == "flash_attention":
+        assert ops.flash_attention(q, k, k).shape == q.shape
+        assert ops.flash_attention(q, k, k).device.type == "meta"
+        call = functools.partial(ops.flash_attention, other, k, k)
+    else:
+        assert ops.decode_attention(q[:, :, :, 0], k, k, 2).shape == q[:, :, :, 0].shape
+        call = functools.partial(ops.decode_attention, other, k, k, 2)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        if fn == "flash_attention":
-            ops.flash_attention(q, k, k)
-        else:
-            ops.decode_attention(q[:, :, :, 0], k, k, 2)
+        call()
 
 
 def test_launch_counters_are_registered_and_cpu_calls_do_not_count():

@@ -15,14 +15,20 @@ import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED_DIRS = ("core", "transport", "server", "client", "configs", "data")
+COPIED_FILES = ("distributed/elastic.py",)  # framework-neutral modules outside those directories
 PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py"}
 PORT_ONLY = {"client/torch_adapter.py"}
-COPIED = sorted(
+DIR_COPIES = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for p in (SRC / "repro_torch").rglob("*.py")
     if p.parts[len((SRC / "repro_torch").parts)] in COPIED_DIRS
     and str(p.relative_to(SRC / "repro_torch")) not in PORT_ONLY
 )
+COPIED = DIR_COPIES + list(COPIED_FILES)
+# the reference's modules the port has no counterpart of, and the port's own modules
+REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
+PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
+                  "models/convert.py", "distributed/per_shard.py"}
 
 
 def _rewrite(text: str) -> str:
@@ -35,7 +41,21 @@ def test_the_data_plane_is_all_there():
         for d in COPIED_DIRS
         for p in (SRC / "repro" / d).rglob("*.py")
     }
-    assert ref - {"client/jax_adapter.py"} == set(COPIED)
+    assert ref - {"client/jax_adapter.py"} == set(DIR_COPIES)
+
+
+def _modules(package: str) -> set:
+    return {str(p.relative_to(SRC / package)) for p in (SRC / package).rglob("*.py")}
+
+
+def test_the_port_has_a_counterpart_of_every_reference_module():
+    """The two packages' module trees differ only by the reference's
+    ``kernels/ref.py`` (the plain versions beside each kernel do its job) and
+    ``client/jax_adapter.py`` (``client/torch_adapter.py``), and by the port's
+    own additions."""
+    ref, port = _modules("repro"), _modules("repro_torch")
+    assert ref - port == REFERENCE_ONLY
+    assert port - ref == PORT_ADDITIONS
 
 
 @pytest.mark.parametrize("rel", [r for r in COPIED if r not in PORTED])

@@ -1074,3 +1074,124 @@ def test_train_step_kernel_path_matches_plain_path_on_the_card(dev, arch):
         metrics.append(m)
     for key in ("loss", "grad_norm"):
         assert abs(float(metrics[0][key]) - float(metrics[1][key])) <= tol * float(metrics[1][key])
+
+
+# ---------------------------------------------------------------------------
+# the distributed collectives: four gloo ranks on the one card
+# ---------------------------------------------------------------------------
+_DIST_SCRIPT = r"""
+import os, sys
+sys.path.insert(0, sys.argv[3])
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def rank_main(rank, port, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=4)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.collectives import compressed_psum, seq_sharded_decode_attention
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("data",))
+    gq = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 4, 4, 64), generator=gq, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(10 + rank)
+    k = torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16)
+    got = seq_sharded_decode_attention(mesh, q, k, v, 300, seq_axis="data")
+    x = torch.randn((512, 96), generator=g, device=dev, dtype=torch.float32)
+    card = compressed_psum(mesh, x, axis="data")
+    cpu = compressed_psum(mesh, x.cpu(), axis="data")
+    if rank == 0:
+        torch.save({"out": got.float().cpu(), "card": card.cpu(), "cpu": cpu}, out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.start_processes(rank_main, args=(int(sys.argv[1]), sys.argv[2]), nprocs=4, start_method="spawn")
+"""
+
+
+def test_seq_sharded_decode_and_int8_psum_over_four_gloo_ranks_on_the_card(dev, tmp_path):
+    """8a-8b of chip_smoke.py at a small size: the decode sharded over four
+    gloo ranks (CUDA tensors, one card) against one ``decode_attention``
+    launch over the whole cache (bf16 tolerance), and ``compressed_psum`` on
+    card tensors equal bit for bit to the same gloo ranks on CPU tensors."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import ops
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = Path(__file__).resolve().parents[1]
+    script = tmp_path / "ranks.py"
+    script.write_text(_DIST_SCRIPT)
+    out = tmp_path / "out.pt"
+    res = subprocess.run([sys.executable, str(script), str(port), str(out), str(root / "src")], capture_output=True,
+                         text=True, timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = torch.load(out)
+    gq = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 4, 4, 64), generator=gq, device=dev, dtype=torch.bfloat16)
+    ks, vs = [], []
+    for rank in range(4):
+        g = torch.Generator(device=dev).manual_seed(10 + rank)
+        ks.append(torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16))
+        vs.append(torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16))
+    before = ops.LAUNCHES["decode_attention"].value
+    want = ops.decode_attention(q, torch.cat(ks, dim=2), torch.cat(vs, dim=2), 301).float().cpu()
+    assert ops.LAUNCHES["decode_attention"].value == before + 1
+    torch.testing.assert_close(got["out"], want, rtol=2e-2, atol=2e-2)
+    peak = float(want.abs().max())  # and within chip_smoke.py's limit: 4 half ulps of bf16 at the peak
+    assert peak > 0 and float((got["out"] - want).abs().max()) <= 4 * 2.0**-8 * peak
+    assert torch.equal(got["card"].view(torch.int32), got["cpu"].view(torch.int32))
+
+
+def test_decode_on_card_dtensors_launches_the_kernel_or_raises(dev):
+    """The models' decode on card DTensors (``per_shard.on_shards``, world 1):
+    a cache laid out by batch and heads launches ``decode_attention`` on
+    each rank's shard; a cache sharded over its positions raises, because
+    the kernel hands out no split-K partials to merge, and it runs no plain
+    version in its place."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.per_shard import on_shards
+    from repro_torch.kernels import ops
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        g = torch.Generator(device=dev).manual_seed(3)
+        q = torch.randn((2, 4, 4, 64), generator=g, device=dev, dtype=torch.bfloat16)
+        k = torch.randn((2, 4, 128, 64), generator=g, device=dev, dtype=torch.bfloat16)
+        v = torch.randn((2, 4, 128, 64), generator=g, device=dev, dtype=torch.bfloat16)
+        decode = on_shards(ops.KERNELS).decode_attention
+        with torch.no_grad():
+            want = ops.decode_attention(q, k, v, 100)
+            before = ops.LAUNCHES["decode_attention"].value
+            got = decode(q, DTensor.from_local(k, mesh, (Shard(0),)), DTensor.from_local(v, mesh, (Shard(0),)), 100)
+            assert ops.LAUNCHES["decode_attention"].value == before + 1
+            assert torch.equal(got.to_local(), want)
+            kd, vd = DTensor.from_local(k, mesh, (Shard(2),)), DTensor.from_local(v, mesh, (Replicate(),))
+            with pytest.raises(NotImplementedError, match="split-K"):
+                decode(q, kd, vd, 100)
+            assert ops.LAUNCHES["decode_attention"].value == before + 1
+    finally:
+        dist.destroy_process_group()

@@ -77,5 +77,7 @@ def test_the_sweep_covers_every_kernel_and_model_module():
     for mod in ("kernels.flash_attention", "kernels.decode_attention", "kernels.ssd_scan", "kernels.mlstm_chunk",
                 "models.attention", "models.ssm", "models.xlstm", "models.lm", "models.convert", "launch.serve",
                 "kernels.grad", "optim.adamw", "optim.schedule", "optim.accumulate", "optim.grad_compress",
-                "train.steps", "train.loop", "checkpoint.manager", "launch.train", "tree"):
+                "train.steps", "train.loop", "checkpoint.manager", "launch.train", "tree",
+                "distributed.sharding", "distributed.collectives", "distributed.elastic", "distributed.per_shard",
+                "launch.mesh", "launch.dryrun", "roofline.analysis", "roofline.report"):
         assert f"repro_torch.{mod}" in names, mod

@@ -12,6 +12,7 @@ far below the gap between the top two logits on these inputs).
 """
 
 import socket
+import types
 
 import jax
 import jax.numpy as jnp
@@ -178,8 +179,13 @@ def test_serve_launcher_random_prompts(capsys):
 
 
 def test_torch_feed_refuses_a_mesh_and_defaults_to_the_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        TorchFeed(lambda: None, "tokens", 8, 2, mesh=object())
+    """A mesh without the batch axes, or a mesh beside a device, is refused
+    (the feed over a mesh is held in tests/test_torch_distributed.py)."""
+    mesh = types.SimpleNamespace(device_type="cpu", mesh_dim_names=("model",))
+    with pytest.raises(ValueError, match="not axes of the mesh"):
+        TorchFeed(lambda: None, "tokens", 8, 2, mesh=mesh)
+    with pytest.raises(ValueError, match="pass no device"):
+        TorchFeed(lambda: None, "tokens", 8, 2, mesh=mesh, device="cpu")
     if torch.cuda.is_available():
         assert TorchFeed(lambda: None, "tokens", 8, 2).device.type == "cuda"
         return
@@ -218,3 +224,21 @@ def test_serve_decode_torch_example_serves_hybrids(arch):
     )
     assert res.returncode == 0, res.stderr
     assert "request batch: (2, 40) on cpu" in res.stdout and "cache index: 43" in res.stdout
+
+
+def test_train_lm_torch_example_runs_on_the_cpu():
+    """The port's counterpart of examples/train_lm.py trains from a DACP
+    feed on the CPU when asked (the card is its default)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, str(root / "examples" / "train_lm_torch.py"), "--device", "cpu", "--steps", "2", "--seq", "32",
+         "--batch", "4"],
+        capture_output=True, text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="2"),
+    )
+    assert res.returncode == 0, res.stderr
+    assert "on cpu" in res.stdout and "step     1 loss=" in res.stdout and "done; checkpoints in" in res.stdout

@@ -13,6 +13,7 @@ order).  The CUDA kernel is held to the plain version on the card
 (``test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
+import types
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,8 +209,12 @@ def test_ssd_scan_wrapper_refuses_other_devices_and_counts_no_cpu_call():
     arrays = _t(_inputs(np.random.default_rng(1), 1, 8, 2, 32, 16))
     ops.ssd_scan(*arrays, chunk=4)
     assert ops.LAUNCHES["ssd_scan"].value == before
+    meta = ops.ssd_scan(*(a.to("meta") for a in arrays), chunk=4)  # shapes alone: the plain version's
+    assert [t.shape for t in meta] == [t.shape for t in ops.ssd_scan(*arrays, chunk=4)]
+    assert ops.LAUNCHES["ssd_scan"].value == before
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        ops.ssd_scan(*(a.to("meta") for a in arrays))
+        ops.ssd_scan(other, *arrays[1:])
 
 
 # ---------------------------------------------------------------------------

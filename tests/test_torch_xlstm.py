@@ -14,6 +14,7 @@ held to the plain version on the card (``test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
 
+import types
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -188,8 +189,12 @@ def test_mlstm_chunk_wrapper_refuses_other_devices_and_counts_no_cpu_call():
     arrays = _t(_inputs(np.random.default_rng(1), 1, 8, 2, 32))
     ops.mlstm_chunk(*arrays, chunk=4)
     assert ops.LAUNCHES["mlstm_chunk"].value == before
+    meta = ops.mlstm_chunk(*(a.to("meta") for a in arrays), chunk=4)  # shapes alone: the plain version's
+    assert [t.shape for t in meta] == [t.shape for t in ops.mlstm_chunk(*arrays, chunk=4)]
+    assert ops.LAUNCHES["mlstm_chunk"].value == before
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        ops.mlstm_chunk(*(a.to("meta") for a in arrays))
+        ops.mlstm_chunk(other, *arrays[1:])
 
 
 # ---------------------------------------------------------------------------
