@@ -41,6 +41,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      per case.  All nine kernels print their design and the fraction of
      their bound they reach, and the multi-kernel wrappers (min/max, fused,
      SSD, mLSTM) each kernel's device time by name;
+     ``decode_attention_partials`` (the decode kernel's partial m, l, acc)
+     is held to its plain version at phase 8e's rank shape (B 1, KV 32,
+     G 1, 131072 positions, hd 64, bf16; whole and rank 3's ragged 106781),
+     in float32, at G 17 over 16 splits and at length 0, and timed at the
+     rank shape beside its bound, its plain version and
+     ``_scaled_dot_product_efficient_attention`` with its log-sum-exp;
      ``segment_minmax_tiles`` also its device events a call (at most two,
      or the run fails), and it, ``filter_select_planes`` and
      ``project_tiles`` their device time at the widest envelope beside its
@@ -131,7 +137,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      7's feed's batches as card DTensors; (d) the dry-run of granite-3-8b
      train_4k and zamba2-1.2b long_500k on the single production mesh (256
      fake ranks, meta tensors: host work) prints its roofline terms with the
-     H100's rates.
+     H100's rates; (e) the same four ranks decode zamba2-1.2b's long_500k at
+     full width (38 Mamba2 blocks, 6 shared-attention sites, KV 32, hd 64,
+     bf16, random weights drawn on the card from a seeded generator,
+     replicated) over a cache of 524288 positions sharded by position
+     (``decode_cache_axes(long_context=True)``, 131072 a rank, K and V 25.8
+     GB whole, seeded slice by slice), 4 teacher-forced steps from index
+     499996 through ``lm.decode_step`` with ``on_shards(KERNELS)``: exactly
+     6 partials launches a step on each rank and no plain partials, each
+     site's output within SEQ_ERR_UNITS half ulps of bf16 of one
+     ``decode_attention`` launch over the whole cache on the same inputs (a
+     planted fault, rank 0's partials replaced by an empty slice's, must
+     fall outside), and each step's logits within phase 5's zamba2 limit of
+     the same 4 steps over the whole cache in the parent (exactly 6
+     ``decode_attention`` launches a step); prints the warm wall ms a step,
+     each rank's partials device ms beside its bound, the bytes each rank
+     all-reduces a site and the peak memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -1173,11 +1194,89 @@ def check_decode(dev, rng) -> KernelRecord:
                 "library_ms": sdpa["library_ms"],
                 "bound_ms": max(_bytes_bound_ms(nbytes), 4 * bb * nk * gg * length * d / BF16_FLOPS * 1e3),
             }
+    rec.extra["partials"] = check_decode_partials(rec, dev, rng)
     rec.extra["design"] = ("mma.sync m16n8k16 bf16 on transposed products (S^T = K Q^T, out^T = V^T P^T), 16-byte "
-                           "cp.async ring, split-K merged within a thread block cluster")
+                           "cp.async ring, split-K merged within a thread block cluster; the partials mode ends the "
+                           "merge before the division by l")
     rec.extra["tensor_core_instructions"] = tensor_core_instructions("decode_attn_tc")
     check(rec.extra["tensor_core_instructions"] > 0, "the bf16 decode kernel's SASS holds no HMMA / HGMMA")
     return rec
+
+
+def check_decode_partials(rec: KernelRecord, dev, rng) -> dict:
+    """``decode_attention_partials`` (the decode kernel whose merge hands out
+    the partial m, l, acc) against its plain version: m within the attention
+    tolerance, l relatively, acc within it at its peak and acc / l as the
+    output, at phase 8e's rank shape (zamba2-1.2b's shared attention, B 1,
+    KV 32, G 1, hd 64, 131072 positions, whole and at rank 3's ragged
+    106781), in float32, at G 17 over 16 splits, and at length 0 (no launch:
+    -1e30, 0, 0).  A disagreement fails ``rec``.  Times the rank shape's
+    launch against its bound, its plain version and the library's attention
+    that also hands out a softmax statistic,
+    ``_scaled_dot_product_efficient_attention`` with its log-sum-exp (G 1:
+    no kv heads to expand).  Returns the readings (max |err| of each
+    component over the cases, times at the rank shape)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_partials, decode_attention_partials_plain
+    from repro_torch.kernels.decode_attention import launches
+
+    t_rank = LONG_T // DIST_RANKS
+    ragged = LONG_INDEX + 1 - (DIST_RANKS - 1) * t_rank
+    cases = [  # (label, B, KV, G, T, length, hd, dtype)
+        ("rank", 1, 32, 1, t_rank, t_rank, 64, torch.bfloat16),
+        ("rank-ragged", 1, 32, 1, t_rank, ragged, 64, torch.bfloat16),
+        ("f32", 2, 2, 4, 1000, 999, 64, torch.float32),
+        ("g17-16splits", 1, 2, 17, 4096, 4000, 128, torch.bfloat16),
+        ("zero", 1, 32, 1, 256, 0, 64, torch.bfloat16),
+    ]
+    out: dict = {"max_abs_err": {"m": 0.0, "l": 0.0, "acc": 0.0, "acc/l": 0.0}, "checks": 0}
+
+    def close(name, got, want, rtol, atol, label):
+        err = (got - want).abs()
+        out["max_abs_err"][name] = max(out["max_abs_err"][name], float(err.max()))
+        out["checks"] += 1
+        if not bool(torch.isfinite(got).all()) or not bool((err <= atol + rtol * want.abs()).all()):
+            rec.agrees = False
+            log(f"MISMATCH decode_attention_partials {label}: {name} max |err| {float(err.max())} beyond atol "
+                f"{atol} + rtol {rtol}")
+
+    for label, bb, nk, gg, t, length, d, dtype in cases:
+        q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d))
+        before = launches.value
+        got = decode_attention_partials(q, k, v, length)
+        torch.cuda.synchronize()
+        launched = launches.value - before
+        check(launched == (length > 0), f"decode_attention_partials {label}: {launched} launches")
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        if length == 0:
+            out["checks"] += 1
+            check(bool((got[0] == -1e30).all()) and not got[1].any() and not got[2].any(),
+                  "decode_attention_partials at length 0 is not (-1e30, 0, 0)")
+            continue
+        m, l, acc = got
+        wm, wl, wacc = decode_attention_partials_plain(q, k, v, length)
+        close("m", m, wm, tol, tol, label)
+        close("l", l, wl, tol, 0.0, label)
+        close("acc", acc, wacc, tol, tol * float(wacc.abs().max()), label)
+        close("acc/l", acc / l, wacc / wl, tol, tol, label)
+        if label == "rank":
+            nbytes = 2 * 2 * bb * nk * length * d + 2 * q.numel() + 4 * (m.numel() + l.numel() + acc.numel())
+            flops = 4 * bb * nk * gg * length * d
+            by_bytes, by_ops = _bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3
+            fn = lambda: decode_attention_partials(q, k, v, length)  # noqa: E731
+            q_heads = q.reshape(bb, nk * gg, 1, d)
+            lse = _sdpa_times(lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q_heads, k, v, None, True))
+            out.update(shape=f"B={bb} KV={nk} G={gg} T={t} length={length} hd={d} bfloat16",
+                       ms=_kernel_device_ms(fn) or _time_ms(fn), call_ms=_time_ms(fn),
+                       plain_ms=_time_ms(lambda: decode_attention_partials_plain(q, k, v, length)),
+                       bound_ms=max(by_bytes, by_ops), bound_by="operations" if by_ops >= by_bytes else "bytes",
+                       bound_bytes=nbytes, library="aten._scaled_dot_product_efficient_attention, log-sum-exp",
+                       library_ms=lse["library_ms"], library_device_ms=lse["library_device_ms"],
+                       library_kernels=lse["library_kernels"])
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
 
 
 SSD_TOL = 2e-4  # tests/test_kernels.py:53, as rtol and atol
@@ -2356,6 +2455,12 @@ SEQ_CASES = (("zamba2 long_500k", 1, 32, 1, 524288, 64, 499_999), ("granite deco
 SEQ_ERR_UNITS = 4
 PSUM_ARCH = "granite-3-8b"  # compressed_psum over its padded_vocab × d_model embedding, float32
 DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("zamba2-1.2b", "long_500k"))
+# 8e: zamba2-1.2b's long_500k decode (ShapeSpec long_500k: 524288 positions, batch 1) at full width over a
+# cache sharded by position, 131072 positions a rank; at index 499996 rank 3 holds 106781 valid positions
+LONG_ARCH = "zamba2-1.2b"
+LONG_T = 524288
+LONG_INDEX = 499_996
+LONG_STEPS = 4
 
 
 def _seq_shard(case: int, rank: int, shape: tuple, dev):
@@ -2375,6 +2480,200 @@ def _seq_query(case: int, shape: tuple, dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 100 * case + 99)
     return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+
+def _long_kv(site: int, rank: int, shape: tuple, dev):
+    """Rank ``rank``'s slice of shared-attention site ``site``'s k and v in
+    8e's cache (bfloat16 from a seeded generator on the card; the whole
+    cache is the ranks' slices in order)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + 10 * site + rank)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    return k, v
+
+
+def _long_tokens(cfg):
+    """8e's teacher-forced tokens: (1, LONG_STEPS) int32, seeded."""
+    return np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, (1, LONG_STEPS)).astype(np.int32)
+
+
+def _recording(kernels, partials_plain: list | None = None):
+    """``kernels`` whose ``decode_attention`` keeps each call's query and
+    output (as float32 on the host), in ``seen``; with ``partials_plain``,
+    the bundle's ``decode_attention_partials`` first, which records whether
+    each call ran the plain version (``runs_plain``) there."""
+    import dataclasses
+
+    from repro_torch.distributed.per_shard import is_dtensor, on_shards
+    from repro_torch.kernels import _build
+
+    if partials_plain is not None:
+        inner = kernels.decode_attention_partials
+
+        def partials(q, k, v, length):
+            partials_plain.append(_build.runs_plain(q))
+            return inner(q, k, v, length)
+
+        kernels = on_shards(dataclasses.replace(kernels, decode_attention_partials=partials))
+    seen: list = []
+    decode = kernels.decode_attention
+
+    def recorded(q, k, v, length):
+        out = decode(q, k, v, length)
+        local = (lambda t: t.to_local() if is_dtensor(t) else t)
+        seen.append((local(q).detach(), local(out).float().cpu()))
+        return out
+
+    return dataclasses.replace(kernels, decode_attention=recorded), seen
+
+
+def _long_decode_rank(rank: int, mesh, dev) -> dict:
+    """8e on one rank: zamba2-1.2b at full width (random bfloat16 weights
+    from a seeded generator, the same on every rank, replicated) decodes
+    LONG_STEPS teacher-forced tokens through ``lm.decode_step`` with
+    ``on_shards(KERNELS)`` over its cache laid out by
+    ``decode_cache_axes(long_context=True)``: this rank's slice of the
+    positions of the six sites' k and v, drawn by ``_long_kv``.  The launch
+    counters are zeroed right before the steps and read right after."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import shard_tree, sharding_for, use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, lm
+    from repro_torch.models.ssm import make_ssm_cache
+
+    cfg = get_config(LONG_ARCH)
+    sites = cfg.n_layers // cfg.attn_every
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    t_local = LONG_T // DIST_RANKS
+    torch.cuda.reset_peak_memory_stats(dev)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    axes = api.decode_cache_axes(True)
+    whole = (sites, 1, kv, LONG_T, hd)
+    with use_mesh(mesh), implicit_replication(), torch.no_grad():
+        placements = sharding_for(axes["kv"]["k"], whole)
+        check(placements == (Shard(3),), f"8e: the long cache is laid out {placements}, not by position")
+        cache_kv = {}
+        for j, name in enumerate(("k", "v")):
+            local = torch.empty((sites, 1, kv, t_local, hd), dtype=torch.bfloat16, device=dev)
+            for site in range(sites):
+                local[site].copy_(_long_kv(site, rank, (1, kv, t_local, hd), dev)[j])
+            stride = torch.empty(whole, device="meta").stride()
+            cache_kv[name] = DTensor.from_local(local, mesh, placements, run_check=False, shape=whole, stride=stride)
+        ssm = shard_tree(make_ssm_cache(cfg, 1, cfg.n_layers, torch.bfloat16, dev), axes["ssm"])
+        cache = {"ssm": ssm, "kv": dict(cache_kv, index=LONG_INDEX)}
+        torch.cuda.synchronize()
+        plain_calls: list = []
+        kernels, seen = _recording(ops.KERNELS, plain_calls)
+        tokens = torch.from_numpy(_long_tokens(cfg)).to(dev)
+        for c in ops.LAUNCHES.values():
+            c.reset()
+        logits, walls = [], []
+        for i in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            step, cache = lm.decode_step(params, tokens[:, i : i + 1], cache, cfg, kernels)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            logits.append((step.to_local() if isinstance(step, DTensor) else step).float().cpu())
+        launches = {name: c.value for name, c in ops.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the rows the steps wrote that this rank holds, for the reference's cache as the ranks saw it
+        start = rank * t_local
+        rows = {p: tuple(cache["kv"][n].to_local()[:, :, :, p - start].cpu() for n in ("k", "v"))
+                for p in range(LONG_INDEX, LONG_INDEX + LONG_STEPS) if start <= p < start + t_local}
+        # a planted fault for the limit: site 0 of step 0 with rank 0's partials replaced by an empty slice's
+        q0 = seen[0][0]
+        k0, v0 = cache["kv"]["k"].to_local()[0], cache["kv"]["v"].to_local()[0]
+
+        def dropped(q, k, v, n):
+            return ops.decode_attention_partials(q, k, v, 0 if rank == 0 else n)
+
+        fault = collectives.seq_sharded_decode_attention(mesh, q0, k0, v0, LONG_INDEX, seq_axis="data",
+                                                         partials=dropped).float().cpu()
+        # each rank's partials launch at its slice, one rank on the card at a time
+        valid = min(max(LONG_INDEX + 1 - rank * t_local, 0), t_local)
+        partial_ms = None
+        for r in range(DIST_RANKS):
+            dist.barrier()
+            if r == rank:
+                partial_ms = _kernel_device_ms(lambda: ops.decode_attention_partials(q0, k0, v0, valid))
+    nbytes = 2 * 2 * kv * valid * hd + 2 * q0.numel() + 4 * kv * (2 + hd)  # k, v below valid; q; m, l, acc
+    return {"logits": torch.stack(logits), "sites": [out for _, out in seen], "queries": [q.cpu() for q, _ in seen],
+            "rows": rows, "fault": fault, "wall_ms": walls,
+            "launches": {k: v for k, v in launches.items() if v}, "partials_ran_plain": sum(plain_calls),
+            "partials_calls": len(plain_calls), "peak_memory_gb": peak / 1e9, "valid": valid,
+            "partials_ms": partial_ms, "partials_bound_ms": _bytes_bound_ms(nbytes),
+            "all_reduce_bytes_per_site": 4 * 1 * kv * (cfg.n_heads // kv) * (2 + hd)}
+
+
+def _long_decode_reference(dev, queries: list, rows: dict) -> dict:
+    """8e's reference: the same weights, tokens and cache, whole, on one
+    process; LONG_STEPS steps through ``lm.decode_step`` with ``KERNELS``
+    (one ``decode_attention`` launch a site a step), the counters zeroed
+    right before the steps and read right after, for the logits.  Then, for
+    each site of each step, one ``decode_attention`` launch over the whole
+    cache on the ranks' inputs: ``queries`` (the ranks' query of each call)
+    over the cache with ``rows`` ({position: (k, v)} the ranks' steps
+    wrote)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, lm
+
+    cfg = get_config(LONG_ARCH)
+    sites = cfg.n_layers // cfg.attn_every
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    t_local = LONG_T // DIST_RANKS
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    cache = lm.make_decode_cache(cfg, 1, LONG_T, torch.bfloat16, dev)
+    for site in range(sites):
+        for r in range(DIST_RANKS):
+            k, v = _long_kv(site, r, (1, kv, t_local, hd), dev)
+            cache["kv"]["k"][site, :, :, r * t_local : (r + 1) * t_local].copy_(k)
+            cache["kv"]["v"][site, :, :, r * t_local : (r + 1) * t_local].copy_(v)
+    cache["kv"]["index"] = LONG_INDEX
+    tokens = torch.from_numpy(_long_tokens(cfg)).to(dev)
+    logits = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        for c in ops.LAUNCHES.values():
+            c.reset()
+        walls = []
+        for i in range(LONG_STEPS):
+            t0 = time.perf_counter()
+            step, cache = lm.decode_step(params, tokens[:, i : i + 1], cache, cfg, ops.KERNELS)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            logits.append(step.float().cpu())
+        launches = {name: c.value for name, c in ops.LAUNCHES.items() if c.value}
+        # each site of each step on the ranks' own inputs: their query, and the cache as they saw it (the
+        # rows their steps wrote; later positions are past the length)
+        for p, (k_row, v_row) in rows.items():
+            cache["kv"]["k"][:, :, :, p].copy_(k_row)
+            cache["kv"]["v"][:, :, :, p].copy_(v_row)
+        same_input = [
+            ops.decode_attention(q.to(dev), cache["kv"]["k"][j % sites], cache["kv"]["v"][j % sites],
+                                 LONG_INDEX + j // sites + 1).float().cpu()
+            for j, q in enumerate(queries)
+        ]
+    peak = torch.cuda.max_memory_allocated(dev)
+    del cache, params
+    torch.cuda.empty_cache()
+    return {"logits": torch.stack(logits), "sites": same_input, "launches": launches, "wall_ms": walls,
+            "peak_memory_gb": peak / 1e9, "vocab": cfg.vocab_size, "sites_per_step": sites,
+            "logit_tol": _logit_tol(cfg.n_layers + sites)}
 
 
 def _dist_rank(rank: int, port: int, out_dir: str) -> None:
@@ -2433,6 +2732,13 @@ def _dist_rank(rank: int, port: int, out_dir: str) -> None:
         out["psum"] = {"shape": list(x.shape), "bytes_per_rank": x.numel() * 4, "card_ms": card_ms,
                        "cpu_ms": cpu_ms, "bit_exact_on_every_rank": bool(flags.item()),
                        "max_abs": float(on_cpu.abs().max())}
+        del x, x_cpu, on_card, on_cpu
+        torch.cuda.empty_cache()
+        long = _long_decode_rank(rank, mesh, dev)  # 8e
+        gathered = [None] * DIST_RANKS
+        dist.all_gather_object(gathered, {k: v for k, v in long.items()
+                                          if k not in ("sites", "queries", "logits", "fault")})
+        out["long"] = dict(long, ranks=gathered)
         if rank == 0:
             torch.save(out, os.path.join(out_dir, "ranks.pt"))
     finally:
@@ -2510,6 +2816,7 @@ def distributed_paths(dev, card: str) -> dict:
         report["seq_sharded_decode"] = seq
         report["compressed_psum"] = ranks["psum"]
         check(ranks["psum"]["bit_exact_on_every_rank"], "compressed_psum on the card differs from the CPU ranks'")
+        report["long_500k_decode"] = _check_long_decode(dev, ranks["long"], card)
         report["torch_feed_mesh"] = _feed_over_mesh(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2527,6 +2834,72 @@ def distributed_paths(dev, card: str) -> dict:
     finally:
         shutil.rmtree(dry_dir, ignore_errors=True)
     report["dryrun"] = cells
+    return report
+
+
+def _check_long_decode(dev, got: dict, card: str) -> dict:
+    """8e's checks, after the ranks exit: the whole-cache reference
+    (``_long_decode_reference``) against rank 0's run.  Every rank launched
+    exactly one partials kernel a site a step and ran no plain version; the
+    reference one ``decode_attention`` a site a step; each site's output of
+    each step within SEQ_ERR_UNITS half ulps of bf16 at the peak of one
+    ``decode_attention`` launch over the whole cache on the same inputs (a
+    planted fault, rank 0's partials replaced by an empty slice's, must fall
+    outside); each step's logits within phase 5's zamba2 limit of the
+    whole-cache run's."""
+    import torch
+
+    torch.cuda.empty_cache()
+    rows = {p: kv for rank in got["ranks"] for p, kv in rank["rows"].items()}
+    check(sorted(rows) == list(range(LONG_INDEX, LONG_INDEX + LONG_STEPS)), f"8e: the ranks wrote rows {sorted(rows)}")
+    want = _long_decode_reference(dev, got["queries"], rows)
+    sites = want["sites_per_step"]
+    check(want["launches"] == {"decode_attention": sites * LONG_STEPS},
+          f"8e: the whole-cache reference made launches {want['launches']}")
+    for r, rank in enumerate(got["ranks"]):
+        check(rank["launches"] == {"decode_attention": sites * LONG_STEPS},
+              f"8e: rank {r} made launches {rank['launches']}, expected {sites * LONG_STEPS} partials launches")
+        check(rank["partials_calls"] == sites * LONG_STEPS and rank["partials_ran_plain"] == 0,
+              f"8e: rank {r} made {rank['partials_calls']} partials calls, {rank['partials_ran_plain']} of them plain")
+    check(len(got["sites"]) == len(want["sites"]) == sites * LONG_STEPS, "8e: site outputs missing")
+    units, worst = [], 0.0
+    for i, (g, w) in enumerate(zip(got["sites"], want["sites"])):
+        unit = 2.0**-8 * float(w.abs().max())  # half an ulp of bf16 at the site output's peak
+        check(unit > 0 and bool(torch.isfinite(g).all()), f"8e: site {i % sites} of step {i // sites} is zero or "
+              "non-finite")
+        units.append(float((g - w).abs().max()) / unit)
+    worst = max(units)
+    unit0 = 2.0**-8 * float(want["sites"][0].abs().max())
+    fault = float((got["fault"] - want["sites"][0]).abs().max()) / unit0
+    log(f"  8e zamba2-1.2b long_500k: site outputs in half ulps of bf16 at the peak: worst {worst:.3f} over "
+        f"{len(units)}, limit {SEQ_ERR_UNITS}; rank 0's partials dropped at site 0 {fault:.3f}")
+    check(worst <= SEQ_ERR_UNITS, f"8e: a site's output differs from the whole-cache launch by {worst} half ulps")
+    check(fault > SEQ_ERR_UNITS, f"8e: the limit passes a merge with rank 0's partials dropped ({fault} half ulps)")
+    errs = [_rel_err(g, w, want["vocab"]) for g, w in zip(got["logits"], want["logits"])]
+    check(all(np.isfinite(errs)) and max(errs) <= want["logit_tol"],
+          f"8e: logits differ from the whole-cache run's by {errs} of max |logit| (limit {want['logit_tol']})")
+    ranks = got["ranks"]
+    report = {
+        "arch": LONG_ARCH, "card": card, "positions": LONG_T, "per_rank": LONG_T // DIST_RANKS,
+        "index": LONG_INDEX, "steps": LONG_STEPS, "valid_per_rank": [r["valid"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks], "reference_launches": want["launches"],
+        "site_err_half_ulps": units, "site_err_limit": SEQ_ERR_UNITS, "fault_half_ulps": fault,
+        "logit_rel_err": errs, "logit_rel_tol": want["logit_tol"],
+        "wall_ms_per_step": ranks[0]["wall_ms"], "warm_wall_ms_per_step": float(np.mean(ranks[0]["wall_ms"][1:])),
+        "reference_wall_ms_per_step": want["wall_ms"],
+        "reference_warm_wall_ms_per_step": float(np.mean(want["wall_ms"][1:])),
+        "partials_ms_per_rank": [r["partials_ms"] for r in ranks],
+        "partials_bound_ms_per_rank": [r["partials_bound_ms"] for r in ranks],
+        "all_reduce_bytes_per_rank_per_site": ranks[0]["all_reduce_bytes_per_site"],
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+        "reference_peak_memory_gb": want["peak_memory_gb"],
+    }
+    log(f"  8e on {card}: warm wall {report['warm_wall_ms_per_step']:.3f} ms a step (whole-cache reference "
+        f"{report['reference_warm_wall_ms_per_step']:.3f}); partials device ms per rank "
+        f"{report['partials_ms_per_rank']} against bounds {report['partials_bound_ms_per_rank']}; "
+        f"{report['all_reduce_bytes_per_rank_per_site']} bytes all-reduced a rank a site; peak GB per rank "
+        f"{report['peak_memory_gb_per_rank']}, reference {report['reference_peak_memory_gb']:.3f}; "
+        f"logits {errs} of max |logit| (limit {want['logit_tol']:.4f})")
     return report
 
 
@@ -2656,6 +3029,11 @@ def main() -> None:
         f"{dec.extra['library_call_device_ms']:.6f}, events {dec.library_ms:.6f}); one set, L2-resident: kernel "
         f"{dec.extra['hot_ms']:.6f}, SDPA {dec.extra['hot_library_device_ms']:.6f}; SDPA kernels "
         f"{dec.extra['library_kernels']}")
+    part = dec.extra["partials"]
+    log(f"decode_attention_partials {part['shape']}: {part['ms']:.6f} ms device (call {part['call_ms']:.6f}) against "
+        f"its bound {part['bound_ms']:.6f} ms by {part['bound_by']}, its plain version {part['plain_ms']:.6f} ms and "
+        f"{part['library']} {part['library_device_ms']:.6f} ms device (events {part['library_ms']:.6f}) on {card}; "
+        f"max |err| against the plain partials {part['max_abs_err']} over {part['checks']} checks")
     mls = records[8]
     log(f"mlstm_chunk device ms: kernels {mls.ms:.6f} {mls.extra['kernels_ms']} (wrapper call "
         f"{mls.extra['call_device_ms']:.6f}) against its plain version {mls.plain_ms:.6f} (events)")
@@ -2713,7 +3091,12 @@ def main() -> None:
     log("train: " + json.dumps(training) + f" on {kind}")
     phase_s["train"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
-    log("distributed: " + json.dumps(distributed_paths(dev, card)) + f" on {kind}")
+    distributed = distributed_paths(dev, card)
+    log("distributed: " + json.dumps(distributed) + f" on {kind}")
+    long = distributed["long_500k_decode"]
+    dec.extra["partials"].update(launches_per_rank_8e=[r["decode_attention"] for r in long["launches_per_rank"]],
+                                 rank_ms_8e=long["partials_ms_per_rank"],
+                                 rank_bound_ms_8e=long["partials_bound_ms_per_rank"])
     phase_s["distributed"] = time.perf_counter() - t_phase
 
     bad = [r.name for r in records if not r.agrees]

@@ -4,9 +4,11 @@
   * ``seq_sharded_decode_attention`` — flash-decoding across ranks: each
     rank of the mesh's ``seq_axis`` holds a slice of a long KV cache,
     computes partial (m, l, acc) over it (``partial_decode_attention``, plain
-    PyTorch as in the reference), and the partials merge with one
-    ``all_reduce(MAX)`` and two ``all_reduce(SUM)`` of O(B·H·hd) bytes
-    instead of gathering a multi-GB cache.
+    PyTorch as in the reference, unless the caller passes another function
+    of that contract, such as the decode kernel's
+    ``kernels.decode_attention.decode_attention_partials``), and the partials
+    merge with one ``all_reduce(MAX)`` and two ``all_reduce(SUM)`` of
+    O(B·H·hd) bytes instead of gathering a multi-GB cache.
   * ``compressed_psum`` — an int8 wire format for a gradient sum over a slow
     axis: int8 payload accumulated in int32, the per-tensor scale merged by
     ``all_reduce(MAX)`` (error feedback is the caller's).
@@ -51,21 +53,22 @@ def partial_decode_attention(q, k, v, valid_len):
     return m, l, acc
 
 
-def seq_sharded_decode_attention(mesh, q, k, v, index, seq_axis: str = "data"):
+def seq_sharded_decode_attention(mesh, q, k, v, index, seq_axis: str = "data", partials=partial_decode_attention):
     """Decode attention with the KV cache sharded over ``seq_axis``.
 
     q (B, KV, G, hd) replicated over ``seq_axis``; k/v (B, KV, T, hd), the
     port's cache layout, each rank holding the contiguous slice of T at its
     coordinate on ``seq_axis``; ``index`` an int or 0-d tensor: attend to
-    global positions ``<= index``.  Returns (B, KV, G, hd) in q's type,
-    the same on every rank."""
+    global positions ``<= index``.  ``partials(q, k, v, valid_len)`` makes
+    each rank's (m, l, acc), as ``partial_decode_attention`` does.  Returns
+    (B, KV, G, hd) in q's type, the same on every rank."""
     q_l, k_l, v_l = _local(q), _local(k), _local(v)
     group = mesh.get_group(seq_axis)
     t_local = k_l.shape[2]
     start = mesh.get_local_rank(seq_axis) * t_local
     # positions valid within this shard: global position < index + 1
     valid = min(max(int(index) + 1 - start, 0), t_local)
-    m, l, acc = partial_decode_attention(q_l, k_l, v_l, valid)
+    m, l, acc = partials(q_l, k_l, v_l, valid)
     m_glob = m.clone()
     dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
     corr = torch.exp(m - m_glob)

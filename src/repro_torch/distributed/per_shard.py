@@ -13,15 +13,13 @@ every bundle); plain tensors go straight to the kernel.
 
 A KV cache whose positions are sharded (``cache_seq_long``) runs the
 flash-decoding merge of ``collectives.seq_sharded_decode_attention`` over
-that mesh dim instead of gathering the cache, on CPU and meta tensors: its
-partials are plain PyTorch, as the reference's are.  On card tensors it
-raises, because the ``decode_attention`` kernel does not hand out its
-split-K partials yet.
+that mesh dim instead of gathering the cache.  On card tensors each rank's
+partial (m, l, acc) comes from the bundle's ``decode_attention_partials``
+(the decode kernel, one launch a rank); on CPU and meta tensors from the
+plain ``collectives.partial_decode_attention``, as the reference's do.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -129,19 +127,15 @@ _ROLES = {
 }
 
 
-def _decode_merge(length):
+def _decode_merge(length, partials):
     def merge(mesh, axis, q, k, v):  # positions sharded: flash-decoding across ranks
-        if not _build.runs_plain(k):
-            raise NotImplementedError(
-                "decode_attention on card tensors whose positions are sharded needs the kernel's split-K "
-                "partials, which it does not hand out"
-            )
-        return collectives.seq_sharded_decode_attention(mesh, q, k, v, int(length) - 1, seq_axis=axis)
+        make = collectives.partial_decode_attention if _build.runs_plain(k) else partials
+        return collectives.seq_sharded_decode_attention(mesh, q, k, v, int(length) - 1, seq_axis=axis, partials=make)
 
     return merge
 
 
-def _sharded(name: str, fn):
+def _sharded(name: str, fn, partials):
     dims, out_dims, lead = _ROLES[name]
     n = len(dims)
 
@@ -151,12 +145,16 @@ def _sharded(name: str, fn):
         rest = args[n:]
         merge = None
         if name == "decode_attention":
-            merge = _decode_merge(rest[0] if rest else kwargs["length"])
+            merge = _decode_merge(rest[0] if rest else kwargs["length"], partials)
         return run(lambda *local: fn(*local, *rest, **kwargs), args[:n], dims, out_dims, lead=lead, seq_merge=merge)
 
     return call
 
 
 def on_shards(kernels: ModelKernels) -> ModelKernels:
-    """``kernels`` with each function run per rank on DTensor operands."""
-    return ModelKernels(**{f.name: _sharded(f.name, getattr(kernels, f.name)) for f in dataclasses.fields(kernels)})
+    """``kernels`` with each model kernel run per rank on DTensor operands;
+    ``decode_attention_partials`` stays as it is and makes the ranks'
+    partials of a decode over a cache sharded by position."""
+    partials = kernels.decode_attention_partials
+    wrapped = {name: _sharded(name, getattr(kernels, name), partials) for name in _ROLES}
+    return ModelKernels(**wrapped, decode_attention_partials=partials)

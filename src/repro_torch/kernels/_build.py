@@ -84,6 +84,8 @@ _SIGNATURES = {
     "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, strides, m, l, acc partials, stream
     "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # q, k, v, m, l, acc, then as dacp_decode_attention from dtype on
+    "dacp_decode_attention_partials": (_P,) * 6 + (_I,) * 9 + (_P,) * 5,
     # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, scratch (Ls, Tl, Tb, Sp), stream
     "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,) * 5,
     # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, scratch (Cs, ns, mprev), stream

@@ -24,9 +24,8 @@
 // into chunks of whole 64-row tiles, one block per (chunk, b·kv), as many
 // as one wave of two blocks per SM holds (192 blocks of 192 rows at the
 // serving shape), and each block writes a partial (m, l, acc) for its chunk
-// into wrapper-allocated scratch — the partials the sequence-sharded decode
-// combines across cards.  Two kernels, chosen by dtype (dispatch, not
-// fallback):
+// into wrapper-allocated scratch.  Two kernels, chosen by dtype (dispatch,
+// not fallback):
 //
 // bfloat16 (decode_attn_tc_kernel, every serving call): every thread issues
 // 16-byte cp.async copies of q and of the k/v tiles into a ring of up to
@@ -60,6 +59,13 @@
 // cannot meet): scalar fmaf on the CUDA cores, k/v tiles staged in shared
 // memory with coalesced loads, (m, l, acc) in shared memory, and a second
 // kernel that combines the partials.
+//
+// Partials mode (dacp_decode_attention_partials, the sequence-sharded
+// decode: each rank holds a slice of the cache and the ranks merge their
+// partials): the same launch, but the merge of the chunks stops short of
+// the division by l.  It writes the row's merged (m, l), m in natural units,
+// and the unnormalised Σ acc_s·e^(m_s - m) as float32 in place of the
+// output, so no second pass over the cache runs.
 #include <cooperative_groups.h>
 
 #include "attention.cuh"
@@ -199,11 +205,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < G * HD; i += kThreads) part_acc[base * G * HD + i] = sAcc[i];
 }
 
+// out_m == nullptr: o = the normalised output.  Otherwise the partials
+// mode: o (float32) = the unnormalised Σ acc_s·e^(m_s - m), out_m / out_l =
+// the row's merged m and l (B·KV, G).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                                const float* __restrict__ part_acc, int splits, int BKV, int G, int HD,
-                               T* __restrict__ o) {
+                               T* __restrict__ o, float* __restrict__ out_m, float* __restrict__ out_l) {
   const int bn = blockIdx.x;
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
     const int g = i / HD;
@@ -216,7 +225,15 @@ __global__ void __launch_bounds__(kThreads)
       l = fmaf(part_l[row * G + g], f, l);
       a = fmaf(part_acc[row * G * HD + i], f, a);
     }
-    o[(long long)bn * G * HD + i] = attn_from_f<T>(a / fmaxf(l, 1e-30f));
+    if (out_m == nullptr) {
+      o[(long long)bn * G * HD + i] = attn_from_f<T>(a / fmaxf(l, 1e-30f));
+    } else {
+      o[(long long)bn * G * HD + i] = attn_from_f<T>(a);
+      if (i % HD == 0) {
+        out_m[(long long)bn * G + g] = m;
+        out_l[(long long)bn * G + g] = l;
+      }
+    }
   }
 }
 
@@ -259,12 +276,16 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
   return y;
 }
 
+// out_m == nullptr: o (bf16) = the normalised output.  Otherwise the
+// partials mode: o (float32) = the unnormalised Σ acc_s·2^(m_s - m), and
+// out_m / out_l (B·KV, G) = the row's merged m (natural units) and l.
 template <int HD, int NG>
 __global__ void __launch_bounds__(128)
     decode_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                          bf16* __restrict__ o, int KV, int G, int length, int chunk, int splits, int stages, int vec,
+                          void* __restrict__ o, int KV, int G, int length, int chunk, int splits, int stages, int vec,
                           float scale, QStrides qs, KStrides ks, KStrides vs, float* __restrict__ part_m,
-                          float* __restrict__ part_l, float* __restrict__ part_acc) {
+                          float* __restrict__ part_l, float* __restrict__ part_acc, float* __restrict__ out_m,
+                          float* __restrict__ out_l) {
   using Lay = TcLayout<HD, NG>;
   constexpr int LD = Lay::LD, GR = Lay::GR;
   constexpr int NT = 128;
@@ -510,9 +531,13 @@ __global__ void __launch_bounds__(128)
       ms[s] = ex2(ms[s] - m);
       l = fmaf(ls[s], ms[s], l);
     }
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const float inv = out_m == nullptr ? 1.f / fmaxf(l, 1e-30f) : 1.f;  // the partials stay unnormalised
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s) bF[s * GR + tid] = ms[s] * inv;
+    if (out_m != nullptr && split == 0) {  // one block of the cluster writes the row's merged (m, l)
+      out_m[(long long)bn * G + g0 + tid] = m * kLn2;  // natural units, as the scratch and the plain version
+      out_l[(long long)bn * G + g0 + tid] = l;
+    }
   }
   __syncthreads();
   const int E = Gb * HD, per = (E + splits - 1) / splits;
@@ -523,7 +548,11 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
       if (s < splits) a = fmaf(*cluster.map_shared_rank(bA + i, s), bF[s * GR + g], a);
-    o[((long long)bn * G + g0) * HD + i] = __float2bfloat16_rn(a);
+    const long long at = ((long long)bn * G + g0) * HD + i;
+    if (out_m == nullptr)
+      static_cast<bf16*>(o)[at] = __float2bfloat16_rn(a);
+    else
+      static_cast<float*>(o)[at] = a;
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
@@ -531,7 +560,7 @@ __global__ void __launch_bounds__(128)
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int length, int chunk,
                int splits, const QStrides& qs, const KStrides& ks, const KStrides& vs, float scale, float* part_m,
-               float* part_l, float* part_acc, cudaStream_t stream) {
+               float* part_l, float* part_acc, float* out_m, float* out_l, cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<float, HD>(G);
   int rc = attn_allow_smem(decode_attn_split_kernel<float, HD>, smem);
   if (rc != 0) return rc;
@@ -541,7 +570,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   rc = dacp_last_error();
   if (rc != 0) return rc;
   decode_attn_combine_kernel<float><<<B * KV, kThreads, 0, stream>>>(part_m, part_l, part_acc, splits, B * KV, G, HD,
-                                                                      static_cast<float*>(o));
+                                                                      static_cast<float*>(o), out_m, out_l);
   return dacp_last_error();
 }
 
@@ -556,7 +585,7 @@ static bool rows_aligned(const void* p, const KStrides& st, int B, int KV, int T
 template <int HD, int NG>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int Tn, int length,
               int chunk, int splits, const QStrides& qs, const KStrides& ks, const KStrides& vs, float scale,
-              float* part_m, float* part_l, float* part_acc, cudaStream_t stream) {
+              float* part_m, float* part_l, float* part_acc, float* out_m, float* out_l, cudaStream_t stream) {
   if (splits > kMaxSplits) return (int)cudaErrorInvalidValue;
   const int stages = min(kMaxStages, chunk / kBK);
   const size_t smem = TcLayout<HD, NG>::bytes(stages);
@@ -579,25 +608,54 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int K
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   rc = (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                               static_cast<const bf16*>(v), static_cast<bf16*>(o), KV, G, length, chunk, splits, stages,
-                               vec, scale, qs, ks, vs, part_m, part_l, part_acc);
+                               static_cast<const bf16*>(v), o, KV, G, length, chunk, splits, stages, vec, scale, qs, ks,
+                               vs, part_m, part_l, part_acc, out_m, out_l);
   if (rc != 0) return rc;
   return dacp_last_error();
 }
 
 template <int HD>
 int launch_decode(int dtype, const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int Tn,
-                  int length, int chunk, int splits, const long long* st, float* pm, float* pl, float* pa,
-                  cudaStream_t stream) {
+                  int length, int chunk, int splits, const long long* st, float* pm, float* pl, float* pa, float* om,
+                  float* ol, cudaStream_t stream) {
   const QStrides qs{st[0], st[1], st[2]};
   const KStrides ks{st[3], st[4], st[5]};
   const KStrides vs{st[6], st[7], st[8]};
   const float scale = (float)(1.0 / sqrt((double)HD));
-  if (dtype == DACP_ATTN_F32) return launch_f32<HD>(q, k, v, o, B, KV, G, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, stream);
+  if (dtype == DACP_ATTN_F32)
+    return launch_f32<HD>(q, k, v, o, B, KV, G, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, om, ol, stream);
   if (dtype != DACP_ATTN_BF16) return (int)cudaErrorInvalidValue;
   if (G <= 8)
-    return launch_tc<HD, 1>(q, k, v, o, B, KV, G, Tn, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, stream);
-  return launch_tc<HD, 2>(q, k, v, o, B, KV, G, Tn, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, stream);
+    return launch_tc<HD, 1>(q, k, v, o, B, KV, G, Tn, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, om, ol,
+                            stream);
+  return launch_tc<HD, 2>(q, k, v, o, B, KV, G, Tn, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, om, ol,
+                          stream);
+}
+
+// the checks and the head-dim dispatch of both entry points (om == nullptr: the normalised output)
+int decode_entry(const void* q, const void* k, const void* v, void* o, int dtype, int B, int KV, int G, int Tn, int hd,
+                 int length, int chunk, int splits, const long long* strides, void* part_m, void* part_l,
+                 void* part_acc, float* om, float* ol, void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || G > kMaxG || length <= 0 || length > Tn || chunk <= 0 || chunk % kBK != 0 ||
+      splits <= 0 || (long long)(splits - 1) * chunk >= length || (long long)splits * chunk < length ||
+      splits > 65535 || B * KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  switch (hd) {
+    case 32:
+      return launch_decode<32>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+    case 64:
+      return launch_decode<64>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+    case 128:
+      return launch_decode<128>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+    case 256:
+      return launch_decode<256>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -611,24 +669,21 @@ int launch_decode(int dtype, const void* q, const void* k, const void* v, void* 
 DACP_API int dacp_decode_attention(const void* q, const void* k, const void* v, void* o, int dtype, int B, int KV,
                                    int G, int Tn, int hd, int length, int chunk, int splits, const long long* strides,
                                    void* part_m, void* part_l, void* part_acc, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > kMaxG || length <= 0 || length > Tn || chunk <= 0 || chunk % kBK != 0 ||
-      splits <= 0 || (long long)(splits - 1) * chunk >= length || (long long)splits * chunk < length ||
-      splits > 65535 || B * KV > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  switch (hd) {
-    case 32:
-      return launch_decode<32>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, s);
-    case 64:
-      return launch_decode<64>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, s);
-    case 128:
-      return launch_decode<128>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, s);
-    case 256:
-      return launch_decode<256>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return decode_entry(q, k, v, o, dtype, B, KV, G, Tn, hd, length, chunk, splits, strides, part_m, part_l, part_acc,
+                      nullptr, nullptr, stream);
+}
+
+// The same launch, whose merge hands out the partial (m, l, acc) over
+// positions < length instead of the output, for a merge across ranks:
+// m and l (B, KV, G) and acc (B, KV, G, hd), float32 and contiguous, m in
+// natural units (the largest score times hd^-0.5), l = Σ e^(s - m) over the
+// unrounded p, acc = Σ p·v with p rounded to v's type.  The wrapper handles
+// length 0 (m = -1e30, l = 0, acc = 0) and launches nothing then.
+DACP_API int dacp_decode_attention_partials(const void* q, const void* k, const void* v, void* m, void* l, void* acc,
+                                            int dtype, int B, int KV, int G, int Tn, int hd, int length, int chunk,
+                                            int splits, const long long* strides, void* part_m, void* part_l,
+                                            void* part_acc, void* stream) {
+  if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
+  return decode_entry(q, k, v, acc, dtype, B, KV, G, Tn, hd, length, chunk, splits, strides, part_m, part_l, part_acc,
+                      static_cast<float*>(m), static_cast<float*>(l), stream);
 }

@@ -18,7 +18,10 @@ decode cache.
 The model zoo calls its four kernels through a ``ModelKernels`` bundle:
 ``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
 versions), which holds the kernels against their plain versions on the
-card.
+card.  The bundle also carries ``decode_attention_partials``, the decode
+kernel's partial (m, l, acc) that a decode over a cache sharded by position
+merges across ranks (``distributed.per_shard``); its launches count with
+``decode_attention``'s.
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.kernels import filter_select, fused_pipeline, project_arith, segment_reduce
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_partials,
+    decode_attention_partials_plain,
+    decode_attention_plain,
+)
 from repro_torch.kernels.decode_attention import launches as _decode_launches
 from repro_torch.kernels.filter_select import filter_select_planes
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -72,13 +80,17 @@ LAUNCHES = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelKernels:
-    """The four kernel functions the model zoo calls."""
+    """The four kernel functions the model zoo calls, and the decode
+    kernel's partials for a cache sharded by position."""
 
     flash_attention: Callable
     decode_attention: Callable
     ssd_scan: Callable
     mlstm_chunk: Callable
+    decode_attention_partials: Callable
 
 
-KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan, mlstm_chunk)
-PLAIN = ModelKernels(flash_attention_plain, decode_attention_plain, ssd_scan_plain, mlstm_chunk_plain)
+KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan, mlstm_chunk, decode_attention_partials)
+PLAIN = ModelKernels(
+    flash_attention_plain, decode_attention_plain, ssd_scan_plain, mlstm_chunk_plain, decode_attention_partials_plain
+)

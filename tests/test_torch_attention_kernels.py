@@ -163,7 +163,7 @@ def test_decode_split_plan_at_the_serving_shape():
     assert split_plan(32, 1025, 132) == (6, 192)
 
 
-@pytest.mark.parametrize("fn", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("fn", ["flash_attention", "decode_attention", "decode_attention_partials"])
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu(fn):
     """A device other than cuda or cpu raises; meta tensors hold shapes
     alone (the dry-run's), so they take the plain version's shapes."""
@@ -174,9 +174,14 @@ def test_wrappers_refuse_devices_other_than_cuda_and_cpu(fn):
         assert ops.flash_attention(q, k, k).shape == q.shape
         assert ops.flash_attention(q, k, k).device.type == "meta"
         call = functools.partial(ops.flash_attention, other, k, k)
-    else:
+    elif fn == "decode_attention":
         assert ops.decode_attention(q[:, :, :, 0], k, k, 2).shape == q[:, :, :, 0].shape
         call = functools.partial(ops.decode_attention, other, k, k, 2)
+    else:
+        m, l, acc = ops.KERNELS.decode_attention_partials(q[:, :, :, 0], k, k, 2)
+        assert (m.shape, l.shape, acc.shape) == ((1, 1, 1, 1), (1, 1, 1, 1), (1, 1, 1, 32))
+        assert acc.device.type == "meta" and acc.dtype == torch.float32
+        call = functools.partial(ops.KERNELS.decode_attention_partials, other, k, k, 2)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         call()
 

@@ -675,6 +675,96 @@ def test_decode_attention_kernel_length_zero_is_zero(dev):
     assert torch.count_nonzero(decode_attention(q, k, k, 0)).item() == 0
 
 
+def _assert_partials_close(got, want, dtype):
+    """The decode kernel's partial (m, l, acc) against the plain version's:
+    m (natural units) within the attention tolerance, l relatively, acc
+    within the tolerance at its peak and, divided by l, the output within
+    the attention tolerance."""
+    tol = _attn_tol(dtype)["rtol"]
+    m, l, acc = got
+    wm, wl, wacc = want
+    torch.testing.assert_close(m, wm, rtol=tol, atol=tol)
+    torch.testing.assert_close(l, wl, rtol=tol, atol=0.0)
+    torch.testing.assert_close(acc, wacc, rtol=tol, atol=tol * float(wacc.abs().max()))
+    torch.testing.assert_close(acc / l, wacc / wl, **_attn_tol(dtype))
+
+
+# (B, KV, T): one chunk per b·kv (B·KV past two blocks an SM), or up to sixteen (a cluster past the
+# portable eight blocks: 16 at the whole 4096 positions, 13 at the ragged 3077)
+_SPLIT_SHAPES = {"one_split": (9, 32, 1100), "sixteen_splits": (1, 2, 4096)}
+
+
+@pytest.mark.parametrize("splits", sorted(_SPLIT_SHAPES))
+@pytest.mark.parametrize("length", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize("g", [1, 4, 17])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_decode_attention_partials_kernel(dev, dtype, hd, g, length, splits):
+    """``decode_attention_partials`` on the card (one launch of the decode
+    kernel whose merge hands out the partials) against its plain version:
+    length 0 launches nothing and gives (-1e30, 0, 0)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partials,
+        decode_attention_partials_plain,
+        launches,
+        split_plan,
+    )
+
+    b, kv, t = _SPLIT_SHAPES[splits]
+    n = {"zero": 0, "one": 1, "ragged": t * 3 // 4 + 5, "full": t}[length]
+    if n > 64:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        chunks = split_plan(b * kv, n, sms)[0]
+        assert chunks == 1 if splits == "one_split" else chunks == (16 if n == t else 13)
+    rng = np.random.default_rng(n + hd + g)
+    q = _randn(rng, (b, kv, g, hd), dtype, dev)
+    k = _randn(rng, (b, kv, t, hd), dtype, dev)
+    v = _randn(rng, (b, kv, t, hd), dtype, dev)
+    before = launches.value
+    got = decode_attention_partials(q, k, v, n)
+    torch.cuda.synchronize()
+    assert launches.value == before + (n > 0)
+    assert [tuple(x.shape) for x in got] == [(b, kv, g, 1), (b, kv, g, 1), (b, kv, g, hd)]
+    assert all(x.dtype == torch.float32 and x.device == dev for x in got)
+    if n == 0:
+        assert bool((got[0] == -1e30).all()) and not got[1].any() and not got[2].any()
+        return
+    _assert_partials_close(got, decode_attention_partials_plain(q, k, v, n), dtype)
+
+
+@pytest.mark.parametrize("length", [301, 97], ids=["ragged_last_slice", "two_slices_empty"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_decode_attention_partials_of_four_slices_merge_into_the_whole_cache_launch(dev, dtype, length):
+    """Four slices of a cache, each's kernel partials merged by the formula
+    of ``collectives.seq_sharded_decode_attention`` (max of m, then l and acc
+    weighted by e^(m - max)), equal one ``decode_attention`` launch over the
+    whole cache.  The first slice's keys are scaled up, so the slices' m
+    differ by several units: m in any other units than the natural ones
+    would weigh them wrongly."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_partials
+
+    rng = np.random.default_rng(length)
+    b, kv, g, hd, t = 2, 4, 4, 64, 384
+    q = _randn(rng, (b, kv, g, hd), dtype, dev)
+    k = _randn(rng, (b, kv, t, hd), dtype, dev)
+    v = _randn(rng, (b, kv, t, hd), dtype, dev)
+    k[:, :, : t // 4] *= 4
+    parts = []
+    for r in range(4):
+        lo = r * t // 4
+        valid = min(max(length - lo, 0), t // 4)
+        parts.append(decode_attention_partials(q, k[:, :, lo : lo + t // 4], v[:, :, lo : lo + t // 4], valid))
+    m_glob = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    assert float((parts[0][0] - parts[1][0]).abs().max()) > 2  # the slices' score scales differ
+    l_sum = sum(l * torch.exp(m - m_glob) for m, l, _ in parts)
+    acc_sum = sum(acc * torch.exp(m - m_glob) for m, _, acc in parts)
+    got = (acc_sum / torch.clamp(l_sum, min=1e-30)).to(dtype)
+    want = decode_attention(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    peak = float(want.float().abs().max())  # and within chip_smoke.py's limit: 4 half ulps of bf16 at the peak
+    assert float((got.float() - want.float()).abs().max()) <= 4 * 2.0**-8 * peak
+
+
 T_DEC = 1056  # granite-3-8b's cache at 1024 + 32 positions
 
 
@@ -1092,6 +1182,7 @@ def rank_main(rank, port, out):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=4)
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.distributed.collectives import compressed_psum, seq_sharded_decode_attention
+    from repro_torch.kernels.decode_attention import decode_attention_partials
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1102,11 +1193,12 @@ def rank_main(rank, port, out):
     k = torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16)
     v = torch.randn((2, 4, 96, 64), generator=g, device=dev, dtype=torch.bfloat16)
     got = seq_sharded_decode_attention(mesh, q, k, v, 300, seq_axis="data")
+    kernel = seq_sharded_decode_attention(mesh, q, k, v, 300, seq_axis="data", partials=decode_attention_partials)
     x = torch.randn((512, 96), generator=g, device=dev, dtype=torch.float32)
     card = compressed_psum(mesh, x, axis="data")
     cpu = compressed_psum(mesh, x.cpu(), axis="data")
     if rank == 0:
-        torch.save({"out": got.float().cpu(), "card": card.cpu(), "cpu": cpu}, out)
+        torch.save({"out": got.float().cpu(), "kernel": kernel.float().cpu(), "card": card.cpu(), "cpu": cpu}, out)
     dist.destroy_process_group()
 
 
@@ -1117,9 +1209,11 @@ if __name__ == "__main__":
 
 def test_seq_sharded_decode_and_int8_psum_over_four_gloo_ranks_on_the_card(dev, tmp_path):
     """8a-8b of chip_smoke.py at a small size: the decode sharded over four
-    gloo ranks (CUDA tensors, one card) against one ``decode_attention``
-    launch over the whole cache (bf16 tolerance), and ``compressed_psum`` on
-    card tensors equal bit for bit to the same gloo ranks on CPU tensors."""
+    gloo ranks (CUDA tensors, one card), with the plain partials and with
+    the kernel's (``decode_attention_partials``), against one
+    ``decode_attention`` launch over the whole cache (bf16 tolerance), and
+    ``compressed_psum`` on card tensors equal bit for bit to the same gloo
+    ranks on CPU tensors."""
     import os
     import socket
     import subprocess
@@ -1150,24 +1244,28 @@ def test_seq_sharded_decode_and_int8_psum_over_four_gloo_ranks_on_the_card(dev, 
     before = ops.LAUNCHES["decode_attention"].value
     want = ops.decode_attention(q, torch.cat(ks, dim=2), torch.cat(vs, dim=2), 301).float().cpu()
     assert ops.LAUNCHES["decode_attention"].value == before + 1
-    torch.testing.assert_close(got["out"], want, rtol=2e-2, atol=2e-2)
     peak = float(want.abs().max())  # and within chip_smoke.py's limit: 4 half ulps of bf16 at the peak
-    assert peak > 0 and float((got["out"] - want).abs().max()) <= 4 * 2.0**-8 * peak
+    for name in ("out", "kernel"):
+        torch.testing.assert_close(got[name], want, rtol=2e-2, atol=2e-2)
+        assert peak > 0 and float((got[name] - want).abs().max()) <= 4 * 2.0**-8 * peak
     assert torch.equal(got["card"].view(torch.int32), got["cpu"].view(torch.int32))
 
 
 def test_decode_on_card_dtensors_launches_the_kernel_or_raises(dev):
     """The models' decode on card DTensors (``per_shard.on_shards``, world 1):
     a cache laid out by batch and heads launches ``decode_attention`` on
-    each rank's shard; a cache sharded over its positions raises, because
-    the kernel hands out no split-K partials to merge, and it runs no plain
-    version in its place."""
+    each rank's shard; a cache sharded over its positions launches the
+    kernel's partials (``decode_attention_partials``) once and merges them,
+    equal to the whole-cache launch within the attention tolerance, and no
+    plain version runs in its place.  (A position-sharded cache on card
+    tensors raised here before the kernel handed out its partials.)"""
     import socket
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
+    from repro_torch.distributed import collectives
     from repro_torch.distributed.per_shard import on_shards
     from repro_torch.kernels import ops
 
@@ -1190,8 +1288,14 @@ def test_decode_on_card_dtensors_launches_the_kernel_or_raises(dev):
             assert ops.LAUNCHES["decode_attention"].value == before + 1
             assert torch.equal(got.to_local(), want)
             kd, vd = DTensor.from_local(k, mesh, (Shard(2),)), DTensor.from_local(v, mesh, (Replicate(),))
-            with pytest.raises(NotImplementedError, match="split-K"):
-                decode(q, kd, vd, 100)
-            assert ops.LAUNCHES["decode_attention"].value == before + 1
+            plain = collectives.partial_decode_attention
+            collectives.partial_decode_attention = None  # the plain partials must not run on card tensors
+            try:
+                merged = decode(q, kd, vd, 100)
+            finally:
+                collectives.partial_decode_attention = plain
+            assert ops.LAUNCHES["decode_attention"].value == before + 2
+            assert isinstance(merged, DTensor) and merged.to_local().device == dev
+            torch.testing.assert_close(merged.to_local().float(), want.float(), rtol=2e-2, atol=2e-2)
     finally:
         dist.destroy_process_group()
