@@ -1431,58 +1431,6 @@ def time_morsel_copies(dev) -> dict:
     return out
 
 
-def time_fused_morsel(dev) -> dict:
-    """Host clock (median of 20) around the fused aggregate COOK's plan on
-    one main-path morsel: encoding its kernel inputs into pinned tensors,
-    staging them (encode + the ``non_blocking`` copy issued), and a fold
-    (launch, copies back, partial GroupState) on staged and on unstaged
-    inputs, each ending in a synchronise."""
-    import torch
-
-    from repro_torch.core.backend import get_backend, plan_fused_chain
-    from repro_torch.core.batch import RecordBatch
-    from repro_torch.core.expr import col
-    from repro_torch.core.operators import project_schema
-
-    rng = np.random.default_rng(SEED + 1)
-    n = MORSEL
-    batch = RecordBatch.from_pydict({
-        "station": _skewed_groups(rng, n, STATIONS),
-        "temp": (rng.standard_normal(n) * 12.0 + 8.0).astype(np.float32),
-        "pressure": (rng.standard_normal(n) * 9.0 + 1013.0).astype(np.float32),
-        "qc": rng.integers(0, 4, n).astype(np.uint8),
-    })
-    exprs = {"st": col("station"), "p": col("pressure"), "q": col("qc"), "tk": col("temp") + 273.15,
-             "s3": col("station") * 3 + 1}
-    schema = project_schema(batch.schema, exprs, False)
-    aggs = {"n": {"fn": "count"}, "sq": {"fn": "sum", "column": "q"}, "s3s": {"fn": "sum", "column": "s3"},
-            "lo": {"fn": "min", "column": "p"}, "hi": {"fn": "max", "column": "q"}, "m": {"fn": "mean", "column": "tk"}}
-    plan = plan_fused_chain([("project", (exprs, schema)), ("filter", (col("p") > 1013.0,))], batch.schema,
-                            agg=(["st"], aggs, "full", schema), backend=get_backend("torch", device=dev))
-    check(plan is not None, "the fused aggregate COOK's chain did not plan")
-
-    def median_ms(fn) -> float:
-        samples = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            samples.append(time.perf_counter() - t0)
-        return float(np.median(samples[3:]) * 1e3)
-
-    def staged_fold():
-        plan.stage(batch)
-        plan.fold(batch)
-
-    out = {"rows": n, "encode_pinned_ms": median_ms(lambda: plan._encode(batch, pin=True))}
-    out["stage_ms"] = median_ms(lambda: plan.stage(batch))  # each call replaces the batch's entry
-    plan._take_staged(batch)
-    out["fold_unstaged_ms"] = median_ms(lambda: plan.fold(batch))
-    out["stage_and_fold_ms"] = median_ms(staged_fold)
-    return out
-
-
 # ---------------------------------------------------------------------------
 # phase 3: end to end through two servers
 # ---------------------------------------------------------------------------
@@ -3051,7 +2999,6 @@ def main() -> None:
           f"project_kernel's SASS holds {pt.extra['local_memory_instructions']} LDL / STL: its stack is in local memory")
     copies = time_morsel_copies(dev)
     log("morsel copies: " + json.dumps(copies))
-    log("fused morsel on the host clock: " + json.dumps(time_fused_morsel(dev)))
     phase_s["kernels"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     report, launches, breakdowns = end_to_end("cuda", E2E_ROWS, E2E_PARTS)

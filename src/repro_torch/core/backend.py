@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import trace
 from repro_torch.core.batch import Column, RecordBatch
 from repro_torch.core.env import env_str
 from repro_torch.core.expr import Expr
@@ -1244,6 +1245,7 @@ class FusedChainPlan:
         if self._stage_closed or not self._morsel_ok(batch):
             return
         dev = self._device()
+        sp = trace.ON and trace.begin("stage", getattr(self._sizer, "request_id", None), leaf=True)
         event = None
         if dev.type == "cuda":
             host = self._encode(batch, pin=True)
@@ -1254,6 +1256,8 @@ class FusedChainPlan:
                 event.record(side)
         else:
             put = self._encode(batch)
+        if sp:
+            trace.finish(sp)
         with self._stage_lock:
             if self._stage_closed:  # raced a CANCEL teardown: drop, don't leak
                 return
@@ -1381,20 +1385,30 @@ class FusedChainPlan:
         if not self._morsel_ok(batch) or self._short_nan_arith(batch):
             return FUSED_INELIGIBLE
         dev = self._device()
+        sp = trace.ON and trace.begin("launch", leaf=True)
         arrs = self._inputs(batch, staged, dev)
         gidx = torch.zeros(self._pad(batch.num_rows), dtype=torch.int32, device=dev)
         out = self._launch(arrs, gidx, batch.num_rows, segmented=False, ngroups=8)
+        if sp:
+            trace.finish(sp)
+        sp = trace.ON and trace.begin("readback", leaf=True)
         counts = out[1].cpu().numpy()
+        ctab = out[0].cpu().numpy() if counts.any() else None
+        if sp:
+            trace.finish(sp)
         self._bump("fused_launches")
         if staged is not None:
             self._bump("transfers_overlapped")
-        if int(counts.sum()) == 0:
+        if ctab is None:
             return None
-        compact = self._compact(out[0].cpu().numpy(), counts)
+        sp = trace.ON and trace.begin("decode", leaf=True)
+        compact = self._compact(ctab, counts)
         cols = []
         for f, ref in self._out_decode:
             vals = self._decode_ref(compact, ref)
             cols.append(Column(f.dtype, values=vals) if ref[0] == "pass" else Column.from_values(f.dtype, vals))
+        if sp:
+            trace.finish(sp)
         return RecordBatch(self._out_schema, cols)
 
     # -- aggregate fold --------------------------------------------------------
@@ -1422,27 +1436,38 @@ class FusedChainPlan:
         else:
             fields = [Field(k, batch.schema.field(s).dtype) for k, s in self._key_srcs]
             kb = RecordBatch(Schema(fields), [batch.column(s) for _k, s in self._key_srcs])
+        sp = trace.ON and trace.begin("factorize", leaf=True)
         tmp = GroupState(keys, {}, self._mode, kb.schema, vectorized=True)
         gidx_full = tmp._factorize(kb)
+        if sp:
+            trace.finish(sp)
         ng = len(tmp.gids)
         if ng == 0 or ng > _SEG_GROUP_CAP:
             return FUSED_INELIGIBLE
         g_pad = max(8, -(-ng // 8) * 8)
         dev = self._device()
+        sp = trace.ON and trace.begin("launch", leaf=True)
         arrs = self._inputs(batch, staged, dev)
         n = batch.num_rows
         g32 = np.zeros(self._pad(n), np.int32)
         g32[:n] = gidx_full
         out = self._launch(arrs, torch.from_numpy(g32).to(dev), n, segmented=True, ngroups=g_pad)
-        ctab, counts = out[0], out[1]
+        if sp:
+            trace.finish(sp)
+        sp = trace.ON and trace.begin("readback", leaf=True)
         gsum, gcnt, gmmf, gmmi, gfirst = (t.cpu().numpy() for t in out[2:])
+        gcnt_v = gcnt[:ng]
+        alive = np.flatnonzero(gcnt_v > 0)
+        # the survivors' compacted table, for the float64 sums folded on the host
+        ctab, counts = (out[0].cpu().numpy(), out[1].cpu().numpy()) if self._fsums and alive.size else (None, None)
+        if sp:
+            trace.finish(sp)
         self._bump("fused_launches")
         if staged is not None:
             self._bump("transfers_overlapped")
-        gcnt_v = gcnt[:ng]
-        alive = np.flatnonzero(gcnt_v > 0)
         if alive.size == 0:
             return None
+        sp = trace.ON and trace.begin("decode", leaf=True)
         perm = alive[np.argsort(gfirst[:ng][alive], kind="stable")]
         st = GroupState(
             self._agg_keys, self._aggs, self._mode, self._agg_schema, vectorized=True, backend=self._bk
@@ -1463,7 +1488,7 @@ class FusedChainPlan:
         for j, (state, _fn, _s) in enumerate(self._mmi):
             acc[state] = gmmi[perm, j].astype(np.int64)
         if self._fsums:
-            compact = self._compact(ctab.cpu().numpy(), counts.cpu().numpy())
+            compact = self._compact(ctab, counts)
             g_sel = compact[:, self._gidx_off]
             for state, ref in self._fsums:
                 vals = np.asarray(self._decode_ref(compact, ref), np.float64)
@@ -1472,6 +1497,8 @@ class FusedChainPlan:
                 acc[state] = accf[perm]
         for name, (_init, dt) in st._state_specs().items():
             st.acc[name] = np.ascontiguousarray(np.asarray(acc[name], dt))
+        if sp:
+            trace.finish(sp)
         return st
 
 # ---------------------------------------------------------------------------

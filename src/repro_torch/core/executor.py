@@ -76,6 +76,7 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Iterator
 
+from repro_torch import trace
 from repro_torch.core.backend import FUSED_INELIGIBLE, ComputeBackend, get_backend, plan_fused_chain
 from repro_torch.core.batch import RecordBatch, concat_batches
 from repro_torch.core.dag import Dag, Node
@@ -246,8 +247,10 @@ class _MorselSizer:
         workers: int = 1,
         window: int = 4,
         prefetch: int = 4,
+        request_id: int | None = None,
     ):
         self.size = initial
+        self.request_id = request_id  # the run's ExecutorStats.request_id, for its spans
         self.adaptive = adaptive
         self.target_s = target_s
         self.lo = lo
@@ -312,6 +315,9 @@ class _MorselSizer:
             self.prefetch_depth = max(1, min(self.max_prefetch, 1 + int(round((self.max_prefetch - 1) * ratio))))
 
 
+_request_ids = itertools.count(1)
+
+
 @dataclass
 class ExecutorStats:
     """Per-run executor observability.  One entry per pipeline stage drive:
@@ -321,11 +327,14 @@ class ExecutorStats:
     reported live (``"live": True`` — flow STATUS progress) from their
     attached sizers.  When the run has a memory budget, ``to_dict()``
     additionally carries the shared accountant's ``"spill"`` counters
-    (budget, bytes/partitions/batches spilled, grace-hash recursion depth)."""
+    (budget, bytes/partitions/batches spilled, grace-hash recursion depth).
+    ``request_id``, a serial of the process, tags every span of the run
+    (``repro_torch.trace``)."""
 
     pipelines: list = field(default_factory=list)
     accountant: MemoryAccountant | None = None
     live: list = field(default_factory=list)
+    request_id: int = field(default_factory=lambda: next(_request_ids))
 
     @staticmethod
     def _entry(sizer: _MorselSizer) -> dict:
@@ -401,8 +410,9 @@ class _Prefetch:
     ``depth_fn`` (optional) makes the bound dynamic: the adaptive morsel
     sizer shrinks source read-ahead when batches turn out expensive."""
 
-    def __init__(self, sdf: StreamingDataFrame, depth: int, depth_fn=None):
+    def __init__(self, sdf: StreamingDataFrame, depth: int, depth_fn=None, request_id: int | None = None):
         self._sdf = sdf
+        self._request_id = request_id
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._depth_fn = depth_fn
         self._stop = False
@@ -416,7 +426,14 @@ class _Prefetch:
 
     def _run(self) -> None:
         try:
-            for b in self._sdf.iter_batches():
+            it = iter(self._sdf.iter_batches())
+            while True:
+                sp = trace.ON and trace.begin("source", self._request_id, leaf=True)
+                b = next(it, _DONE)
+                if sp:
+                    trace.finish(sp)
+                if b is _DONE:
+                    break
                 if not self._put(b):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
@@ -493,10 +510,13 @@ def _apply_ops(cops, batch: RecordBatch) -> RecordBatch | None:
         out = plan.run(batch)
         if out is not FUSED_INELIGIBLE:
             return out
+    sp = trace.ON and trace.begin("perop", leaf=True)
     for op in ops:
         batch = op(batch)
         if batch is None:
-            return None
+            break
+    if sp:
+        trace.finish(sp)
     return batch
 
 
@@ -589,12 +609,14 @@ def _run_ordered(
     of blocking on upstream, so a CANCELled plan releases its threads,
     prefetchers, and spill files within a bounded delay."""
     compiled = [(br, _finalize_ops(br.specs, backend, br.sdf.schema, agg)) for br in branches]
+    rid = stats.request_id if stats is not None else None
     sizer = _MorselSizer(
         cfg.initial_morsel_rows(),
         cfg.auto_morsels,
         workers=max(1, cfg.num_workers),
         window=cfg.effective_window(),
         prefetch=cfg.prefetch_batches,
+        request_id=rid,
     )
     plans = [cops[1] for _, cops in compiled if cops[1] is not None]
     for pl in plans:
@@ -609,9 +631,13 @@ def _run_ordered(
                 for m in _branch_items(cops, br.sdf.iter_batches(), sizer, cfg, do_stage=False):
                     if cancel is not None and cancel.is_set():
                         raise FlowCancelled("execution cancelled")
-                    t0 = time.perf_counter()
+                    t0 = time.perf_counter_ns()
+                    sp = trace.ON and trace.begin("morsel", rid, start=t0)
                     out = make_item(cops, m)
-                    sizer.observe(m.num_rows, time.perf_counter() - t0)
+                    t1 = time.perf_counter_ns()
+                    sizer.observe(m.num_rows, (t1 - t0) * 1e-9)
+                    if sp:
+                        trace.finish(sp, t1)
                     if out is not None:
                         yield out
         finally:
@@ -622,7 +648,7 @@ def _run_ordered(
         return
 
     depth_fn = (lambda: sizer.prefetch_depth) if cfg.auto_morsels else None
-    prefetchers = [_Prefetch(br.sdf, cfg.prefetch_batches, depth_fn=depth_fn) for br, _ in compiled]
+    prefetchers = [_Prefetch(br.sdf, cfg.prefetch_batches, depth_fn=depth_fn, request_id=rid) for br, _ in compiled]
     for pf in prefetchers:
         pf.start()  # all sources (incl. every exchange pull) activate now
 
@@ -668,9 +694,13 @@ def _run_ordered(
                 seq = state["assigned"]
                 state["assigned"] = seq + 1
             try:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
+                sp = trace.ON and trace.begin("morsel", rid, start=t0)
                 out = make_item(cops, m)
-                sizer.observe(m.num_rows, time.perf_counter() - t0)
+                t1 = time.perf_counter_ns()
+                sizer.observe(m.num_rows, (t1 - t0) * 1e-9)
+                if sp:
+                    trace.finish(sp, t1)
             except BaseException as e:  # noqa: BLE001 - surfaced to consumer
                 with cond:
                     if state["error"] is None:
@@ -920,8 +950,11 @@ class _Compiler:
             # backend-aware fold: eligible aggregates run on the
             # segment-reduce kernel once keys are factorized (pushdown R9
             # partials on the accelerator)
+            sp = trace.ON and trace.begin("perop", leaf=True)
             st = GroupState(keys, aggs, mode, in_schema, vectorized=True, backend=backend)
             st.update(b)
+            if sp:
+                trace.finish(sp)
             return st
 
         def agg_gen():
@@ -934,12 +967,16 @@ class _Compiler:
             total = GroupState(keys, aggs, mode, in_schema, vectorized=True)
             spiller = None
             reserved = 0
+            rid = stats.request_id if stats is not None else None
             try:
                 for st in _run_ordered(branches, cfg, backend, fold, stats, cancel, agg=(keys, aggs, mode, in_schema)):
                     if spiller is not None:
                         spiller.spill_state(st)
                         continue
+                    sp = trace.ON and trace.begin("merge", rid, leaf=True)
                     total.merge(st)
+                    if sp:
+                        trace.finish(sp)
                     if spillable:
                         nb = total.approx_nbytes()
                         acct.adjust(nb - reserved)
@@ -961,10 +998,11 @@ class _Compiler:
                             total = None
                             acct.adjust(-reserved)
                             reserved = 0
-                if spiller is None:
-                    yield total.result(out_schema)
-                else:
-                    yield spiller.result()
+                sp = trace.ON and trace.begin("finalize", rid, leaf=True)
+                out = total.result(out_schema) if spiller is None else spiller.result()
+                if sp:
+                    trace.finish(sp)
+                yield out
             finally:
                 acct.adjust(-reserved)
                 if spiller is not None:
@@ -1078,4 +1116,16 @@ def execute_parallel(
     stats.accountant = acct
     with _last_stats_lock:
         _last_stats = stats
-    return _Compiler(dag, source_resolver, cfg, backend, stats, acct, cancel).compile()
+    sdf = _Compiler(dag, source_resolver, cfg, backend, stats, acct, cancel).compile()
+    if not trace.ON:
+        return sdf
+    # the COOK's span: from here until its output is exhausted or closed
+    sp = trace.begin("cook", stats.request_id, detached=True)
+
+    def gen():
+        try:
+            yield from sdf.iter_batches()
+        finally:
+            trace.finish(sp)
+
+    return StreamingDataFrame(sdf.schema, gen)

@@ -43,6 +43,7 @@ import queue
 import threading
 import time
 
+from repro_torch import trace
 from repro_torch.core.dag import Dag
 from repro_torch.core.env import env_int, env_str
 from repro_torch.core.errors import DacpError, PermissionDenied, ResourceNotFound, TokenError, TransportError
@@ -257,6 +258,20 @@ class FairdServer:
 
     def _dispatch(self, channel, header: dict, body) -> bool:
         verb = header.get("verb", "").upper()
+        if verb not in ("COOK", "START", "FETCH"):
+            return self._dispatch_verb(channel, verb, header, body)
+        # the COOK path's requests: a span each while the recorder is on,
+        # which it is while a torch.profiler session records
+        trace.follow_profiler()
+        span = trace.ON and trace.begin("request")
+        try:
+            return self._dispatch_verb(channel, verb, header, body, span)
+        finally:
+            if span:
+                trace.finish(span)
+
+    def _dispatch_verb(self, channel, verb: str, header: dict, body, span=False) -> bool:
+        """Serve one request; ``span``: its open ``request`` span, or False."""
         if verb == "HELLO":
             channel.send(framing.OK, self._hello(header))
             return False
@@ -316,6 +331,8 @@ class FairdServer:
             self.stats["cook"] += 1
             dag = Dag.from_bytes(bytes(body))
             fl, _shared = self._start_flow(subject, dag, header)
+            if span:
+                trace.adopt(span, fl.stats.request_id)
             try:
                 self.stats["rows_out"] += self._serve_flow_stream(channel, fl, 0, ack_on_send=True)
             finally:
@@ -329,11 +346,15 @@ class FairdServer:
             self.stats["start"] += 1
             dag = Dag.from_bytes(bytes(body))
             fl, shared = self._start_flow(subject, dag, header)
+            if span:
+                trace.adopt(span, fl.stats.request_id)
             channel.send(framing.OK, {"flow_id": fl.flow_id, "state": fl.state, "shared": shared})
             return False
         if verb == "FETCH":
             self.stats["fetch"] += 1
             fl = self._flow_for(header, verb="FETCH")
+            if span:
+                trace.adopt(span, fl.stats.request_id)
             if fl.kind == "submit":
                 self.flows.activate(fl)  # lazy loading: first FETCH runs the fragment
             from_seq = int(header.get("from_seq", 0))
@@ -439,19 +460,24 @@ class FairdServer:
         laid out."""
         from repro_torch.server.scheduler import CrossDomainScheduler
 
-        dag = optimize(dag)
-        placement = self.mesh.choose_domain if self.mesh is not None else None
-        the_plan = plan_dag(dag, client_domain=self.authority, placement=placement)
-        k = env_int("DACP_PARTITION_PARALLEL")
-        if k >= 2 and self.network is not None:
-            # partition-parallel SUBMIT: split eligible columnar scans into
-            # K child flows over disjoint part ranges (byte-identical merge
-            # through the ordered partition union — see planner.partition_plan)
-            the_plan = partition_plan(the_plan, self._part_count, k)
-        sched = CrossDomainScheduler(coordinator=self, network=self.network, cancel=cancel)
-        if attach is not None:
-            attach(sched)
-        return sched.run(the_plan, stats=stats), sched
+        sp = trace.ON and trace.begin("plan", stats.request_id if stats is not None else None, leaf=True)
+        try:
+            dag = optimize(dag)
+            placement = self.mesh.choose_domain if self.mesh is not None else None
+            the_plan = plan_dag(dag, client_domain=self.authority, placement=placement)
+            k = env_int("DACP_PARTITION_PARALLEL")
+            if k >= 2 and self.network is not None:
+                # partition-parallel SUBMIT: split eligible columnar scans into
+                # K child flows over disjoint part ranges (byte-identical merge
+                # through the ordered partition union — see planner.partition_plan)
+                the_plan = partition_plan(the_plan, self._part_count, k)
+            sched = CrossDomainScheduler(coordinator=self, network=self.network, cancel=cancel)
+            if attach is not None:
+                attach(sched)
+            return sched.run(the_plan, stats=stats), sched
+        finally:
+            if sp:
+                trace.finish(sp)
 
     def _part_count(self, uri_str: str) -> int | None:
         """Split-unit count of a part-splittable source (columnar dataset
@@ -556,7 +582,10 @@ class FairdServer:
         mgr = self.flows
         mgr.ack(fl, from_seq, cid)  # registers the cursor at its start seq
         schema_json = mgr.wait_ready(fl)
+        sp = trace.ON and trace.begin("send", leaf=True)
         channel.send(framing.SCHEMA, {"schema": schema_json, "flow_id": fl.flow_id, "from_seq": from_seq})
+        if sp:
+            trace.finish(sp)
         cursor = from_seq
         rows = 0
         while True:
@@ -569,13 +598,19 @@ class FairdServer:
             try:
                 if kind == "batch":
                     _k, hdr, parts, nrows = item
+                    sp = trace.ON and trace.begin("send", leaf=True)
                     channel.send(framing.BATCH, hdr, parts)
+                    if sp:
+                        trace.finish(sp)
                     cursor += 1
                     rows += nrows
                     if ack_on_send:
                         mgr.ack(fl, cursor, cid)
                 elif kind == "end":
+                    sp = trace.ON and trace.begin("send", leaf=True)
                     channel.send(framing.END, {"rows": item[1], "next_seq": cursor})
+                    if sp:
+                        trace.finish(sp)
                     mgr.mark_delivered(fl)
                     return rows, True
                 else:  # terminal error (FAILED / CANCELLED / released seq)

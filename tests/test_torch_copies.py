@@ -1,11 +1,12 @@
 """The port's framework-neutral modules are copies of the reference's with
 only the import prefix rewritten (``repro.`` → ``repro_torch.``).  The
 ported modules — the compute backend, the executor's device binding, the
-env help text and the lock recorder's frame filter — are the only
-exemptions, so every other difference
-from the reference shows up here.  ``client/torch_adapter.py`` is the
-port's own counterpart of ``client/jax_adapter.py``; its numpy-only
-helpers are held to the reference's."""
+env help text, the lock recorder's frame filter and the server's spans of
+the COOK path (``server/faird.py``) — are the only exemptions, so every
+other difference from the reference shows up here.
+``client/torch_adapter.py`` is the port's own counterpart of
+``client/jax_adapter.py``; its numpy-only helpers are held to the
+reference's.  ``trace.py``, the span recorder, is the port's own."""
 
 import inspect
 import re
@@ -16,7 +17,7 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED_DIRS = ("core", "transport", "server", "client", "configs", "data")
 COPIED_FILES = ("distributed/elastic.py",)  # framework-neutral modules outside those directories
-PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py"}
+PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py", "server/faird.py"}
 PORT_ONLY = {"client/torch_adapter.py"}
 DIR_COPIES = sorted(
     str(p.relative_to(SRC / "repro_torch"))
@@ -28,7 +29,7 @@ COPIED = DIR_COPIES + list(COPIED_FILES)
 # the reference's modules the port has no counterpart of, and the port's own modules
 REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
 PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
-                  "models/convert.py", "distributed/per_shard.py"}
+                  "models/convert.py", "distributed/per_shard.py", "trace.py"}
 
 
 def _rewrite(text: str) -> str:
