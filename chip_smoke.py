@@ -279,8 +279,8 @@ def _same(a, b) -> tuple:
     return False, float(np.nanmax(diff)) if np.isfinite(diff).any() else float("inf")
 
 
-_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_", "flash_attn",
-                "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel")
+_OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_", "fsum_fold",
+                "flash_attn", "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel")
 
 
 def _device_times(fn, host: dict | None = None, counts: dict | None = None) -> tuple:
@@ -782,8 +782,33 @@ _HAZARD_F = (
 _HAZARD_I = (("mul", ("col", 0), ("col", 1)), ("sub", ("col", 0), ("lit", 2**31 - 1)), ("add", ("col", 1), ("col", 0)))
 
 
+def _cell_morsel(rng, n: int = MORSEL, base: float = 12.5):
+    """(numpy inputs, static args) of one morsel of the benchmark's
+    degree-hours COOK: station-years one after another (8760 hourly rows a
+    station, so 8-9 stations a morsel), temperatures at ISD's tenth about
+    climates from -5 to 27 C, 1% missing (NaN), filtered ``temp > base``,
+    and the float sums of ``t`` (passthrough) and ``temp - base``."""
+    hours = 8760
+    st = (int(rng.integers(0, hours)) + np.arange(n)) // hours
+    gidx = (st - st[0]).astype(np.int32)
+    h = (int(rng.integers(0, hours)) + np.arange(n)) % hours
+    mean = rng.uniform(-5.0, 27.0, gidx[-1] + 1)[gidx]
+    temp = mean + 10.0 * np.sin(2 * np.pi * h / hours) + 3.0 * np.sin(2 * np.pi * h / 24) + rng.normal(0, 2.5, n)
+    temp = (np.round(temp * 10.0) / 10.0).astype(np.float32)
+    temp[rng.random(n) < 0.01] = np.nan
+    thr = int(np.array([base], np.float32).view(np.int32)[0])
+    z, bits = np.zeros((n, 1), np.int32), temp.view(np.int32).reshape(n, 1)
+    arrays = (np.array([n, thr, 0, 0], np.int32), bits, gidx, bits.copy(), z, np.zeros((n, 1), np.float32), z,
+              temp.reshape(n, 1), z)
+    g = int(gidx[-1]) + 1
+    static = dict(op="gt", kind="f32", descrs_f=(("sub", ("col", 0), ("lit", base)),), descrs_i=(), csums=(),
+                  fns_f=("min",), fns_i=("min",), with_gidx=True, segmented=True, ngroups=-(-g // 8) * 8,
+                  fsums=((0, "f32"), (1, "f32")))
+    return arrays, static
+
+
 def _fused_cases(rng) -> list:
-    """(label, numpy inputs, static args) of the four configurations."""
+    """(label, numpy inputs, static args) of the five configurations."""
     f32_bits = lambda v: v.view(np.int32).reshape(-1, 1)  # noqa: E731
     thr_1013 = int(np.array([1013.0], np.float32).view(np.int32)[0])
     cases = []
@@ -853,7 +878,21 @@ def _fused_cases(rng) -> list:
     static = dict(op="le", kind="f32", descrs_f=_HAZARD_F, descrs_i=_HAZARD_I, csums=(2, 0), fns_f=("min", "max"),
                   fns_i=("max",), with_gidx=True, segmented=True, ngroups=64)
     cases.append(("specials", arrays, static))
+
+    # 5. the benchmark cell's morsel, whose two float sums fold on the card
+    arrays, static = _cell_morsel(rng)
+    cases.append(("cell", arrays, static))
     return cases
+
+
+def _fold_bytes(arrays, static) -> int:
+    """Bytes the float sums' fold must move: the tile counts, each
+    survivor's gidx and float-sum planes read once, fsum written once."""
+    pred, thr = arrays[1], arrays[0]
+    n = arrays[3].shape[0]
+    survivors = int((pred[: thr[0], 0].view(np.float32) > np.array([thr[1]], np.int32).view(np.float32)[0]).sum())
+    planes = sum(2 if k in ("f64", "i64", "u64") else 1 for _o, k in static["fsums"])
+    return 4 * (n // TILE) + 4 * survivors * (1 + planes) + 8 * static["ngroups"] * len(static["fsums"])
 
 
 def _fused_bytes(arrays, static) -> int:
@@ -943,6 +982,24 @@ def check_fused(dev, rng) -> KernelRecord:
                 arrays[0], *t_dev, **static, tile=TILE)
             rec.wide(call, _fused_bytes(arrays, static), shape)
             rec.extra["wide_blocks"] = _launched_grid(call, "fused_chain_kernel")
+        elif label == "cell":  # the float sums' fold, in the parallel pass and (a few far larger values) in order
+            call = lambda t_dev=t_dev, arrays=arrays, static=static: fp.fused_chain_tiles(  # noqa: E731
+                arrays[0], *t_dev, **static, tile=TILE)
+            rec.extra["cell_shape"] = shape + f" fsums={len(static['fsums'])}"
+            rec.extra["cell_kernels_ms"] = _kernels_by_name(call, r"(fused_\w+_kernel|fsum_fold_kernel)")
+            rec.extra["cell_fold_bound_ms"] = _bytes_bound_ms(_fold_bytes(arrays, static))
+            rec.extra["cell_plain_ms"] = _time_ms(lambda: fp.fused_chain_tiles_plain(arrays[0], *t_dev, **static,
+                                                                                     tile=TILE))
+            far = [np.array(a) for a in arrays]
+            temp = far[7][:, 0]
+            temp[::97] = np.float32(3.0e7)  # 3.0e7 beside tenths of a degree: the sums round, so order counts
+            far[1], far[3] = temp.view(np.int32).reshape(-1, 1).copy(), temp.view(np.int32).reshape(-1, 1).copy()
+            o_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in far[1:]]
+            o_dev = [t.to(dev) for t in o_cpu]
+            got = fp.fused_chain_tiles(far[0], *o_dev, **static, tile=TILE)
+            rec.compare(got, fp.fused_chain_tiles_plain(far[0], *o_cpu, **static, tile=TILE), "cell, sums in order")
+            rec.extra["cell_ordered_kernels_ms"] = _kernels_by_name(
+                lambda: fp.fused_chain_tiles(far[0], *o_dev, **static, tile=TILE), r"fsum_fold_kernel")
     rec.extra["design"] = ("grid-stride over at most 2 blocks per SM, warp-aggregated fold (match_any + shuffle trees: "
                            "sums, min/max, first row), tile rows staged in shared memory and stored as 16-byte vectors, "
                            "f32 keys decoded by the last block")
@@ -2995,6 +3052,10 @@ def main() -> None:
         f"fused kernels {fused.extra['kernels_ms']} (wrapper call {fused.extra['call_device_ms']:.6f}); "
         f"launched grid {fused.extra['blocks']} blocks at {MORSEL} rows, {fused.extra['wide_blocks']} at {WIDE_N} "
         f"(profiler trace)")
+    log(f"fused chain with float sums, the benchmark cell's morsel {fused.extra['cell_shape']}: kernels "
+        f"{fused.extra['cell_kernels_ms']} ms device, the fold's bound {fused.extra['cell_fold_bound_ms']:.6f} ms; "
+        f"the fold in row order (3.0e7 in every 97th row) {fused.extra['cell_ordered_kernels_ms']} ms; "
+        f"plain version {fused.extra['cell_plain_ms']:.6f} ms (events)")
     check(pt.extra["local_memory_instructions"] == 0,
           f"project_kernel's SASS holds {pt.extra['local_memory_instructions']} LDL / STL: its stack is in local memory")
     copies = time_morsel_copies(dev)

@@ -787,6 +787,9 @@ def _tc_segment_reduce(bk: TorchBackend, gidx, ngroups, specs, n_rows) -> dict:
 FUSED_INELIGIBLE = object()
 
 _FLOAT_NAMES = {"float16", "float32", "float64"}
+# a float sum's source column as the fused kernel widens it (else "i32": the
+# int32 plane of int32, the narrow ints and bool)
+_FSUM_KIND = {"float32": "f32", "float64": "f64", "float16": "f16", "uint32": "u32", "int64": "i64", "uint64": "u64"}
 _TORCH_DT = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
 
 
@@ -876,7 +879,8 @@ def plan_fused_chain(specs: list, in_schema, agg=None, backend=None):
     (``(keys, aggs, mode, in_schema)``) the plan also folds the per-morsel
     partial aggregate in the same launch: counts, integer sums (8-bit-limb
     passthrough / 4-limb in-kernel for computed int32), f32 + narrow-int
-    min/max, and float sums via compacted planes + the host's f64 fold.
+    min/max, and float sums folded in float64 on the device in row order
+    (the host's f64 fold where a survivor is NaN or ±inf).
     Float-keyed aggregates are ineligible (the pre-filter factorization
     could pick a different -0.0/NaN representative than the reference's
     post-filter one); wide min/max and var-width outputs are ineligible.
@@ -1063,7 +1067,8 @@ def plan_fused_chain(specs: list, in_schema, agg=None, backend=None):
     limb_cols = max(1, _SUM_LIMBS * len(limb_srcs))
     csums = tuple(idx for _state, idx in csum_states)
     g_cap = _SEG_GROUP_CAP if agg is not None else 8
-    if not fused_pipeline.fits(descrs_f, descrs_i, csums, limb_cols, max(1, len(mmf)), max(1, len(mmi)), g_cap):
+    if not fused_pipeline.fits(descrs_f, descrs_i, csums, limb_cols, max(1, len(mmf)), max(1, len(mmi)), g_cap,
+                               nfsums=len(fsums)):
         return None  # the CUDA kernel's launch limits, decided before any launch
     af_cols = [s for s, _ in sorted(af_idx.items(), key=lambda kv: kv[1])]
     ai_cols = [s for s, _ in sorted(ai_idx.items(), key=lambda kv: kv[1])]
@@ -1103,7 +1108,10 @@ class FusedChainPlan:
     ``stage`` pre-uploads a morsel's kernel inputs (double buffering: the
     H2D transfer of morsel *i+1* overlaps the compute of morsel *i*);
     staged buffers are torn down by ``clear_staged`` on pipeline exit or
-    cancel.  Per-morsel envelope violations return ``FUSED_INELIGIBLE``."""
+    cancel.  Per-morsel envelope violations return ``FUSED_INELIGIBLE``.
+    The float sums come from the launch (``fsum_device_folds``), or from
+    the compacted table folded on the host where a survivor is NaN or ±inf
+    (``fsum_host_folds``)."""
 
     def __init__(
         self,
@@ -1161,6 +1169,7 @@ class FusedChainPlan:
         self._ai_cols = ai_cols
         self._with_gidx = bool(fsums)
         self._gidx_off = self._dp + len(descrs_f) + len(descrs_i)
+        self._fsum_cols = tuple(self._fsum_col(ref) for _state, ref in fsums)
         self._checked_cols = checked_cols
         self._f32_after_filter = f32_after_filter
         self._sizer = None
@@ -1343,6 +1352,12 @@ class FusedChainPlan:
         parts = [ctab[i * t : i * t + int(c)] for i, c in enumerate(counts) if c]
         return np.concatenate(parts) if parts else ctab[:0]
 
+    def _fsum_col(self, ref) -> tuple:
+        """(plane offset in a ctab row, kernel kind) of a float sum's column."""
+        if ref[0] == "pass":
+            return ref[1], _FSUM_KIND.get(ref[3].name, "i32")
+        return (self._dp + ref[1], "f32") if ref[0] == "f32" else (self._dp + self._nf + ref[1], "i32")
+
     def _decode_ref(self, compact: np.ndarray, ref):
         tag = ref[0]
         if tag == "pass":
@@ -1375,6 +1390,7 @@ class FusedChainPlan:
             segmented=segmented,
             ngroups=ngroups,
             tile=self._tile,
+            fsums=self._fsum_cols if segmented else (),
         )
 
     # -- streaming chain ------------------------------------------------------
@@ -1455,11 +1471,12 @@ class FusedChainPlan:
         if sp:
             trace.finish(sp)
         sp = trace.ON and trace.begin("readback", leaf=True)
-        gsum, gcnt, gmmf, gmmi, gfirst = (t.cpu().numpy() for t in out[2:])
+        gsum, gcnt, gmmf, gmmi, gfirst, fsum, nonfinite = fused_pipeline.groups_to_host(out)
         gcnt_v = gcnt[:ng]
         alive = np.flatnonzero(gcnt_v > 0)
-        # the survivors' compacted table, for the float64 sums folded on the host
-        ctab, counts = (out[0].cpu().numpy(), out[1].cpu().numpy()) if self._fsums and alive.size else (None, None)
+        # a NaN or ±inf survivor: the float64 sums folded on the host, from the compacted table
+        host_fold = bool(self._fsums and alive.size and nonfinite[0])
+        ctab, counts = (out[0].cpu().numpy(), out[1].cpu().numpy()) if host_fold else (None, None)
         if sp:
             trace.finish(sp)
         self._bump("fused_launches")
@@ -1467,6 +1484,8 @@ class FusedChainPlan:
             self._bump("transfers_overlapped")
         if alive.size == 0:
             return None
+        if self._fsums:
+            self._bump("fsum_host_folds" if host_fold else "fsum_device_folds")
         sp = trace.ON and trace.begin("decode", leaf=True)
         perm = alive[np.argsort(gfirst[:ng][alive], kind="stable")]
         st = GroupState(
@@ -1487,7 +1506,7 @@ class FusedChainPlan:
             acc[state] = gmmf[perm, j].astype(np.float64)
         for j, (state, _fn, _s) in enumerate(self._mmi):
             acc[state] = gmmi[perm, j].astype(np.int64)
-        if self._fsums:
+        if host_fold:
             compact = self._compact(ctab, counts)
             g_sel = compact[:, self._gidx_off]
             for state, ref in self._fsums:
@@ -1495,6 +1514,9 @@ class FusedChainPlan:
                 accf = np.zeros(ng, np.float64)
                 np.add.at(accf, g_sel, vals)
                 acc[state] = accf[perm]
+        else:
+            for j, (state, _ref) in enumerate(self._fsums):
+                acc[state] = fsum[perm, j]
         for name, (_init, dt) in st._state_specs().items():
             st.acc[name] = np.ascontiguousarray(np.asarray(acc[name], dt))
         if sp:

@@ -267,6 +267,10 @@ class _MorselSizer:
         self.fused_launches = 0
         self.transfers_overlapped = 0
         self.micromorsels_coalesced = 0
+        # fused folds with survivors whose float sums came from the device,
+        # or from the host (a NaN or ±inf survivor)
+        self.fsum_device_folds = 0
+        self.fsum_host_folds = 0
         self._m = None  # EWMA moments (E[r], E[t], E[r²], E[r·t])
         self._lock = threading.Lock()
 
@@ -346,6 +350,8 @@ class ExecutorStats:
             "window": sizer.window,
             "prefetch_depth": sizer.prefetch_depth,
             "fused_launches": sizer.fused_launches,
+            "fsum_device_folds": sizer.fsum_device_folds,
+            "fsum_host_folds": sizer.fsum_host_folds,
             "transfers_overlapped": sizer.transfers_overlapped,
             "micromorsels_coalesced": sizer.micromorsels_coalesced,
         }
@@ -375,6 +381,8 @@ class ExecutorStats:
             "stages_done": len(done),
             "stages_running": len(running),
             "fused_launches": sum(p.get("fused_launches", 0) for p in done + running),
+            "fsum_device_folds": sum(p.get("fsum_device_folds", 0) for p in done + running),
+            "fsum_host_folds": sum(p.get("fsum_host_folds", 0) for p in done + running),
             "transfers_overlapped": sum(p.get("transfers_overlapped", 0) for p in done + running),
             "micromorsels_coalesced": sum(p.get("micromorsels_coalesced", 0) for p in done + running),
         }

@@ -78,7 +78,8 @@ _SIGNATURES = {
         + (_L, _I, _I, _I, _I, _I, _I)  # N, tile, n_rows, t_hi, t_lo, op, kind
         + (_P, _I, _P, _I, _I) * 2  # f32 and i32 programs
         + (_P, _I, _P, _P, _I, _I, _I)  # csums, fns, with_gidx, segmented, G
-        + (_P,) * 9  # seven outputs, the ticket and the stream
+        + (_P,) * 8  # seven outputs and the ticket
+        + (_P, _P, _I, _P, _P, _P)  # float sums' offsets, kinds, count; fsum, the nonfinite flag; the stream
     ),
     # q, k, v, o, dtype, B, KV, G, S, T, hd, causal, strides, stream
     "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),

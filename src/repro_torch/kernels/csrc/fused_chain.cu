@@ -18,7 +18,10 @@
 //      computed i32 column (top limb by arithmetic shift), group counts,
 //      f32 / i32 min or max per column, and each group's smallest surviving
 //      row index.  Without it the group outputs keep their initial values:
-//      zeros, the min/max identities and 2^31-1.
+//      zeros, the min/max identities and 2^31-1;
+//   5. with float sums (a mean's partial sum, a float column's sum), each
+//      group's float64 sums over its survivors in row order
+//      (fsum_fold_kernel, below).
 //
 // Bound: bytes.  The function reads each input table once and writes ctab,
 // the counts and the group outputs once; a few f32 operations per row and
@@ -61,7 +64,8 @@
 // min/max column that holds NaN, ±inf or -0.0.  The host computes the
 // shared footprint from the plan and refuses a plan above the card's
 // 227 KB before any launch.  A call is two launches: fused_init_kernel
-// (the group outputs to their identities, 1.5 µs) and the chain.
+// (the group outputs to their identities, 1.5 µs) and the chain; a plan
+// with float sums adds fsum_fold_kernel.
 //
 // Tried and dropped (NVIDIA H100 80GB HBM3, 700 W, main morsel): one block
 // per SM walking two tiles each, so half the flushes: the chain took
@@ -76,6 +80,7 @@
 
 #define CSUM_MAX 64
 #define MM_COLS_MAX 256
+#define FSUM_MAX 64
 // 227 KB (232448 bytes) of shared memory per block, less the 128 static bytes
 // of warp_total.
 #define SHARED_MAX_BYTES 232320
@@ -103,7 +108,8 @@ struct FusedArgs {
   int32_t* gmmf;  // order-preserving keys until the decode kernel
   int32_t* gmmi;
   int32_t* gfirst;
-  int32_t* ticket;  // blocks done; the init kernel zeroes it
+  int32_t* ticket;     // blocks done; the init kernel zeroes it
+  int32_t* nonfinite;  // the float sums' flag; the init kernel zeroes it
   int64_t n_tiles;
   int n_rows;
   int P, Dp, L, Mf, Mi, Af, Ai, Dc, LS;
@@ -329,7 +335,10 @@ __global__ void fused_init_kernel(const __grid_constant__ FusedArgs a) {
   const int64_t n_f = (int64_t)a.G * a.Mf;
   const int64_t n_i = (int64_t)a.G * a.Mi;
   const int64_t total = n_sum + n_f + n_i + 2 * (int64_t)a.G;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.ticket = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.ticket = 0;
+    *a.nonfinite = 0;
+  }
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += (int64_t)gridDim.x * blockDim.x) {
     int64_t j = i;
     if (j < n_sum) { a.gsum[j] = 0; continue; }
@@ -342,6 +351,243 @@ __global__ void fused_init_kernel(const __grid_constant__ FusedArgs a) {
     j -= n_i;
     a.gfirst[j] = INT32_MAX;
   }
+}
+
+// ---------------------------------------------------------------------------
+// fsum_fold_kernel: each group's float64 sums over the survivors
+// ---------------------------------------------------------------------------
+// What it computes: for every group slot g and float-sum column c,
+// fsum[g][c] = +0.0, then += widen(v) for each survivor of g in row order
+// (tiles in order, then slots within the tile, which is the rows' order),
+// where widen is numpy's conversion of the column to float64 (float32 and
+// float16 exactly, int64 / uint64 rounded to nearest, the rest exactly):
+// bit for bit the host's np.add.at(acc, gidx, values).  A group whose
+// column holds a NaN or ±inf survivor reads the canonical NaN there and
+// raises the nonfinite flag: the host then folds the morsel itself, since
+// its x86 adds and the card's need not agree on a NaN's bits.
+//
+// Design: one block per group slot.  The block reads the tile counts and
+// the compacted gidx column from L2, from the tile of the group's first
+// surviving row (gfirst, from the chain) until it has seen the group's
+// gcnt rows, so a group whose rows lie together (ISD's station-years)
+// costs its own span, not the morsel's.  A sum in row order is a chain of
+// dependent adds, one lane long: at the benchmark's morsel (8 stations,
+// up to 8760 survivors each) the fold took 80 us in row order and 15.5 us
+// in the parallel pass (NVIDIA H100 80GB HBM3, 700 W).  So the block
+// first takes, in one parallel pass, each
+// thread's own sum, the lowest set bit's exponent lo and the magnitude
+// exponent hi (|v| < 2^hi) of the nonzero values, and their count n.
+// If ceil(log2 n) + max hi <= 53 + min lo (and <= 1024), every value is an
+// integer multiple of 2^(min lo) and every sum of any subset of them is
+// below 2^(53 + min lo): it is a double, no add in any order rounds, and
+// the block's tree sum is the exact sum that the sequential adds reach
+// too (a zero sum made +0.0, as a sequence from +0.0 gives).  Float32
+// values a few decades apart meet it (ISD temperatures: 33 bits to spare
+// over 65536 rows).  Where a column does not, the block passes over the
+// rows again: a block-wide stable prefix sum stages each window's values
+// in shared memory in row order, and one lane per column adds them in
+// sequence with __dadd_rn.  No atomics touch the float adds.
+enum { FS_F32 = 0, FS_F64 = 1, FS_I32 = 2, FS_U32 = 3, FS_I64 = 4, FS_U64 = 5, FS_F16 = 6 };
+
+#define FOLD_THREADS 1024
+#define FOLD_UNROLL 8  // slots a thread reads at once in the parallel pass
+#define FOLD_CHUNK 4   // float-sum columns one pass carries
+
+struct FsumArgs {
+  const int32_t* ctab;
+  const int32_t* counts;
+  const int32_t* gcnt;
+  const int32_t* gfirst;
+  double* fsum;  // (G, nfs)
+  int32_t* nonfinite;
+  int n;  // slots: N rows, tile-padded
+  int tile, Dc, nfs;
+  int off[FSUM_MAX];   // first plane of each column in a ctab row
+  int kind[FSUM_MAX];  // FS_*
+};
+
+__device__ __forceinline__ double fsum_widen(const int32_t* row, int off, int kind) {
+  const int32_t w = __ldg(row + off);
+  switch (kind) {
+    case FS_F32:
+      return (double)__int_as_float(w);  // -ftz=false: denormals kept
+    case FS_F64:
+      return __hiloint2double(w, __ldg(row + off + 1));
+    case FS_I32:
+      return (double)w;
+    case FS_U32:
+      return (double)(uint32_t)w;
+    case FS_I64:
+      return __ll2double_rn((long long)(((uint64_t)(uint32_t)w << 32) | (uint32_t)__ldg(row + off + 1)));
+    case FS_U64:
+      return __ull2double_rn(((unsigned long long)(uint32_t)w << 32) | (uint32_t)__ldg(row + off + 1));
+    default: {  // FS_F16: the half's bits in the plane's low 16
+      const int e = (w >> 10) & 31;
+      const int m = w & 1023;
+      double mag;
+      if (e == 31) {
+        mag = __longlong_as_double(m ? 0x7FF8000000000000LL : 0x7FF0000000000000LL);
+      } else {
+        mag = e ? ldexp((double)(1024 + m), e - 25) : ldexp((double)m, -24);
+      }
+      return (w & 0x8000) ? -mag : mag;
+    }
+  }
+}
+
+__device__ __forceinline__ bool fsum_nonfinite(double v) {
+  return (__double_as_longlong(v) & 0x7FF0000000000000LL) == 0x7FF0000000000000LL;
+}
+
+// For v != 0: lo = the exponent of v's lowest set bit, hi with |v| < 2^hi.
+__device__ __forceinline__ void fsum_exps(double v, int* lo, int* hi) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v) & 0x7FFFFFFFFFFFFFFFull;
+  const int eb = (int)(b >> 52);
+  unsigned long long m = b & 0xFFFFFFFFFFFFFull;
+  int scale = -1074;  // subnormal: v = m * 2^-1074
+  if (eb != 0) {
+    m |= 1ull << 52;
+    scale = eb - 1075;
+  }
+  *lo = scale + __ffsll((long long)m) - 1;
+  *hi = scale + 64 - __clzll((long long)m);
+}
+
+// The block's fold of v by op (id its identity); every thread gets it.
+// Butterflies over the lanes, then over the warps' results.
+template <typename T, typename Op>
+__device__ __forceinline__ T fold_block(T v, Op op, T id, T* part) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, d));
+  __syncthreads();  // part is free from its last use
+  if (lane == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? part[lane] : id;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, d));
+  return v;
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS) fsum_fold_kernel(const __grid_constant__ FsumArgs a) {
+  __shared__ double s_vals[FOLD_CHUNK][FOLD_THREADS];  // one window's values in row order
+  __shared__ double s_dpart[32];
+  __shared__ int s_ipart[32];
+  __shared__ int warp_total[32];
+  const int g = blockIdx.x;
+  const int t = threadIdx.x;
+  const int gcol = a.Dc - 1;
+  const int want = a.gcnt[g];  // the group's survivors
+  const int start = want > 0 ? a.gfirst[g] / a.tile * a.tile : a.n;
+  const auto add = [](double x, double y) { return __dadd_rn(x, y); };
+  const auto isum = [](int x, int y) { return x + y; };
+  const auto imin = [](int x, int y) { return x < y ? x : y; };
+  const auto imax = [](int x, int y) { return x > y ? x : y; };
+  bool bad_any = false;
+
+  for (int c0 = 0; c0 < a.nfs; c0 += FOLD_CHUNK) {
+    const int nc = dacp_imin(FOLD_CHUNK, a.nfs - c0);
+    double acc[FOLD_CHUNK];
+    int lo[FOLD_CHUNK], hi[FOLD_CHUNK], nz[FOLD_CHUNK], bad[FOLD_CHUNK];
+#pragma unroll
+    for (int j = 0; j < FOLD_CHUNK; ++j) acc[j] = 0.0, lo[j] = INT32_MAX, hi[j] = INT32_MIN, nz[j] = 0, bad[j] = 0;
+
+    // the parallel pass: each thread's sums and exponents, in any order
+    int seen = 0;  // block-uniform
+    for (int s0 = start; s0 < a.n && seen < want; s0 += FOLD_THREADS * FOLD_UNROLL) {
+      bool hit[FOLD_UNROLL];
+#pragma unroll
+      for (int u = 0; u < FOLD_UNROLL; ++u) {  // both loads at once: a tile's tail rows are zero
+        const int s = s0 + u * FOLD_THREADS + t;
+        const int tl = s / a.tile;
+        const bool in = s < a.n;
+        const int cnt = in ? __ldg(a.counts + tl) : 0;
+        const int gid = in ? __ldg(a.ctab + (int64_t)s * a.Dc + gcol) : -1;
+        hit[u] = s - tl * a.tile < cnt && gid == g;
+      }
+      int h = 0;
+#pragma unroll
+      for (int u = 0; u < FOLD_UNROLL; ++u) {
+        if (!hit[u]) continue;
+        ++h;
+        const int32_t* row = a.ctab + (int64_t)(s0 + u * FOLD_THREADS + t) * a.Dc;
+#pragma unroll
+        for (int j = 0; j < FOLD_CHUNK; ++j) {
+          if (j >= nc) break;
+          const double v = fsum_widen(row, a.off[c0 + j], a.kind[c0 + j]);
+          if (fsum_nonfinite(v)) {
+            bad[j] = 1;
+          } else if (v != 0.0) {
+            int l, e;
+            fsum_exps(v, &l, &e);
+            acc[j] = __dadd_rn(acc[j], v);
+            lo[j] = dacp_imin(lo[j], l);
+            hi[j] = dacp_imax(hi[j], e);
+            ++nz[j];
+          }
+        }
+      }
+      seen += fold_block(h, isum, 0, s_ipart);
+    }
+
+    unsigned seq = 0;  // columns whose sum needs the rows' order
+    double res = 0.0;  // thread t's column, for t < nc
+#pragma unroll
+    for (int j = 0; j < FOLD_CHUNK; ++j) {
+      if (j >= nc) break;
+      const double sum = fold_block(acc[j], add, 0.0, s_dpart);
+      const int l = fold_block(lo[j], imin, (int)INT32_MAX, s_ipart);
+      const int e = fold_block(hi[j], imax, (int)INT32_MIN, s_ipart);
+      const int n = fold_block(nz[j], isum, 0, s_ipart);
+      const int b = fold_block(bad[j], imax, 0, s_ipart);
+      const int clog = n > 1 ? 32 - __clz(n - 1) : 0;
+      double out = 0.0;
+      if (b) {
+        out = __longlong_as_double(0x7FF8000000000000LL);
+        bad_any = true;
+      } else if (n > 0) {
+        if (clog + e <= 53 + l && clog + e <= 1024) {
+          out = __dadd_rn(sum, 0.0);  // a zero sum as +0.0
+        } else {
+          seq |= 1u << j;
+        }
+      }
+      if (j == t) res = out;
+    }
+
+    if (seq) {  // the ordered pass: windows staged in row order, one lane a column adds them
+      double run = 0.0;
+      seen = 0;
+      for (int s0 = start; s0 < a.n && seen < want; s0 += FOLD_THREADS) {
+        const int s = s0 + t;
+        const int tl = s / a.tile;
+        const bool in = s < a.n;
+        const int cnt = in ? __ldg(a.counts + tl) : 0;
+        const int gid = in ? __ldg(a.ctab + (int64_t)s * a.Dc + gcol) : -1;
+        const bool m = s - tl * a.tile < cnt && gid == g;
+        int total;
+        const int slot = dacp_block_slot(m, warp_total, &total);
+        if (total == 0) continue;
+        seen += total;
+        if (m) {
+          const int32_t* row = a.ctab + (int64_t)s * a.Dc;
+#pragma unroll
+          for (int j = 0; j < FOLD_CHUNK; ++j)
+            if ((seq >> j) & 1u) s_vals[j][slot] = fsum_widen(row, a.off[c0 + j], a.kind[c0 + j]);
+        }
+        __syncthreads();
+        if (t < FOLD_CHUNK && ((seq >> t) & 1u)) {
+          const double* vals = s_vals[t];
+#pragma unroll 8
+          for (int i = 0; i < total; ++i) run = __dadd_rn(run, vals[i]);
+        }
+        __syncthreads();  // the window's values are added
+      }
+      if (t < FOLD_CHUNK && ((seq >> t) & 1u)) res = run;
+    }
+    if (t < nc) a.fsum[(int64_t)g * a.nfs + c0 + t] = res;
+  }
+  if (t == 0 && bad_any) *a.nonfinite = 1;
 }
 
 static size_t fused_shared_bytes(int G, int LS, int Mf, int Mi) {
@@ -391,7 +637,10 @@ static cudaError_t fused_grid_cap(Kernel* kernel, int tile, size_t shmem, int64_
 // that the fold sums; fns_*[j] != 0 takes the max of column j.  Writes ctab
 // (N, Dp + nf + ni + with_gidx), counts (N / tile), gsum (G, L + 4·ncs),
 // gcnt (G), gmmf (G, Mf), gmmi (G, Mi) and gfirst (G); ticket is one int32
-// of scratch.
+// of scratch.  With nfs > 0 (which needs with_gidx and segmented), column
+// j of the float sums starts at plane fs_off[j] of a ctab row and widens
+// as fs_kind[j] (FS_*): fsum_fold_kernel writes fsum (G, nfs) float64 and
+// the nonfinite flag (one int32, zeroed by the init kernel either way).
 DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, const int32_t* pass, int Dp,
                               const int32_t* limb, int L, const void* mmf, int Mf, const int32_t* mmi, int Mi,
                               const float* af, int Af, const int32_t* ai, int Ai, int64_t N, int tile, int n_rows,
@@ -400,11 +649,12 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
                               const uint32_t* lits_i, int n_lits_i, int ni, const int* csums, int ncs,
                               const int* fns_f, const int* fns_i, int with_gidx, int segmented, int G,
                               int32_t* ctab, int32_t* counts, int32_t* gsum, int32_t* gcnt, void* gmmf,
-                              int32_t* gmmi, int32_t* gfirst, int32_t* ticket, void* stream) {
+                              int32_t* gmmi, int32_t* gfirst, int32_t* ticket, const int* fs_off,
+                              const int* fs_kind, int nfs, double* fsum, int32_t* nonfinite, void* stream) {
   if (tile <= 0 || tile > 1024 || (tile & 31) || N < 0 || N % tile || op < 0 || op > 5 || kind < 0 || kind > 3 ||
       P < (kind == KIND_I64 ? 2 : 1) || Dp < 0 || L < 0 || Mf < 1 || Mi < 1 || Mf > MM_COLS_MAX ||
       Mi > MM_COLS_MAX || Af < 1 || Ai < 1 || nf < 0 || ni < 0 || ncs < 0 || ncs > CSUM_MAX || G <= 0 ||
-      ticket == nullptr)
+      ticket == nullptr || nonfinite == nullptr || nfs < 0 || nfs > FSUM_MAX)
     return (int)cudaErrorInvalidValue;
   if ((nf > 0 && !dacp_program_ok(code_f, n_code_f, n_lits_f, Af, nf, true)) ||
       (ni > 0 && !dacp_program_ok(code_i, n_code_i, n_lits_i, Ai, ni, false)))
@@ -413,6 +663,28 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   const size_t acc_bytes = segmented ? (fused_shared_bytes(G, LS, Mf, Mi) + 15) / 16 * 16 : 0;
   if (acc_bytes > SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
   const int Dc = Dp + nf + ni + (with_gidx ? 1 : 0);
+  FsumArgs fa = {};
+  if (nfs > 0) {  // the fold reads each column's planes and the gidx column of a ctab row
+    if (!with_gidx || !segmented || fsum == nullptr || N > INT32_MAX - FOLD_THREADS * FOLD_UNROLL)
+      return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < nfs; ++j) {
+      const int width = fs_kind[j] == FS_F64 || fs_kind[j] == FS_I64 || fs_kind[j] == FS_U64 ? 2 : 1;
+      if (fs_kind[j] < FS_F32 || fs_kind[j] > FS_F16 || fs_off[j] < 0 || fs_off[j] + width > Dc - 1)
+        return (int)cudaErrorInvalidValue;
+      fa.off[j] = fs_off[j];
+      fa.kind[j] = fs_kind[j];
+    }
+    fa.ctab = ctab;
+    fa.counts = counts;
+    fa.gcnt = gcnt;
+    fa.gfirst = gfirst;
+    fa.fsum = fsum;
+    fa.nonfinite = nonfinite;
+    fa.n = (int)N;
+    fa.tile = tile;
+    fa.Dc = Dc;
+    fa.nfs = nfs;
+  }
   const size_t stage_bytes = sizeof(int32_t) * (size_t)tile * Dc;
   const bool stage = acc_bytes + stage_bytes <= SHARED_MAX_BYTES;  // else rows go straight to ctab
   const size_t shmem = acc_bytes + (stage ? stage_bytes : 0);
@@ -434,6 +706,7 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   a.gmmi = gmmi;
   a.gfirst = gfirst;
   a.ticket = ticket;
+  a.nonfinite = nonfinite;
   a.n_tiles = N / tile;
   a.n_rows = n_rows;
   a.P = P;
@@ -478,5 +751,6 @@ DACP_API int dacp_fused_chain(const int32_t* pred, int P, const int32_t* gidx, c
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)dacp_imax(1, (int)dacp_min64(a.n_tiles, cap));
   kernel<<<grid, tile, shmem, s>>>(a, prog_f, prog_i);
+  if (nfs > 0) fsum_fold_kernel<<<G, FOLD_THREADS, 0, s>>>(fa);
   return dacp_last_error();
 }

@@ -250,6 +250,128 @@ def test_fused_chain_composes_with_spill(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the float sums, folded on the device
+# ---------------------------------------------------------------------------
+_FSUM_CASES = ["order", "zeros-denormals", "one-survivor", "all-survive", "none-survive", "int-mean"]
+
+
+def _fsum_arrays(case: str):
+    """(arrays, aggs, morsels with survivors) of one float-sum case: three
+    groups, each six-row pattern whole in one group, four 200-row morsels."""
+    rng = np.random.default_rng(60 + _FSUM_CASES.index(case))
+    n = N_ROWS
+    i = np.arange(n)
+    k = (i // 6 % 3).astype(np.int32)
+    keep = (rng.random(n) < 0.8).astype(np.int32)
+    a = (rng.standard_normal(n) * 30).astype(np.float32)
+    b = rng.standard_normal(n) * 1e3
+    if case == "order":  # sums the rows' order decides
+        a = np.resize(np.array([1e16, 1.0, -1e16, 1.0, 3.0e-8, -0.5], np.float32), n)
+        b = np.resize([1e16, 1.0, -1e16, 1.0, 2.0**-30, -1e-300], n)
+    elif case == "zeros-denormals":  # group 2: only -0.0
+        a = np.resize(np.array([-0.0, 1e-45, -1e-45, 3e-39, -0.0, -2.5e-40], np.float32), n)
+        b = np.resize([-0.0, 5e-324, -0.0, 2.2250738585072014e-308, -5e-324, -0.0], n)
+        k = np.where(i % 6 == 0, 2, i % 2).astype(np.int32)
+    elif case == "one-survivor":  # group 1: one survivor a morsel
+        keep[k == 1] = 0
+        keep[[int(np.flatnonzero(k[m : m + 200] == 1)[0]) + m for m in range(0, n, 200)]] = 1
+    elif case == "all-survive":
+        keep[:] = 1
+    elif case == "none-survive":  # the second morsel: none
+        keep[200:400] = 0
+    arrays = {"k": k, "keep": keep, "a": a, "b": b}
+    aggs = {"n": {"fn": "count"}, "sa": {"fn": "sum", "column": "a"}, "ma": {"fn": "mean", "column": "a"},
+            "sb": {"fn": "sum", "column": "b"}, "mb": {"fn": "mean", "column": "b"}, "sc": {"fn": "sum", "column": "c"}}
+    if case == "int-mean":  # integer columns widen to float64, int64 / uint64 past 2^53 to the nearest double
+        arrays.update(
+            i64=rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+            u64=rng.integers(2**63, 2**64 - 1, n, dtype=np.uint64),
+            i32=rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32),
+            u32=rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+            i8=rng.integers(-128, 128, n).astype(np.int8),
+            u16=rng.integers(0, 2**16, n).astype(np.uint16), f16=rng.standard_normal(n).astype(np.float16),
+            flag=rng.integers(0, 2, n).astype(bool))
+        aggs = {f"m_{c}": {"fn": "mean", "column": c} for c in ("i64", "u64", "i32", "u32", "i8", "u16", "f16", "flag")}
+    return arrays, aggs, 3 if case == "none-survive" else 4
+
+
+def _fsum_chain(aggs):
+    return _chain([("filter", lambda c: {"predicate": c("keep") == 1}),
+                   ("project", lambda c: {"exprs": {"c": c("a") * 0.5}, "keep": True}),
+                   ("aggregate", lambda c: {"keys": ["k"], "aggs": aggs})])
+
+
+@pytest.mark.parametrize("case", _FSUM_CASES)
+def test_fused_float_sums_fold_on_the_device_like_numpy(case):
+    """Float sums and means' partial sums of float32, float64, computed
+    float32 and integer columns come from the fused launch, bit for bit
+    numpy's: sums the rows' order decides (1e16, 1, -1e16), -0.0 and
+    denormals (a group of -0.0 alone sums to +0.0), a group with one
+    survivor, a morsel where every row or none survives, integers past
+    2^53.  ``fsum_device_folds`` counts the morsels with survivors."""
+    arrays, aggs, alive = _fsum_arrays(case)
+    got, stats, calls, want = _port_vs_numpy(_fsum_chain(aggs), arrays)
+    _assert_byte_identical(got, want)
+    prog = stats.progress()
+    assert prog["fused_launches"] == 4 and calls == 0
+    assert prog["fsum_device_folds"] == alive and prog["fsum_host_folds"] == 0
+    if case == "zeros-denormals":
+        g2 = int(np.flatnonzero(got.column("k").values == 2)[0])
+        assert got.column("sa").values[g2 : g2 + 1].tobytes() == np.zeros(1).tobytes()
+
+
+@pytest.mark.parametrize("special", ["nan", "inf", "both-infs"])
+def test_fused_float_sum_over_nan_or_inf_folds_on_the_host(special):
+    """A NaN (with a payload) or ±inf survivor in a float-sum column: that
+    morsel's sums are folded on the host from the compacted table, as
+    before, and give numpy's bits; the other morsels' come from the
+    device."""
+    arrays, aggs, _alive = _fsum_arrays("all-survive")
+    a = arrays["a"]
+    if special == "nan":
+        a[250] = _NAN_A
+    elif special == "inf":
+        a[250] = np.inf
+    else:
+        a[250], a[256] = np.inf, -np.inf  # rows 250 and 256: both in group 2
+    got, stats, _calls, want = _port_vs_numpy(_fsum_chain(aggs), arrays)
+    _assert_byte_identical(got, want)
+    prog = stats.progress()
+    assert prog["fused_launches"] == 4
+    assert prog["fsum_host_folds"] == 1 and prog["fsum_device_folds"] == 3
+
+
+@pytest.mark.parametrize("chain", ["fold-without-float-sums", "streaming-run"])
+def test_chains_without_float_sums_launch_no_fold(chain, monkeypatch):
+    """A fold whose aggregates hold no float sum (count, integer sums,
+    min/max) and a streaming filter/project chain pass no float sums to the
+    launch, and neither fold counter moves."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops.fused_chain_tiles
+
+    def spy(*args, **static):
+        seen.append(static["fsums"])
+        return real(*args, **static)
+
+    monkeypatch.setattr(ops, "fused_chain_tiles", spy)
+    if chain == "fold-without-float-sums":
+        aggs = {"n": {"fn": "count"}, "s64": {"fn": "sum", "column": "i64_d"}, "lo": {"fn": "min", "column": "f32_b"},
+                "hi": {"fn": "max", "column": "u8_f"}}
+        build = _chain(_agg_links(aggs))
+    else:
+        build = _chain([("filter", lambda c: {"predicate": c("f32_a") > -0.25}),
+                        ("project", lambda c: {"exprs": {"c": c("f32_a") * 3.0}, "keep": True}),
+                        ("select", lambda c: {"columns": ["c", "f64_c", "i64_d"]})])
+    got, stats, _calls, want = _port_vs_numpy(build, _random_arrays(np.random.default_rng(29)))
+    _assert_byte_identical(got, want)
+    prog = stats.progress()
+    assert prog["fused_launches"] == len(seen) == 4 and all(f == () for f in seen)
+    assert prog["fsum_device_folds"] == 0 and prog["fsum_host_folds"] == 0
+
+
+# ---------------------------------------------------------------------------
 # staging and CANCEL (tests/test_executor.py)
 # ---------------------------------------------------------------------------
 def test_cancel_mid_batch_clears_staged_buffers(monkeypatch):

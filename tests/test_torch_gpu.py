@@ -423,13 +423,15 @@ def _fused_edge_case(label):
 
 @pytest.mark.parametrize(
     "label",
-    ["main", "wide", "stream-i64", "specials", "one-group", "no-survivors", "few-tiles", "ragged-rows", "shared-limit"],
+    ["main", "wide", "stream-i64", "specials", "cell", "one-group", "no-survivors", "few-tiles", "ragged-rows",
+     "shared-limit"],
 )
 def test_fused_chain_kernel(dev, label):
-    """The four configurations ``chip_smoke.py`` checks (the fused aggregate
-    COOK's morsel, the widest envelope, a streaming int64-predicate chain
-    and special values in every table) and the grid's edge cases, bit for
-    bit against the plain version."""
+    """The five configurations ``chip_smoke.py`` checks (the fused aggregate
+    COOK's morsel, the widest envelope, a streaming int64-predicate chain,
+    special values in every table and the benchmark cell's morsel with its
+    float sums) and the grid's edge cases, bit for bit against the plain
+    version."""
     from repro_torch.kernels import fused_pipeline
 
     cases = {lb: (arrays, static) for lb, arrays, static in _smoke()._fused_cases(np.random.default_rng(5))}
@@ -440,6 +442,92 @@ def test_fused_chain_kernel(dev, label):
     assert fused_pipeline.launches.value > 0
     for g, w in zip(got, want):
         assert _bits(g) == _bits(w)
+
+
+_FOLD_CASES = ["cell", "zipf-120", "zipf-256", "ragged", "ordered", "wide-kinds", "nonfinite"]
+
+
+def _fold_case(label):
+    """(numpy inputs, static args) of a float-sum fold at the cell's morsel
+    shape: 65536 rows of temperatures (the cell's two float sums) over
+    station-years, or over 120 or 256 Zipf-skewed groups, a ragged tail,
+    values a sum in row order must keep in order, float64 and the wide
+    integer kinds, and NaN / ±inf survivors."""
+    smoke = _smoke()
+    rng = np.random.default_rng(_FOLD_CASES.index(label))
+    arrays, static = smoke._cell_morsel(rng)
+    arrays, static = [np.array(a) for a in arrays], dict(static)
+    n = arrays[3].shape[0]
+    temp = arrays[7][:, 0]
+    if label in ("zipf-120", "zipf-256", "ragged", "wide-kinds", "nonfinite"):
+        g = 256 if label == "zipf-256" else 120
+        arrays[2], static["ngroups"] = smoke._skewed_groups(rng, n, g), g
+    if label == "ragged":
+        arrays[0][0] = n - 3 * TILE - 17
+    elif label == "ordered":  # 3.0e7 beside tenths of a degree: the sums round
+        temp[::97] = np.float32(3.0e7)
+    elif label == "nonfinite":
+        temp[1000::5000] = np.inf
+        temp[1003::7000] = -np.inf  # filtered out: only +inf survives `temp > base`
+    elif label == "wide-kinds":  # [t | f64 hi, lo | i64 hi, lo | u64 hi, lo | u32], then dh
+        f64 = rng.standard_normal(n) * 10.0 ** rng.integers(-5, 6, n)
+        f64[np.flatnonzero(temp > np.float32(12.5))[7::4096]] = np.nan
+        i64 = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+        u64 = rng.integers(2**63, 2**64 - 1, n, dtype=np.uint64)
+        u32 = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+        arrays[3] = np.concatenate([arrays[3], smoke._i64_words(f64.view(np.int64)), smoke._i64_words(i64),
+                                    smoke._i64_words(u64.view(np.int64)), u32.reshape(n, 1)], axis=1)
+        static["fsums"] = ((0, "f32"), (1, "f64"), (3, "i64"), (5, "u64"), (7, "u32"), (8, "f32"))
+    arrays[1] = temp.view(np.int32).reshape(n, 1).copy()
+    if label != "wide-kinds":
+        arrays[3] = arrays[1].copy()
+    return arrays, static
+
+
+def _add_at_fsums(arrays, static):
+    """The float sums by ``np.add.at`` over the survivors in row order, NaN
+    where a group's column holds a NaN or ±inf, and the flag."""
+    scalars, pred, gidx, pass_tbl, af = arrays[0], arrays[1], arrays[2], arrays[3], arrays[7]
+    base = static["descrs_f"][0][2][1]
+    n = pass_tbl.shape[0]
+    mask = (np.arange(n) < scalars[0]) & (pred[:, 0].view(np.float32) > np.float32(base))
+    with np.errstate(all="ignore"):
+        dh = af[:, 0] - np.float32(base)
+    planes = np.concatenate([pass_tbl, dh.view(np.int32).reshape(n, 1)], axis=1)[mask]
+    g, g_n = gidx[mask], static["ngroups"]
+    out, bad = np.zeros((g_n, len(static["fsums"]))), np.zeros((g_n, len(static["fsums"])), bool)
+    for j, (off, kind) in enumerate(static["fsums"]):
+        w = planes[:, off]
+        if kind in ("f64", "i64", "u64"):
+            word = (w.astype(np.int64) << 32) | planes[:, off + 1].view(np.uint32).astype(np.int64)
+            vals = word.view({"f64": np.float64, "i64": np.int64, "u64": np.uint64}[kind]).astype(np.float64)
+        else:
+            vals = w.view({"f32": np.float32, "u32": np.uint32}[kind]).astype(np.float64)
+        with np.errstate(all="ignore"):
+            np.add.at(out[:, j], g, vals)
+        bad[g[~np.isfinite(vals)], j] = True
+    out[bad] = np.nan
+    return out, int(bad.any())
+
+
+@pytest.mark.parametrize("label", _FOLD_CASES)
+def test_fused_float_sums_on_the_card(dev, label):
+    """The fold kernel's float sums and flag at the cell's morsel shape, bit
+    for bit against the plain version and against ``np.add.at`` in row
+    order; every output read back through the one pinned copy equals its
+    own read."""
+    from repro_torch.kernels import fused_pipeline
+
+    arrays, static = _fold_case(label)
+    t_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[1:]]
+    got = fused_pipeline.fused_chain_tiles(arrays[0], *(t.to(dev) for t in t_cpu), **static, tile=TILE)
+    want = fused_pipeline.fused_chain_tiles_plain(arrays[0], *t_cpu, **static, tile=TILE)
+    for g, w in zip(got, want):
+        assert _bits(g) == _bits(w)
+    fsum, flag = _add_at_fsums(arrays, static)
+    assert _bits(got[7]) == fsum.tobytes() and got[8].item() == flag
+    assert flag == (label in ("wide-kinds", "nonfinite"))
+    assert [a.tobytes() for a in fused_pipeline.groups_to_host(got)] == [_bits(t) for t in got[2:]]
 
 
 def _fused_plans(n=65536):
