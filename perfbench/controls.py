@@ -1,6 +1,7 @@
 """Readings that set a cell's limits: the program's compared numbers over
 many seeds, and the control's (the reference in the precision below the
-configuration's) on the same requests, in one process.
+configuration's, as the cell's traffic driver declares it in ``CONTROL``)
+on the same requests, in one process.
 
     python3 perfbench/controls.py --workload <cell> --seeds 11,12,13 --seconds 8
 
@@ -21,8 +22,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from perfbench import harness  # noqa: E402
 
-CONTROLS = {"cook": "float32"}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -33,9 +32,9 @@ def main(argv=None) -> int:
     harness.prepare_environment()
     for seed in (int(s) for s in args.seeds.split(",")):
         cell = harness.find_cell(args.workload, seed, args.seconds, False)
-        driver = harness.traffic_driver(cell.params["kind"])
+        driver = harness.driver(cell)
         t = time.perf_counter()
-        run = driver.run(cell, t, control=CONTROLS[cell.params["kind"]])
+        run = driver.run(cell, t, control=driver.CONTROL.name)
         line = {"workload": cell.name, "seed": seed, "attempted": run.attempted, "failed": run.failed,
                 "checks": {c.name: c.value for c in run.checks}, "limits": {c.name: c.limit for c in run.checks},
                 "control": run.facts.get("control"), "samples": run.samples, "seconds": time.perf_counter() - t}

@@ -4,15 +4,25 @@ clocks and the trace, and builds the result line.
 A cell is ``workloads/<cell>.json`` (its configuration, traffic kind and
 traffic parameters).  Its configuration is ``BENCHMARK.json``'s entry of
 that name, whose ``file`` holds the sizes.  Its traffic kind is the driver
-``traffic/<kind>.py``, whose ``run(cell)`` drives the program for the window
-and returns a ``Run``.  Each per-layer metric is the reader
-``metrics/<name>.py``, whose ``read(run)`` returns a number or None (nothing
-to read there).  A new configuration, traffic mix or metric is a new file
-and an entry in ``BENCHMARK.json``: nothing here names one.
+``traffic/<kind>.py`` (``driver(cell)``), which holds all that the
+benchmark's tools and tests know of the kind:
+
+- ``run(cell, t_start, control=None)`` drives the program for the window
+  and returns a ``Run``; with ``control`` (its ``CONTROL.name``) it also
+  reads the control on the same requests, into ``facts["control"]``;
+- ``CONTROL``, a ``Control``: the control's name, the ``Check`` it has to
+  fail, and a window that compares as many requests as a run does;
+- ``tiny(cell)`` returns the cell at a size a CPU test holds.
+
+Each per-layer metric is the reader ``metrics/<name>.py``, whose
+``read(run)`` returns a number or None (nothing to read there).  A new
+configuration, traffic kind or mix, or metric is new files and entries in
+``BENCHMARK.json``: nothing here names one.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -20,6 +30,9 @@ import os
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
+
+from perfbench import spans
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -73,6 +86,15 @@ def metric_reader(name: str):
     return _load("metrics", name)
 
 
+class Control(NamedTuple):
+    """A traffic kind's control: the reference put in the program's place in
+    the precision below the configuration's."""
+
+    name: str  # handed to the driver's run(..., control=name)
+    check: str  # the Check whose number the control has to fail
+    seconds: float  # a window that finishes and compares as many requests as a run does
+
+
 @dataclasses.dataclass
 class Cell:
     """One entry of ``workloads``, with everything it names read in."""
@@ -111,6 +133,11 @@ def find_cell(name: str, seed: int, seconds: float, trace: bool, bench: dict | N
     return Cell(name, entry, params, load_json(ROOT / conf["file"]), e2e, layer, seed, seconds, trace)
 
 
+def driver(cell: Cell):
+    """The cell's traffic driver, with its ``run``, ``CONTROL`` and ``tiny``."""
+    return traffic_driver(cell.params["kind"])
+
+
 # ---------------------------------------------------------------------------
 # clocks and statistics
 # ---------------------------------------------------------------------------
@@ -129,15 +156,16 @@ def rate(completions, window_start: float, window_end: float):
 # the trace
 # ---------------------------------------------------------------------------
 class Trace:
-    """A ``torch.profiler`` window over part of the measured window.
+    """A ``torch.profiler`` window over the measured window or part of it.
 
     ``start()`` / ``stop()`` bound it.  After ``stop()``: ``kernels`` {name:
     device seconds}, ``launches`` {name: count}, ``busy_s`` (the union of the
     device's activity), ``window_s`` and ``intervals`` (the device's
     activity, merged, ns)."""
 
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, host_ops: bool = True):
         self.enabled = enabled
+        self.host_ops = host_ops  # False: the card's activity alone (and the CUDA calls that start it)
         self.prof = None
         self.window_s = 0.0
         self.busy_s = 0.0
@@ -157,9 +185,12 @@ class Trace:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=self._activities(ProfilerActivity)):
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
+
+    def _activities(self, kinds) -> list:
+        return [kinds.CPU, kinds.CUDA] if self.host_ops else [kinds.CUDA]
 
     def start(self) -> None:
         if not self.enabled:
@@ -168,7 +199,7 @@ class Trace:
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
-        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof = profile(activities=self._activities(ProfilerActivity))
         self.prof.__enter__()
         self._t0 = time.perf_counter()
 
@@ -213,10 +244,12 @@ class Trace:
     def kernel_launches(self, *patterns: str) -> int:
         return sum(v for k, v in self.launches.items() if any(p in k for p in patterns))
 
-    def breakdown(self) -> dict:
+    def breakdown(self, window=None) -> dict:
         """The device operations that took most time, and the longest idle
-        gaps of the device, each named by the host operation that was
-        running through its middle (the outermost one)."""
+        gaps of the device.  A gap is named by the program's innermost spans
+        open through its middle, on any thread (``window``, a
+        ``spans.Window``), counted by name, most frequent first; where none
+        is open there, by the host operation that was (the outermost one)."""
         ops = sorted(self.kernels.items(), key=lambda kv: -kv[1])[:10]
         gaps = []
         for (_s0, e0), (s1, _e1) in zip(self.intervals, self.intervals[1:]):
@@ -225,10 +258,19 @@ class Trace:
         named = []
         for length, e0, s1 in gaps[:10]:
             mid = (e0 + s1) // 2
-            around = [(s, e, n) for s, e, n in self.host if s <= mid <= e]
-            label = min(around, key=lambda t: t[0])[2] if around else "host"
+            label = _count_names(window.innermost(mid)) if window is not None else ""
+            if not label:
+                around = [(s, e, n) for s, e, n in self.host if s <= mid <= e]
+                label = min(around, key=lambda t: t[0])[2] if around else "host"
             named.append([label[:96], length * 1e-9])
         return {"device_ops": [[k[:96], v] for k, v in ops], "idle_gaps": named}
+
+
+def _count_names(names) -> str:
+    """``stage×3,source``: each name with its count past one, most frequent
+    first (then by name)."""
+    order = sorted(collections.Counter(names).items(), key=lambda kv: (-kv[1], kv[0]))
+    return ",".join(n if k == 1 else f"{n}×{k}" for n, k in order)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +335,7 @@ def result_line(cell: Cell, run: Run, setup_s: float) -> dict:
     if cell.trace and run.trace.prof is None and run.trace.enabled:
         dev["busy_s"] = run.trace.busy_s
         dev["window_s"] = run.trace.window_s
-        out["breakdown"] = run.trace.breakdown()
+        out["breakdown"] = run.trace.breakdown(spans.of(run))
     out["checks"] = {c.name: {"value": c.value, "limit": c.limit} for c in run.checks}
     return out
 

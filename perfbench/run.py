@@ -54,8 +54,7 @@ def main(argv=None) -> int:
 def run_cell(cell, t_start: float) -> dict:
     """Drive the cell's traffic and build its line; the checks go to
     standard error as its last lines."""
-    driver = harness.traffic_driver(cell.params["kind"])
-    run = driver.run(cell, t_start)
+    run = harness.driver(cell).run(cell, t_start)
     line = harness.result_line(cell, run, run.facts["setup_s"])
     if cell.trace:
         print(f"perfbench: trace events read (device, host): {run.trace.events}", file=sys.stderr)

@@ -25,7 +25,7 @@ EXECUTOR_HOST = ("source", "stage", "morsel", "merge", "finalize")
 
 @dataclasses.dataclass
 class Window:
-    spans: list  # [(name, start ns, end ns, thread CPU ns or None, request id)] on the profiler's clock
+    spans: list  # [(name, start ns, end ns, thread CPU ns or None, request id, span id, parent id)], profiler's clock
     lo: int  # the recorded part of the traced window, on the profiler's clock
     hi: int
     idle: list  # [[start, end]]: the part of [lo, hi] in which the card ran nothing
@@ -40,11 +40,18 @@ class Window:
         out = [[s[1], s[2]] for s in self.named("cook")]
         have = {s[4] for s in self.named("cook")}
         extent: dict = {}
-        for name, start, end, _cpu, request in self.named(*EXECUTOR_HOST):
+        for name, start, end, _cpu, request, *_ids in self.named(*EXECUTOR_HOST):
             if request not in have:
                 lo, hi = extent.get(request, (start, end))
                 extent[request] = (min(lo, start), max(hi, end))
         return merge(out + [list(v) for v in extent.values()])
+
+    def innermost(self, t: int) -> list:
+        """The names of the spans open at ``t`` (profiler's clock) that no
+        span open at ``t`` has as its parent, on any thread."""
+        open_ = [s for s in self.spans if s[1] <= t < s[2]]
+        parents = {s[6] for s in open_}
+        return [s[0] for s in open_ if s[5] not in parents]
 
 
 def of(run) -> Window | None:
@@ -83,8 +90,8 @@ def window(t, rec) -> Window | None:
         return None
     starts = conv([s.start_ns for s in rec.spans])
     ends = conv([s.end_ns for s in rec.spans])
-    spans = [(s.name, int(a), int(b), None if s.cpu_start_ns is None else s.cpu_end_ns - s.cpu_start_ns, s.request)
-             for s, a, b in zip(rec.spans, starts, ends)]
+    spans = [(s.name, int(a), int(b), None if s.cpu_start_ns is None else s.cpu_end_ns - s.cpu_start_ns, s.request,
+              s.span_id, s.parent) for s, a, b in zip(rec.spans, starts, ends)]
     idle = subtract([[lo, hi]], merge([[max(s, lo), min(e, hi)] for s, e in t.intervals if e > lo and s < hi]))
     w = Window(spans, lo, hi, idle, max(offsets) - min(offsets))
     inside = sum(1 for s in spans if lo <= s[2] <= hi)

@@ -1,8 +1,9 @@
-"""Each cell driven end to end at a tiny size on the CPU: the look for a
-card skipped, a valid last line printed; the same with the timed path
-broken underneath, where ``correct`` has to come out false; the command
-refusing to run without the card it asks for; and nothing of JAX or of the
-JAX package loaded."""
+"""Each cell driven end to end at a tiny size on the CPU (its traffic
+driver's ``tiny``): the look for a card skipped, a valid last line printed;
+the check each driver's control has to fail among those its runs make; the
+same with the timed path broken underneath, where ``correct`` has to come
+out false; the command refusing to run without the card it asks for; and
+nothing of JAX or of the JAX package loaded."""
 
 import json
 import os
@@ -22,22 +23,23 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def tiny(name: str, seconds: float = 2.0, seed: int = 2**33 + 17):
-    """The cell on the CPU at a size a test holds: its code, a smaller
-    table, fewer clients and replies compared."""
+    """The cell on the CPU at a size a test holds: its code, at the size its
+    traffic driver's ``tiny`` gives."""
     cell = harness.find_cell(name, seed, seconds, False)
     cell.device = "cpu"
-    cell.config = dict(cell.config, stations=32, parts=4)
-    cell.params = dict(cell.params, clients=2, check_replies=2)
-    return cell
+    return harness.driver(cell).tiny(cell)
 
 
 def line_of(cell, **kwargs) -> dict:
-    driver = harness.traffic_driver(cell.params["kind"])
-    run = driver.run(cell, time.perf_counter(), **kwargs)
+    run = harness.driver(cell).run(cell, time.perf_counter(), **kwargs)
     return json.loads(json.dumps(harness.result_line(cell, run, run.facts["setup_s"])))
 
 
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
+# each traffic kind, with the first cell of it
+KINDS = {}
+for _name in CELLS:
+    KINDS.setdefault(harness.load_json(harness.BENCH / "workloads" / f"{_name}.json")["kind"], _name)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -49,8 +51,17 @@ def test_a_cell_prints_a_valid_last_line(name):
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
     assert line["metrics"]["setup_s"]["unit"] == "s" and line["metrics"]["setup_s"]["value"] > 0
     reported = {m["name"] for m in cell.end_to_end}
-    assert set(line["metrics"]) <= reported and len(line["metrics"]) >= 2
+    on_the_host = {m["name"] for m in cell.end_to_end if m["source"] == "host_clock"}  # a CPU run reads no card
+    assert on_the_host <= set(line["metrics"]) <= reported
     assert list(line)[-1] == "checks" and all(set(v) == {"value", "limit"} for v in line["checks"].values())
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_the_control_names_a_check_that_a_run_makes(kind):
+    cell = tiny(KINDS[kind], seconds=0.5)
+    driver = harness.driver(cell)
+    run = driver.run(cell, time.perf_counter())
+    assert driver.CONTROL.check in {c.name for c in run.checks}
 
 
 def _altered_result(monkeypatch):

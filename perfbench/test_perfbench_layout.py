@@ -1,6 +1,7 @@
 """BENCHMARK.json keeps to the benchmark's contract, and every name in it
 finds its files: configurations, workloads, traffic drivers and metric
-readers."""
+readers; every traffic driver declares what the tools and tests read of
+its kind."""
 
 import json
 import re
@@ -87,6 +88,16 @@ def test_each_cell_finds_its_files_by_name(cell):
     assert {m["name"] for m in found.end_to_end} >= {"setup_s"}
     for m in found.per_layer:
         assert callable(harness.metric_reader(m["name"]).read)
+
+
+@pytest.mark.parametrize("kind", sorted({json.loads(p.read_text())["kind"]
+                                          for p in (ROOT / "perfbench" / "workloads").glob("*.json")}))
+def test_each_traffic_driver_declares_run_tiny_and_its_control(kind):
+    driver = harness.traffic_driver(kind)
+    assert callable(driver.run) and callable(driver.tiny)
+    control = driver.CONTROL
+    assert isinstance(control, harness.Control) and NAME.match(control.check) and control.seconds > 0
+    assert isinstance(control.name, str) and control.name
 
 
 def test_a_missing_name_is_refused():

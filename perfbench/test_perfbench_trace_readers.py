@@ -1,8 +1,9 @@
 """The readers of the program's spans (``morsel_host_ms``,
 ``idle_share.executor_host``, ``idle_share.between_cooks``) on a traced
 window built by hand, with known device intervals, spans and clock samples;
-nothing to read without spans or without the program's recorder; and, on
-the card, a traced run of the cell that reports all three.
+nothing to read without spans or without the program's recorder; the idle
+gaps of ``breakdown`` named by the spans open through them; and, on the
+card, a traced run of the cell that reports all three and names its gaps.
 
     python -m pytest -m gpu perfbench/test_perfbench_trace_readers.py   # on the card
 """
@@ -23,9 +24,10 @@ MS = 1_000_000
 OFF = 1_700_000_000 * 1_000_000_000  # the profiler's clock (Unix time) against perf_counter_ns
 
 
-def _span(name, start_ms, end_ms, cpu_ms, request):
+def _span(name, start_ms, end_ms, cpu_ms, request, span_id=0, parent=None, thread=1):
     cpu = (0, cpu_ms * MS) if cpu_ms is not None else (None, None)
-    return recorder.Span(name, start_ms * MS, end_ms * MS, *cpu, thread=1, span_id=0, parent=None, request=request)
+    return recorder.Span(name, start_ms * MS, end_ms * MS, *cpu, thread=thread, span_id=span_id, parent=parent,
+                         request=request)
 
 
 # request 0 was running when the recorder started (no cook span); requests 1 and 2 are whole COOKs
@@ -116,6 +118,39 @@ def test_nothing_to_read_in_a_tree_without_the_recorder(monkeypatch):
         assert _read(name, run) is None
 
 
+# a COOK (span 1) with workers on threads 2-4: at 175 ms two stages and a morsel's launch are innermost, at 450 ms
+# a source batch and the merge; nothing is open at 825 ms (after the COOK) nor at 30 ms (before the recorder)
+GAP_SPANS = [
+    _span("launch", 170, 180, 1, 1, span_id=6, parent=2, thread=2),
+    _span("stage", 160, 190, 1, 1, span_id=3, parent=1, thread=3),
+    _span("stage", 150, 200, 1, 1, span_id=5, parent=1, thread=4),
+    _span("morsel", 130, 250, 1, 1, span_id=2, parent=1, thread=2),
+    _span("merge", 440, 460, 1, 1, span_id=8, parent=1, thread=3),
+    _span("cook", 120, 480, None, 1, span_id=1),
+    _span("source", 400, 500, 1, 1, span_id=7, parent=1, thread=5),
+]
+# the card busy 0-10, 50-150, 200-300, 600-650 and 1000-1010 ms; the host's profiled ops through 700-950 ms
+GAP_DEVICE = [[OFF + a * MS, OFF + b * MS] for a, b in ((0, 10), (50, 150), (200, 300), (600, 650), (1000, 1010))]
+GAP_HOST = [(OFF + 700 * MS, OFF + 950 * MS, "outer_op"), (OFF + 800 * MS, OFF + 900 * MS, "inner_op")]
+
+
+def test_idle_gaps_are_named_by_the_innermost_spans_open_through_them():
+    run = _Run(spans_=GAP_SPANS, intervals=GAP_DEVICE)
+    run.trace.host = GAP_HOST
+    gaps = run.trace.breakdown(run.trace.spans)["idle_gaps"]
+    assert [g[0] for g in gaps] == ["outer_op", "merge,source", "stage×2,launch", "host"]
+    assert [g[1] for g in gaps] == pytest.approx([0.35, 0.30, 0.05, 0.04])
+    # without spans, the host's outermost op, else "host"
+    assert [g[0] for g in run.trace.breakdown()["idle_gaps"]] == ["outer_op", "host", "host", "host"]
+
+
+def test_an_idle_gaps_name_is_cut_to_96_characters():
+    many = [_span(f"leaf_{i:02d}", 160, 190, 1, 1, span_id=10 + i, thread=10 + i) for i in range(40)]
+    run = _Run(spans_=many, intervals=GAP_DEVICE)
+    names = [g[0] for g in run.trace.breakdown(run.trace.spans)["idle_gaps"]]
+    assert names[2] == ",".join(f"leaf_{i:02d}" for i in range(40))[:96]
+
+
 @pytest.mark.gpu
 def test_a_traced_run_of_the_cell_reports_the_span_metrics(cuda_card):
     harness.prepare_environment()
@@ -126,3 +161,17 @@ def test_a_traced_run_of_the_cell_reports_the_span_metrics(cuda_card):
         assert math.isfinite(got[name]), (name, got)
     assert got["idle_share.executor_host"] + got["idle_share.between_cooks"] <= got["idle_share.cook"] + 0.5
     assert line["correct"] is True
+    spans_named = {"request", "plan", "send", "cook", "source", "stage", "morsel", "factorize", "launch", "readback",
+                   "decode", "perop", "merge", "finalize"}
+    gaps = [name for name, _s in line["breakdown"]["idle_gaps"]]
+    assert any(part.split("×")[0] in spans_named for name in gaps for part in name.split(",")), gaps
+
+
+@pytest.mark.gpu
+def test_an_untraced_run_of_the_cell_reads_the_cards_time_a_cook(cuda_card):
+    harness.prepare_environment()
+    cell = harness.find_cell("obs16m.fused_agg", 2**31 + 223, 10.0, False)
+    line = bench_run.run_cell(cell, time.perf_counter())
+    assert line["correct"] is True
+    assert set(line["metrics"]) == {m["name"] for m in cell.end_to_end}
+    assert all(v["value"] > 0 for v in line["metrics"].values()), line["metrics"]

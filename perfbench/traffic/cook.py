@@ -12,6 +12,15 @@ from every other of the run, so the plan cache answers none.  After the
 window, a sample of the replies drawn from the seed is held to the numpy
 reference bit for bit.
 
+Without ``--trace`` the profiler records the card's activity alone, from
+before the window opens until every COOK it started has ended:
+``cook_kernel_ms`` is the summed time of every kernel over those COOKs.
+The copies' times are printed beside it and not counted: under four
+workers they overlap on the copy engines, and their sum follows the
+host's pace.  With ``--trace`` it records the host's operations too, over
+``trace_seconds``, for the per-layer readers.  Either way the rate of
+source rows on the host clock, over the window, is ``facts["rows_per_s"]``.
+
 Workload parameters: ``query`` (the COOK in ``reference.cook``'s JSON
 form, its threshold ``"$thr"``), ``fused_plan`` (the tables of the fused
 chain's launch, for ``counts.dataplane``), ``clients``, ``thr_lo`` /
@@ -24,6 +33,7 @@ of a ``--trace 1`` window).
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import os
 import shutil
@@ -36,8 +46,19 @@ import time
 import numpy as np
 
 from perfbench.counts.dataplane import TILE
-from perfbench.harness import Check, Run, Trace, rate
+from perfbench.harness import Check, Control, Run, Trace, rate
 from perfbench.reference import cook as reference
+
+# the reference with float32 sums for the configuration's float64 sums and means; 25 s finish and compare as many
+# replies as a run does
+CONTROL = Control("float32", "reply_values_differing", 25.0)
+
+
+def tiny(cell):
+    """The cell at a size a CPU test holds: a smaller table, fewer clients
+    and replies compared."""
+    return dataclasses.replace(cell, config=dict(cell.config, stations=32, parts=4),
+                               params=dict(cell.params, clients=2, check_replies=2))
 
 
 def _expr(e, thr: float):
@@ -162,7 +183,9 @@ def run(cell, t_start: float, control: str | None = None) -> Run:
         for w in warmers:
             w.join()
         trace = Trace(cell.trace and cell.device == "cuda")
+        card = Trace(not cell.trace and cell.device == "cuda", host_ops=False)  # the card's kernels, whole window
         trace.warm()
+        card.start()  # its first start, which takes seconds, falls here in set-up
         if cell.device == "cuda":
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_start
@@ -202,8 +225,12 @@ def run(cell, t_start: float, control: str | None = None) -> Run:
             trace.stop()
         for t in threads:
             t.join()
+        card.stop()
         launches = ops.LAUNCHES["fused_chain_tiles"].value - launches0
         rows_per_s, completed = rate([(d[0], d[1]) for d in done], t0, t_end)
+        # every COOK the window started has ended inside the card's trace
+        kernel_s = sum(v for k, v in card.kernels.items() if not k.startswith(("Memcpy", "Memset")))
+        kernel_ms = kernel_s / len(done) * 1e3 if card.enabled and done and kernel_s > 0 else None
         peak = torch.cuda.max_memory_allocated() if cell.device == "cuda" else 0
 
         # correctness: a sample of the replies drawn from the seed, bit for bit
@@ -218,16 +245,20 @@ def run(cell, t_start: float, control: str | None = None) -> Run:
                 control_bad += compare(reference.run(query, parts, order[i][2], morsel, np.float32), want)
         checks = [Check("reply_values_differing", float(bad) if len(pick) else float("inf"), 0.0)]
         attempted = len(done) + len(errors)
-        facts = dict(shapes(query, parts, morsel), setup_s=setup_s, cooks=attempted, fused_launches=launches,
+        facts = dict(shapes(query, parts, morsel), setup_s=setup_s, rows_per_s=rows_per_s, cooks=attempted,
+                     fused_launches=launches,
                      fused_plan=par["fused_plan"],
                      control={"reply_values_differing": control_bad} if control else None)
         count = next((n for n, spec in query["agg"].items() if spec[0] == "count"), None)
         if done and count:
             facts["survivors_per_cook"] = sum(int(d[3][count].sum()) for d in done) / len(done)
         return Run(attempted=attempted, failed=len(errors),
-                   end_to_end={"cook_rows_per_s": rows_per_s}, checks=checks, memory_peak_bytes=int(peak),
+                   end_to_end={"cook_kernel_ms": kernel_ms}, checks=checks, memory_peak_bytes=int(peak),
                    trace=trace, facts=facts,
                    samples={"cooks completed in the window": completed, "replies compared": len(pick),
+                            "rows/s on the host clock": rows_per_s,
+                            "card seconds by operation": sorted(card.kernels.items(), key=lambda kv: -kv[1])[:8],
+                            "card busy seconds (their union)": card.busy_s,
                             "cook (threshold, seconds) in order": [(d[2], round(d[4], 3)) for d in sorted(done)]})
     finally:
         for net in nets:
