@@ -38,7 +38,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      timed beside them (no single PyTorch call computes either);
      ``ssd_scan`` also over 16 chunks (b 1, s 4096) and at p 32, n 16 with
      96-row chunks, with the worst ratio |got - want| / (atol + rtol |want|)
-     per case.  All nine kernels print their design and the fraction of
+     per case.  zamba2-7b's routes are held the same way: flash at head dim
+     224 (run as 256 on zero-padded copies) with scale 112^-0.5 at the
+     scoring cell's forwards (B 3 S 4096, B 6 S 2048, B 8 S 1280), decode
+     at hd 224 over a 4096-position cache, ``ssd_scan`` with B/C in 2
+     groups at b 3, s 4096, h 112; each is timed against its bound at hd
+     224 (the padding shows as a lower share), and the kernels line counts
+     the launches of each route (``flash_attention_padded``,
+     ``decode_attention_padded``, ``ssd_scan_grouped``).  All nine kernels print their design and the fraction of
      their bound they reach, and the multi-kernel wrappers (min/max, fused,
      SSD, mLSTM) each kernel's device time by name;
      ``decode_attention_partials`` (the decode kernel's partial m, l, acc)
@@ -1047,6 +1054,12 @@ SERVE_NEW = 32
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 3e-5}  # tests/test_kernels.py:14-15, as rtol and atol
 DECODE_SETS = 12  # distinct caches the decode timing cycles through: 12 × 17.3 MB against a 50 MB L2
 ENC_SEQ = 1500  # whisper-small's encoder frames (phase 6)
+# zamba2-7b's shared attention: 32 heads of 224 (the kernels run it as 256 on
+# zero-padded copies) at the published scale (224/2)^-0.5; the scoring cell's
+# forwards are (batch, padded length) (3, 4096), (6, 2048) and (8, 1280)
+Z7_HD = 224
+Z7_SCALE = 112**-0.5
+Z7_FORWARDS = ((3, 4096), (6, 2048), (8, 1280))
 
 
 def _attn_inputs(rng, dev, dtype, *shapes):
@@ -1109,7 +1122,7 @@ def _rotation(fn, sets: list):
 def check_flash(dev, rng) -> KernelRecord:
     import torch
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, padded_launches
 
     rec = KernelRecord("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:74")
@@ -1129,14 +1142,19 @@ def check_flash(dev, rng) -> KernelRecord:
         ("whisper-encoder", b, 12, 1, ENC_SEQ, ENC_SEQ, 64, torch.bfloat16, False),
         ("whisper-cross", b, 12, 1, SERVE_PROMPT, ENC_SEQ, 64, torch.bfloat16, False),
         ("whisper-self", b, 12, 1, SERVE_PROMPT, SERVE_PROMPT, 64, torch.bfloat16, True),
-    ]
+    ] + [(f"zamba2-7b-{bb}x{s}", bb, 32, 1, s, s, Z7_HD, torch.bfloat16, True) for bb, s in Z7_FORWARDS]
     rec.extra["serving_shapes"] = {}
+    padded = 0  # launches of the padded route over the checks
     for label, bb, nk, gg, s, t, d, dtype, causal in cases:
         q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, s, d), (bb, nk, t, d), (bb, nk, t, d))
-        got = flash_attention(q, k, v, causal=causal)
+        scale = Z7_SCALE if d == Z7_HD else None
+        before = padded_launches.value
+        got = flash_attention(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
+        padded += padded_launches.value - before
         tol = ATTN_TOL[str(dtype).split(".")[-1]]
-        rec.compare_close(got, flash_attention_plain(q, k, v, causal=causal), tol, tol, label)
+        rec.compare_close(got, flash_attention_plain(q, k, v, causal=causal, scale=scale), tol, tol, label)
+        del got
         if label == "serving":
             _time_kernel(rec, lambda: flash_attention(q, k, v, causal=True))
             rec.plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
@@ -1168,6 +1186,18 @@ def check_flash(dev, rng) -> KernelRecord:
                 "library_ms": sdpa["library_ms"],
                 "bound_ms": max(_bytes_bound_ms(nbytes), flops / BF16_FLOPS * 1e3),
             }
+        elif label == f"zamba2-7b-{Z7_FORWARDS[0][0]}x{Z7_FORWARDS[0][1]}":
+            # the bound counts the work at hd 224, as flash_attention_roofline does: the padding shows as a lower share
+            fn = lambda: flash_attention(q, k, v, causal=True, scale=Z7_SCALE)  # noqa: E731
+            rec.extra["zamba2_7b"] = {
+                "shape": f"B={bb} KV={nk} G={gg} S=T={s} hd={d} (run as 256) bfloat16 causal scale 112^-0.5",
+                "ms": _kernel_device_ms(fn) or _time_ms(fn),
+                "bound_ms": 4 * bb * nk * gg * s * t * d / 2 / BF16_FLOPS * 1e3,
+            }
+        del q, k, v
+    torch.cuda.empty_cache()
+    rec.extra["route_launches"] = {"flash_attention_padded": padded}
+    check(padded == len(Z7_FORWARDS), f"{padded} padded flash_attention launches over {len(Z7_FORWARDS)} hd-224 cases")
     # bfloat16 runs on the tensor cores (wgmma); float32 on the CUDA cores
     rec.extra["design"] = "wgmma"
     rec.extra["tensor_core_instructions"] = tensor_core_instructions("flash_attn_bf16")
@@ -1178,7 +1208,8 @@ def check_flash(dev, rng) -> KernelRecord:
 def check_decode(dev, rng) -> KernelRecord:
     import torch
 
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain, split_plan
+    from repro_torch.kernels.decode_attention import (decode_attention, decode_attention_plain, padded_launches,
+                                                      split_plan)
 
     rec = KernelRecord("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
                        "src/repro/kernels/decode_attention.py:64")
@@ -1196,14 +1227,20 @@ def check_decode(dev, rng) -> KernelRecord:
         ("moonshot", SERVE_BATCH, 16, 1, t_max, SERVE_PROMPT + 1, 128, torch.bfloat16),
         ("whisper-self", SERVE_BATCH, 12, 1, t_max, SERVE_PROMPT + 1, 64, torch.bfloat16),
         ("whisper-cross", SERVE_BATCH, 12, 1, ENC_SEQ, ENC_SEQ, 64, torch.bfloat16),
+        # zamba2-7b's decode over a full 4096-position cache, MHA at hd 224
+        ("zamba2-7b", 1, 32, 1, 4096, 4096, Z7_HD, torch.bfloat16),
     ]
     rec.extra["serving_shapes"] = {}
+    padded = 0  # launches of the padded route over the checks
     for label, bb, nk, gg, t, length, d, dtype in cases:
         q, k, v = _attn_inputs(rng, dev, dtype, (bb, nk, gg, d), (bb, nk, t, d), (bb, nk, t, d))
-        got = decode_attention(q, k, v, length)
+        scale = Z7_SCALE if d == Z7_HD else None
+        before = padded_launches.value
+        got = decode_attention(q, k, v, length, scale=scale)
         torch.cuda.synchronize()
+        padded += padded_launches.value - before
         tol = ATTN_TOL[str(dtype).split(".")[-1]]
-        rec.compare_close(got, decode_attention_plain(q, k, v, length), tol, tol, label)
+        rec.compare_close(got, decode_attention_plain(q, k, v, length, scale), tol, tol, label)
         if label == "serving":
             # the model reads 40 layer caches a step, none of them from L2:
             # time over a rotation of DECODE_SETS distinct (q, k, v), more
@@ -1251,6 +1288,16 @@ def check_decode(dev, rng) -> KernelRecord:
                 "library_ms": sdpa["library_ms"],
                 "bound_ms": max(_bytes_bound_ms(nbytes), 4 * bb * nk * gg * length * d / BF16_FLOPS * 1e3),
             }
+        elif label == "zamba2-7b":  # bytes at hd 224, as read once; the padded copies show as a lower share
+            fn = lambda: decode_attention(q, k, v, length, scale=Z7_SCALE)  # noqa: E731
+            rec.extra["zamba2_7b"] = {
+                "shape": f"B={bb} KV={nk} G={gg} T={t} length={length} hd={d} (run as 256) bfloat16 scale 112^-0.5",
+                "ms": _kernel_device_ms(fn) or _time_ms(fn),
+                "call_device_ms": _all_device_ms(fn),
+                "bound_ms": _bytes_bound_ms(2 * (2 * bb * nk * length * d + 2 * q.numel())),
+            }
+    rec.extra["route_launches"] = {"decode_attention_padded": padded}
+    check(padded == 1, f"{padded} padded decode_attention launches over the one hd-224 case")
     rec.extra["partials"] = check_decode_partials(rec, dev, rng)
     rec.extra["design"] = ("mma.sync m16n8k16 bf16 on transposed products (S^T = K Q^T, out^T = V^T P^T), 16-byte "
                            "cp.async ring, split-K merged within a thread block cluster; the partials mode ends the "
@@ -1360,30 +1407,36 @@ def _chunk_lengths(s: int, chunk: int) -> list:
 def check_ssd(dev, rng) -> KernelRecord:
     import torch
 
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import grouped_launches, ssd_scan, ssd_scan_plain
 
     rec = KernelRecord("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:65")
     rec.tolerance = f"rtol=atol={SSD_TOL} on y and the final state (tests/test_kernels.py)"
-    cases = [  # (label, b, s, h, p, n, chunk, dtype): serving is zamba2-1.2b's prefill, one layer
-        ("serving", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64, 256, torch.bfloat16),
-        ("ragged", SERVE_BATCH, 1000, 64, 64, 64, 256, torch.bfloat16),
-        ("long", 1, 4096, 64, 64, 64, 256, torch.bfloat16),  # 16 chunks: the carry over many
-        ("narrow", 2, 300, 8, 32, 16, 96, torch.bfloat16),
-        ("reduced", 2, 100, 8, 32, 16, 32, torch.float32),
-        ("f32", 2, 512, 8, 64, 64, 256, torch.float32),
+    cases = [  # (label, b, s, h, p, n, g, chunk, dtype): serving is zamba2-1.2b's prefill, one layer
+        ("serving", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64, 1, 256, torch.bfloat16),
+        ("ragged", SERVE_BATCH, 1000, 64, 64, 64, 1, 256, torch.bfloat16),
+        ("long", 1, 4096, 64, 64, 64, 1, 256, torch.bfloat16),  # 16 chunks: the carry over many
+        ("narrow", 2, 300, 8, 32, 16, 1, 96, torch.bfloat16),
+        ("reduced", 2, 100, 8, 32, 16, 1, 32, torch.float32),
+        ("f32", 2, 512, 8, 64, 64, 1, 256, torch.float32),
+        # zamba2-7b's layer at the scoring cell's longest forward: 112 heads reading B/C in 2 groups
+        ("zamba2-7b", 3, 4096, 112, 64, 64, 2, 256, torch.bfloat16),
     ]
     rec.extra["worst_ratio"] = {}  # max |got - want| / (atol + rtol |want|) per case: 1 is the tolerance
-    for label, b, s, h, p, n, chunk, dtype in cases:
-        x, B, C = _attn_inputs(rng, dev, dtype, (b, s, h, p), (b, s, n), (b, s, n))
+    grouped = 0  # launches with B/C in groups over the checks
+    for label, b, s, h, p, n, g, chunk, dtype in cases:
+        bc = (b, s, n) if g == 1 else (b, s, g, n)
+        x, B, C = _attn_inputs(rng, dev, dtype, (b, s, h, p), bc, bc)
         dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
         A = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), h)).astype(np.float32)).to(dev)
+        before = grouped_launches.value
         got = ssd_scan(x, dt, A, B, C, chunk)
         torch.cuda.synchronize()
+        grouped += grouped_launches.value - before
         want = ssd_scan_plain(x, dt, A, B, C, chunk)
         ratio = 0.0
-        for what, g, w in zip(("y", "S_final"), got, want):
-            rec.compare_close(g, w, SSD_TOL, SSD_TOL, f"{label} {what}")
-            ratio = max(ratio, float(((g - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max()))
+        for what, a, w in zip(("y", "S_final"), got, want):
+            rec.compare_close(a, w, SSD_TOL, SSD_TOL, f"{label} {what}")
+            ratio = max(ratio, float(((a - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max()))
         rec.extra["worst_ratio"][label] = ratio
         if label == "serving":
             _time_kernel(rec, lambda: ssd_scan(x, dt, A, B, C, chunk))
@@ -1401,6 +1454,16 @@ def check_ssd(dev, rng) -> KernelRecord:
             rec.extra["kernels_ms"] = _kernels_by_name(call, r"ssd_scan_kernel\w*")  # the wrapper's launch is three kernels
         elif label == "long":
             rec.extra["long_ms"] = _kernel_device_ms(lambda: ssd_scan(x, dt, A, B, C, chunk))
+        elif label == "zamba2-7b":  # least bytes, as ssd_scan_roofline counts them
+            e = x.element_size()
+            nbytes = x.numel() * e + dt.numel() * 4 + 2 * B.numel() * e + x.numel() * 4 + b * h * p * n * 4
+            rec.extra["zamba2_7b"] = {"shape": f"b={b} s={s} h={h} p={p} n={n} g={g} chunk={chunk} bfloat16",
+                                      "ms": _kernel_device_ms(lambda: ssd_scan(x, dt, A, B, C, chunk)),
+                                      "bound_ms": _bytes_bound_ms(nbytes)}
+        del x, B, C, got, want
+    torch.cuda.empty_cache()
+    rec.extra["route_launches"] = {"ssd_scan_grouped": grouped}
+    check(grouped == 1, f"{grouped} grouped ssd_scan launches over the one case in groups")
     rec.extra["design"] = ("three kernels, products on mma.sync m16n8k16 bf16 (f32 operands as bf16 hi + lo, x*w and the "
                            "carried state as hi + mid + lo): every chunk's own state, the carry over chunks, every chunk's "
                            "outputs; B and C loaded once for 4 heads")
@@ -3039,6 +3102,10 @@ def main() -> None:
         f"its bound {part['bound_ms']:.6f} ms by {part['bound_by']}, its plain version {part['plain_ms']:.6f} ms and "
         f"{part['library']} {part['library_device_ms']:.6f} ms device (events {part['library_ms']:.6f}) on {card}; "
         f"max |err| against the plain partials {part['max_abs_err']} over {part['checks']} checks")
+    for r in (flash, dec, records[7]):
+        z7 = r.extra["zamba2_7b"]
+        log(f"{r.name} at zamba2-7b's {z7['shape']}: {z7['ms']:.6f} ms device against its bound {z7['bound_ms']:.6f} "
+            f"({z7['bound_ms'] / z7['ms']:.4f} of it); launches over the checks {r.extra['route_launches']}")
     mls = records[8]
     log(f"mlstm_chunk device ms: kernels {mls.ms:.6f} {mls.extra['kernels_ms']} (wrapper call "
         f"{mls.extra['call_device_ms']:.6f}) against its plain version {mls.plain_ms:.6f} (events)")

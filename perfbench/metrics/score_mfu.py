@@ -1,0 +1,19 @@
+"""score_mfu (%): the model FLOPs of the COOKs of the traced window
+(``counts.zamba2.model_flops`` over a part's document lengths: twice the
+multiply-adds of the matrix products and causal attention at head dim 224,
+padding not counted) over the device time of every kernel in that window
+(copies and fills left out) at 989 TFLOP/s, the H100 SXM's dense bf16
+peak: the share of the whole step's peak.  The window holds whole COOKs
+(the ``score`` kind starts and stops it between two)."""
+
+from perfbench.counts.zamba2 import PEAK_BF16_FLOPS, model_flops
+
+
+def read(run):
+    f, t = run.facts, run.trace
+    if not f.get("traced_cooks") or "doc_lengths" not in f:
+        return None
+    seconds = sum(v for k, v in t.kernels.items() if not k.startswith(("Memcpy", "Memset")))
+    if not seconds:
+        return None
+    return 100.0 * f["traced_cooks"] * model_flops(f["conf"], f["doc_lengths"]) / PEAK_BF16_FLOPS / seconds

@@ -32,6 +32,8 @@ class SSMCfg:
     head_dim: int = 64
     conv_kernel: int = 4
     chunk: int = 256  # SSD chunk length
+    n_groups: int = 1  # B/C groups: head h reads group h // (heads / n_groups)
+    conv_bias: bool = False  # the depthwise convs carry a bias
 
 
 @dataclass(frozen=True)
@@ -62,6 +64,15 @@ class ArchConfig:
     block_pattern: str = "attn"  # attn | zamba2 | xlstm
     ssm: SSMCfg | None = None
     attn_every: int = 6  # zamba2: shared attn after every Nth mamba block
+    # zamba2's published layout, chosen by a non-empty ``hybrid_layer_ids``:
+    # ``n_mem_blocks`` shared blocks applied in turn before the Mamba layers
+    # listed, each application with its own MLP LoRA of ``adapter_rank`` and
+    # its own d_model² linear into the next layer's input; the blocks attend
+    # over concat(stream, embedding)
+    hybrid_layer_ids: tuple = ()
+    n_mem_blocks: int = 1
+    adapter_rank: int = 0
+    norm_eps: float = 1e-6  # the model's RMSNorms, the Mamba gated norm's too
     slstm_every: int = 8  # xlstm: one sLSTM per N blocks
     # encoder-decoder
     is_encdec: bool = False
@@ -97,6 +108,17 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
+    @property
+    def attn_in_dim(self) -> int:
+        """The attention's input width: 2·d_model over concat(stream, embedding)."""
+        return 2 * self.d_model if self.hybrid_layer_ids else self.d_model
+
+    @property
+    def attn_scale(self) -> float:
+        """The scores' scale: hd^-0.5, or (hd/2)^-0.5 over the concatenated
+        input, as published (its heads are twice the stream's width)."""
+        return (self.head_dim_ / 2 if self.hybrid_layer_ids else self.head_dim_) ** -0.5
+
     def n_params(self) -> int:
         """Total parameter count (embedding included once if tied)."""
         d, hd = self.d_model, self.head_dim_
@@ -128,7 +150,16 @@ class ArchConfig:
                 + s.conv_kernel * (d_in + 2 * s.d_state)  # depthwise convs
                 + d_in  # gate norm
             )
-            per_layer_total = self.n_layers * mamba + (attn + mlp_dense)
+            if self.hybrid_layer_ids:
+                mamba += s.n_groups * 2 * s.d_state * (d + s.conv_kernel) - 2 * s.d_state * (d + s.conv_kernel)
+                mamba += (d_in + 2 * s.n_groups * s.d_state) * s.conv_bias + d + 3 * nh  # conv biases, norm, A, D, dt bias
+                d_a = self.attn_in_dim
+                shared = d_a * 3 * self.n_heads * hd + self.n_heads * hd * d + 3 * d * self.d_ff + d_a + d
+                per_app = self.adapter_rank * (d + 2 * self.d_ff) + d * d
+                per_layer_total = (self.n_layers * mamba + self.n_mem_blocks * shared
+                                   + len(self.hybrid_layer_ids) * per_app + d)
+            else:
+                per_layer_total = self.n_layers * mamba + (attn + mlp_dense)
         elif self.block_pattern == "xlstm":
             pf = 2
             d_in = pf * d
@@ -200,6 +231,9 @@ class ArchConfig:
         if self.block_pattern == "zamba2":
             changes["attn_every"] = 2
             changes["n_layers"] = 5
+        if self.hybrid_layer_ids:  # the published layout: 3 applications of 2 blocks, 2 B/C groups
+            changes.update(hybrid_layer_ids=(1, 2, 4), n_kv_heads=4, head_dim=64, adapter_rank=8)
+            changes["ssm"] = dataclasses.replace(self.ssm, d_state=16, head_dim=32, chunk=32)
         if self.block_pattern == "xlstm":
             changes["slstm_every"] = 3
             changes["n_layers"] = 4
@@ -257,6 +291,7 @@ def _ensure_loaded() -> None:
         "granite_3_8b",
         "qwen1_5_0_5b",
         "zamba2_1_2b",
+        "zamba2_7b",
         "xlstm_125m",
         "paper_lm",
     ):

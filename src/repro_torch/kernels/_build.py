@@ -67,6 +67,7 @@ LIB_NAME = "libdacp_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_D = ctypes.c_double
 # C signature of every entry point: (restype int = cudaGetLastError(), argtypes)
 _SIGNATURES = {
     "dacp_filter_select_planes": (_P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -81,14 +82,14 @@ _SIGNATURES = {
         + (_P,) * 8  # seven outputs and the ticket
         + (_P, _P, _I, _P, _P, _P)  # float sums' offsets, kinds, count; fsum, the nonfinite flag; the stream
     ),
-    # q, k, v, o, dtype, B, KV, G, S, T, hd, causal, strides, stream
-    "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, strides, m, l, acc partials, stream
-    "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # q, k, v, o, dtype, B, KV, G, S, T, hd, causal, scale (0: hd^-0.5), strides, stream
+    "dacp_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _P, _P),
+    # q, k, v, o, dtype, B, KV, G, T, hd, length, chunk, splits, scale, strides, m, l, acc partials, stream
+    "dacp_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P),
     # q, k, v, m, l, acc, then as dacp_decode_attention from dtype on
-    "dacp_decode_attention_partials": (_P,) * 6 + (_I,) * 9 + (_P,) * 5,
-    # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, chunk, scratch (Ls, Tl, Tb, Sp), stream
-    "dacp_ssd_scan": (_P,) * 7 + (_I,) * 7 + (_P,) * 5,
+    "dacp_decode_attention_partials": (_P,) * 6 + (_I,) * 9 + (_D,) + (_P,) * 5,
+    # x, dt, A, B, C, y, S_final, dtype, B, S, H, P, N, G (B/C groups), chunk, scratch (Ls, Tl, Tb, Sp), stream
+    "dacp_ssd_scan": (_P,) * 7 + (_I,) * 8 + (_P,) * 5,
     # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, scratch (Cs, ns, mprev), stream
     "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,) * 4,
 }

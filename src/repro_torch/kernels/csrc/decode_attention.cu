@@ -616,12 +616,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int K
 
 template <int HD>
 int launch_decode(int dtype, const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int Tn,
-                  int length, int chunk, int splits, const long long* st, float* pm, float* pl, float* pa, float* om,
-                  float* ol, cudaStream_t stream) {
+                  int length, int chunk, int splits, double user_scale, const long long* st, float* pm, float* pl,
+                  float* pa, float* om, float* ol, cudaStream_t stream) {
   const QStrides qs{st[0], st[1], st[2]};
   const KStrides ks{st[3], st[4], st[5]};
   const KStrides vs{st[6], st[7], st[8]};
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  const float scale = user_scale > 0 ? (float)user_scale : (float)(1.0 / sqrt((double)HD));
   if (dtype == DACP_ATTN_F32)
     return launch_f32<HD>(q, k, v, o, B, KV, G, length, chunk, splits, qs, ks, vs, scale, pm, pl, pa, om, ol, stream);
   if (dtype != DACP_ATTN_BF16) return (int)cudaErrorInvalidValue;
@@ -634,8 +634,8 @@ int launch_decode(int dtype, const void* q, const void* k, const void* v, void* 
 
 // the checks and the head-dim dispatch of both entry points (om == nullptr: the normalised output)
 int decode_entry(const void* q, const void* k, const void* v, void* o, int dtype, int B, int KV, int G, int Tn, int hd,
-                 int length, int chunk, int splits, const long long* strides, void* part_m, void* part_l,
-                 void* part_acc, float* om, float* ol, void* stream) {
+                 int length, int chunk, int splits, double scale, const long long* strides, void* part_m,
+                 void* part_l, void* part_acc, float* om, float* ol, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || G > kMaxG || length <= 0 || length > Tn || chunk <= 0 || chunk % kBK != 0 ||
       splits <= 0 || (long long)(splits - 1) * chunk >= length || (long long)splits * chunk < length ||
       splits > 65535 || B * KV > 65535)
@@ -646,13 +646,17 @@ int decode_entry(const void* q, const void* k, const void* v, void* o, int dtype
   float* pa = static_cast<float*>(part_acc);
   switch (hd) {
     case 32:
-      return launch_decode<32>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+      return launch_decode<32>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, scale, strides, pm, pl, pa,
+                                 om, ol, s);
     case 64:
-      return launch_decode<64>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+      return launch_decode<64>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, scale, strides, pm, pl, pa,
+                                 om, ol, s);
     case 128:
-      return launch_decode<128>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+      return launch_decode<128>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, scale, strides, pm, pl, pa,
+                                 om, ol, s);
     case 256:
-      return launch_decode<256>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, strides, pm, pl, pa, om, ol, s);
+      return launch_decode<256>(dtype, q, k, v, o, B, KV, G, Tn, length, chunk, splits, scale, strides, pm, pl, pa,
+                                 om, ol, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -665,12 +669,13 @@ int decode_entry(const void* q, const void* k, const void* v, void* o, int dtype
 // multiple of 64 and (splits - 1)·chunk < length; with length 0 the wrapper
 // writes zeros and launches nothing.  part_m, part_l (splits, B·KV, G) and
 // part_acc (splits, B·KV, G, hd) are float32 scratch.  bfloat16 takes at
-// most 16 splits (one thread block cluster per b·kv).
+// most 16 splits (one thread block cluster per b·kv).  scale: the scores'
+// scale, or 0 for hd^-0.5.
 DACP_API int dacp_decode_attention(const void* q, const void* k, const void* v, void* o, int dtype, int B, int KV,
-                                   int G, int Tn, int hd, int length, int chunk, int splits, const long long* strides,
-                                   void* part_m, void* part_l, void* part_acc, void* stream) {
-  return decode_entry(q, k, v, o, dtype, B, KV, G, Tn, hd, length, chunk, splits, strides, part_m, part_l, part_acc,
-                      nullptr, nullptr, stream);
+                                   int G, int Tn, int hd, int length, int chunk, int splits, double scale,
+                                   const long long* strides, void* part_m, void* part_l, void* part_acc, void* stream) {
+  return decode_entry(q, k, v, o, dtype, B, KV, G, Tn, hd, length, chunk, splits, scale, strides, part_m, part_l,
+                      part_acc, nullptr, nullptr, stream);
 }
 
 // The same launch, whose merge hands out the partial (m, l, acc) over
@@ -681,9 +686,9 @@ DACP_API int dacp_decode_attention(const void* q, const void* k, const void* v, 
 // length 0 (m = -1e30, l = 0, acc = 0) and launches nothing then.
 DACP_API int dacp_decode_attention_partials(const void* q, const void* k, const void* v, void* m, void* l, void* acc,
                                             int dtype, int B, int KV, int G, int Tn, int hd, int length, int chunk,
-                                            int splits, const long long* strides, void* part_m, void* part_l,
-                                            void* part_acc, void* stream) {
+                                            int splits, double scale, const long long* strides, void* part_m,
+                                            void* part_l, void* part_acc, void* stream) {
   if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
-  return decode_entry(q, k, v, acc, dtype, B, KV, G, Tn, hd, length, chunk, splits, strides, part_m, part_l, part_acc,
-                      static_cast<float*>(m), static_cast<float*>(l), stream);
+  return decode_entry(q, k, v, acc, dtype, B, KV, G, Tn, hd, length, chunk, splits, scale, strides, part_m, part_l,
+                      part_acc, static_cast<float*>(m), static_cast<float*>(l), stream);
 }

@@ -522,8 +522,8 @@ static int make_map(CUtensorMap* map, const void* base, int rank, const long lon
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int S, int Tn,
-                int causal, const QStrides& qs, const KStrides& ks, const KStrides& vs, const QStrides& os,
-                cudaStream_t stream) {
+                int causal, double scale, const QStrides& qs, const KStrides& ks, const KStrides& vs,
+                const QStrides& os, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<HD>();
   int rc = attn_allow_smem(flash_attn_bf16_kernel<HD>, smem);
   if (rc != 0) return rc;
@@ -537,7 +537,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if ((rc = make_map<HD>(&tm_q, q, 5, q_dims, q_strides, kBM)) != 0) return rc;
   if ((rc = make_map<HD>(&tm_k, k, 4, kv_dims, k_strides, kv_rows<HD>())) != 0) return rc;
   if ((rc = make_map<HD>(&tm_v, v, 4, kv_dims, v_strides, kv_rows<HD>())) != 0) return rc;
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)HD));
+  const float scale_log2 = scale > 0 ? (float)(1.4426950408889634 * scale)
+                                     : (float)(1.4426950408889634 / sqrt((double)HD));
   flash_attn_bf16_kernel<HD><<<(unsigned)blocks, kThreadsTC, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<bf16*>(o), G, KV, B * KV, n_qtiles, S, Tn, causal, scale_log2, os);
   return dacp_last_error();
@@ -703,12 +704,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int S, int Tn, int causal,
-               const QStrides& qs, const KStrides& ks, const KStrides& vs, const QStrides& os, cudaStream_t stream) {
+               double user_scale, const QStrides& qs, const KStrides& ks, const KStrides& vs, const QStrides& os,
+               cudaStream_t stream) {
   if (G > 65535 || B * KV > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = f32_smem_bytes<HD>();
   const int rc = attn_allow_smem(flash_attn_f32_kernel<HD>, smem);
   if (rc != 0) return rc;
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  const float scale = user_scale > 0 ? (float)user_scale : (float)(1.0 / sqrt((double)HD));
   const dim3 grid((S + kBQ - 1) / kBQ, G, B * KV);
   flash_attn_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
                                                               static_cast<const float*>(k),
@@ -719,13 +721,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 
 template <int HD>
 int launch_flash(int dtype, const void* q, const void* k, const void* v, void* o, int B, int KV, int G, int S,
-                 int Tn, int causal, const long long* st, cudaStream_t stream) {
+                 int Tn, int causal, double scale, const long long* st, cudaStream_t stream) {
   const QStrides qs{st[0], st[1], st[2], st[3]};
   const KStrides ks{st[4], st[5], st[6]};
   const KStrides vs{st[7], st[8], st[9]};
   const QStrides os{st[10], st[11], st[12], st[13]};
-  if (dtype == DACP_ATTN_BF16) return launch_bf16<HD>(q, k, v, o, B, KV, G, S, Tn, causal, qs, ks, vs, os, stream);
-  return launch_f32<HD>(q, k, v, o, B, KV, G, S, Tn, causal, qs, ks, vs, os, stream);
+  if (dtype == DACP_ATTN_BF16)
+    return launch_bf16<HD>(q, k, v, o, B, KV, G, S, Tn, causal, scale, qs, ks, vs, os, stream);
+  return launch_f32<HD>(q, k, v, o, B, KV, G, S, Tn, causal, scale, qs, ks, vs, os, stream);
 }
 
 }  // namespace
@@ -733,21 +736,23 @@ int launch_flash(int dtype, const void* q, const void* k, const void* v, void* o
 // strides: 14 int64 element strides — q (b, kv, g, s), k (b, kv, t),
 // v (b, kv, t), o (b, kv, g, s); the head dim is contiguous in all four.
 // bfloat16 needs 16-byte aligned rows: every pointer and every stride a
-// multiple of 16 bytes (the wrapper checks).
+// multiple of 16 bytes (the wrapper checks).  scale: the scores' scale, or
+// 0 for hd^-0.5.
 DACP_API int dacp_flash_attention(const void* q, const void* k, const void* v, void* o, int dtype, int B, int KV,
-                                  int G, int S, int Tn, int hd, int causal, const long long* strides, void* stream) {
+                                  int G, int S, int Tn, int hd, int causal, double scale, const long long* strides,
+                                  void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || Tn <= 0) return (int)cudaErrorInvalidValue;
   if (dtype != DACP_ATTN_F32 && dtype != DACP_ATTN_BF16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch_flash<32>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, strides, s);
+      return launch_flash<32>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, scale, strides, s);
     case 64:
-      return launch_flash<64>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, strides, s);
+      return launch_flash<64>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, scale, strides, s);
     case 128:
-      return launch_flash<128>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, strides, s);
+      return launch_flash<128>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, scale, strides, s);
     case 256:
-      return launch_flash<256>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, strides, s);
+      return launch_flash<256>(dtype, q, k, v, o, B, KV, G, S, Tn, causal, scale, strides, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -121,7 +121,7 @@ template <typename T, int P, int N>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
                     const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ y,
-                    float* __restrict__ S_out, int H, int Sn, int L) {
+                    float* __restrict__ S_out, int H, int Sn, int L, int G) {
   using O = SsdSmem<P, N>;
   constexpr int PC = P / 16;               // y columns per thread
   constexpr int SE = P * N / kThreads;     // state entries per thread in the update
@@ -142,6 +142,9 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16, tx = tid % 16;  // tile rows ty*4 + i, columns tx + 16*j
   const float a = A[h];
   const long long row0 = (long long)b * Sn;  // (b, 0) in rows of (b, s)
+  const int GN = G * N;                      // B and C rows: (b, s) then G groups of N
+  Bm += (h / (H / G)) * N;                   // this head's group
+  Cm += (h / (H / G)) * N;
 
   for (int e = tid; e < P * LN; e += kThreads) sS[e] = 0.f;
 
@@ -157,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i0 = 0; i0 < Lc; i0 += kT) {
       for (int e = tid; e < kT * N; e += kThreads) {
         const int r = e / N, k = e % N;
-        sCq[r * LN + k] = i0 + r < Lc ? attn_to_f<T>(Cm[(row0 + c0 + i0 + r) * N + k]) : 0.f;
+        sCq[r * LN + k] = i0 + r < Lc ? attn_to_f<T>(Cm[(row0 + c0 + i0 + r) * GN + k]) : 0.f;
       }
       __syncthreads();
 
@@ -191,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();  // the previous key tile's reads of sBk, sXk and sM are done
         for (int e = tid; e < kT * N; e += kThreads) {
           const int r = e / N, k = e % N;
-          sBk[r * LN + k] = j0 + r < Lc ? attn_to_f<T>(Bm[(row0 + c0 + j0 + r) * N + k]) : 0.f;
+          sBk[r * LN + k] = j0 + r < Lc ? attn_to_f<T>(Bm[(row0 + c0 + j0 + r) * GN + k]) : 0.f;
         }
         for (int e = tid; e < kT * P; e += kThreads) {
           const int r = e / P, p = e % P;
@@ -261,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // the previous key tile's reads are done
       for (int e = tid; e < kT * N; e += kThreads) {
         const int r = e / N, k = e % N;
-        sBk[r * LN + k] = j0 + r < Lc ? attn_to_f<T>(Bm[(row0 + c0 + j0 + r) * N + k]) : 0.f;
+        sBk[r * LN + k] = j0 + r < Lc ? attn_to_f<T>(Bm[(row0 + c0 + j0 + r) * GN + k]) : 0.f;
       }
       for (int e = tid; e < kT * P; e += kThreads) {
         const int r = e / P, p = e % P;
@@ -368,7 +371,7 @@ template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_scan_kernel_state(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
                           const bf16* __restrict__ Bm, float* __restrict__ Ls, float* __restrict__ Tl,
-                          float* __restrict__ Tb, int H, int Sn, int L, int NC, int HB) {
+                          float* __restrict__ Tb, int H, int Sn, int L, int NC, int HB, int G) {
   constexpr int LN = Tc<P, N>::LN, LP = Tc<P, N>::LP;
   constexpr int MT = P / 16;
   constexpr int UNITS = MT * (N / 16);
@@ -390,7 +393,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int R16 = (Lc + kRB - 1) / kRB * kRB;
   const long long row0 = (long long)b * Sn + c0;
 
-  stage_rows<N, LN>(sB, Bm + row0 * N, N, R16, Lc);
+  // the block's heads share one group (the wrapper checks): B rows step by G·N
+  stage_rows<N, LN>(sB, Bm + row0 * G * N + (h0 / (H / G)) * N, (long long)G * N, R16, Lc);
   cp_async_commit();
   // x pieces of the next round to split: round k's rows [128 k, 128 k + 128)
   // are pieces u = k·XP/2 .. of thread tid (row (tid + u·256) / XP)
@@ -553,7 +557,7 @@ template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_scan_kernel_out(const bf16* __restrict__ x, const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                         const bf16* __restrict__ Sp, const float* __restrict__ Tb, float* __restrict__ y, int H,
-                        int Sn, int L, int NC, int HB) {
+                        int Sn, int L, int NC, int HB, int G) {
   constexpr int LN = Tc<P, N>::LN, LP = Tc<P, N>::LP;
   constexpr int NK = N / 16;  // k16 steps over n
   constexpr int NP = P / 8;   // n8 tiles over p
@@ -583,8 +587,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* st = sT + buf * kTables * kThreads;
     for (int e = tid; e < kTables * kThreads / 4; e += kThreads) cp_async16(st + 4 * e, tb + 4 * e, true);
   };
-  stage_rows<N, LN>(sC, Cm + row0 * N, N, R16, Lc);
-  stage_rows<N, LN>(sB, Bm + row0 * N, N, R16, Lc);
+  const long long bc0 = row0 * G * N + (long long)(h0 / (H / G)) * N;  // the block's group, as in pass 1
+  stage_rows<N, LN>(sC, Cm + bc0, (long long)G * N, R16, Lc);
+  stage_rows<N, LN>(sB, Bm + bc0, (long long)G * N, R16, Lc);
   stage_head(0);
   cp_async_commit();
 
@@ -758,10 +763,11 @@ size_t out_smem_bytes() {
 
 template <int P, int N>
 int launch_tc(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm, void* y, void* S_out,
-              int Bn, int Sn, int H, int L, const Scratch& w, cudaStream_t stream) {
+              int Bn, int Sn, int H, int L, int G, const Scratch& w, cudaStream_t stream) {
   if (w.Ls == nullptr || w.Tl == nullptr || w.Tb == nullptr || w.Sp == nullptr) return (int)cudaErrorInvalidValue;
   const int NC = (Sn + L - 1) / L;
   const int HB = min(kHB, H);
+  if (G > 1 && (H / G) % HB != 0) return (int)cudaErrorInvalidValue;  // a block's heads span two groups
   const dim3 grid(Bn * NC, (H + HB - 1) / HB);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* Bb = static_cast<const bf16*>(Bm);
@@ -769,7 +775,7 @@ int launch_tc(const void* x, const void* dt, const void* A, const void* Bm, cons
   int rc = attn_allow_smem(ssd_scan_kernel_state<P, N>, smem1);
   if (rc != 0) return rc;
   ssd_scan_kernel_state<P, N><<<grid, kThreads, smem1, stream>>>(
-      xb, static_cast<const float*>(dt), static_cast<const float*>(A), Bb, w.Ls, w.Tl, w.Tb, H, Sn, L, NC, HB);
+      xb, static_cast<const float*>(dt), static_cast<const float*>(A), Bb, w.Ls, w.Tl, w.Tb, H, Sn, L, NC, HB, G);
   rc = dacp_last_error();
   if (rc != 0) return rc;
   const long long n4 = (long long)Bn * H * P * N / 4;
@@ -781,15 +787,15 @@ int launch_tc(const void* x, const void* dt, const void* A, const void* Bm, cons
   rc = attn_allow_smem(ssd_scan_kernel_out<P, N>, smem3);
   if (rc != 0) return rc;
   ssd_scan_kernel_out<P, N><<<grid, kThreads, smem3, stream>>>(
-      xb, Bb, static_cast<const bf16*>(Cm), w.Sp, w.Tb, static_cast<float*>(y), H, Sn, L, NC, HB);
+      xb, Bb, static_cast<const bf16*>(Cm), w.Sp, w.Tb, static_cast<float*>(y), H, Sn, L, NC, HB, G);
   return dacp_last_error();
 }
 
 template <typename T, int P, int N>
 int launch_ssd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm, void* y, void* S_out,
-               int Bn, int Sn, int H, int L, const Scratch& w, cudaStream_t stream) {
+               int Bn, int Sn, int H, int L, int G, const Scratch& w, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return launch_tc<P, N>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, stream);
+    return launch_tc<P, N>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, stream);
   }
   const size_t smem = (size_t)SsdSmem<P, N>::kTotal * sizeof(float);
   const int rc = attn_allow_smem(ssd_scan_kernel<float, P, N>, smem);
@@ -797,20 +803,20 @@ int launch_ssd(const void* x, const void* dt, const void* A, const void* Bm, con
   ssd_scan_kernel<float, P, N><<<Bn * H, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<float*>(y), static_cast<float*>(S_out),
-      H, Sn, L);
+      H, Sn, L, G);
   return dacp_last_error();
 }
 
 template <typename T, int P>
 int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* Bm, const void* Cm, void* y,
-               void* S_out, int Bn, int Sn, int H, int L, const Scratch& w, cudaStream_t s) {
+               void* S_out, int Bn, int Sn, int H, int L, int G, const Scratch& w, cudaStream_t s) {
   switch (N) {
     case 16:
-      return launch_ssd<T, P, 16>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+      return launch_ssd<T, P, 16>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     case 32:
-      return launch_ssd<T, P, 32>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+      return launch_ssd<T, P, 32>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     case 64:
-      return launch_ssd<T, P, 64>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+      return launch_ssd<T, P, 64>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -818,12 +824,12 @@ int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* 
 
 template <typename T>
 int dispatch_p(int P, int N, const void* x, const void* dt, const void* A, const void* Bm, const void* Cm, void* y,
-               void* S_out, int Bn, int Sn, int H, int L, const Scratch& w, cudaStream_t s) {
+               void* S_out, int Bn, int Sn, int H, int L, int G, const Scratch& w, cudaStream_t s) {
   switch (P) {
     case 32:
-      return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+      return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     case 64:
-      return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+      return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -831,7 +837,8 @@ int dispatch_p(int P, int N, const void* x, const void* dt, const void* A, const
 
 }  // namespace
 
-// x (B, S, H, P) and Bm, Cm (B, S, N) in `dtype` (0 float32, 1 bfloat16);
+// x (B, S, H, P) and Bm, Cm (B, S, G, N) in `dtype` (0 float32, 1 bfloat16), head
+// h reading group h / (H / G), G dividing H (bfloat16: H / G a multiple of 4);
 // dt (B, S, H), A (H,), y (B, S, H, P) and S_out (B, H, P, N) float32; all
 // contiguous.  L: chunk length, 1..256.  bfloat16 also takes scratch, with
 // NC = ceil(S / L): float32 Ls (B, H, NC, P, N) for each chunk's own
@@ -839,15 +846,15 @@ int dispatch_p(int P, int N, const void* x, const void* dt, const void* A, const
 // its decay tables, and bfloat16 Sp (B, H, NC, 3, P, N) for the state
 // before it as hi, mid and lo planes (float32 passes null).
 DACP_API int dacp_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm, void* y,
-                           void* S_out, int dtype, int Bn, int Sn, int H, int P, int N, int L, void* Ls, void* Tl,
-                           void* Tb, void* Sp, void* stream) {
-  if (Bn <= 0 || Sn <= 0 || H <= 0 || L <= 0 || L > kThreads || (long long)Bn * H > 2147483647LL ||
+                           void* S_out, int dtype, int Bn, int Sn, int H, int P, int N, int G, int L, void* Ls,
+                           void* Tl, void* Tb, void* Sp, void* stream) {
+  if (Bn <= 0 || Sn <= 0 || H <= 0 || G <= 0 || H % G != 0 || L <= 0 || L > kThreads || (long long)Bn * H > 2147483647LL ||
       (long long)Bn * ((Sn + L - 1) / L) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Scratch w = {static_cast<float*>(Ls), static_cast<float*>(Tl), static_cast<float*>(Tb),
                      static_cast<bf16*>(Sp)};
-  if (dtype == DACP_ATTN_F32) return dispatch_p<float>(P, N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
-  if (dtype == DACP_ATTN_BF16) return dispatch_p<bf16>(P, N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, w, s);
+  if (dtype == DACP_ATTN_F32) return dispatch_p<float>(P, N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
+  if (dtype == DACP_ATTN_BF16) return dispatch_p<bf16>(P, N, x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,6 +3,7 @@ port of ``repro.kernels.decode_attention``.
 
     q (B, KV, G, hd), k/v (B, KV, T, hd), length -> (B, KV, G, hd) in q's type
 
+Scores are q·k times ``scale`` (default hd^-0.5).
 Positions ``>= length`` are masked with -1e30; scores, softmax and the
 accumulation are float32; p is rounded to v's type before the PV product.
 With ``length == 0`` the output is zero, as the TPU kernel's is.  Any T (the
@@ -10,7 +11,9 @@ TPU kernel needs T to divide its tile).
 
 For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/decode_attention.cu`` (float32 or bfloat16, hd 32/64/128/256, G at
-most 32, q/k/v with any strides and a contiguous head dim) or raises; for a
+most 32, q/k/v with any strides and a contiguous head dim; hd 224 runs as
+256 on zero-padded copies of q and of the cache's first ``length``
+positions, as ``flash_attention`` pads) or raises; for a
 CPU tensor it runs ``decode_attention_plain``.  It is on no training path
 and has no gradient: on the card it raises for inputs that need one
 (``grad.refuse``).  The work is bound by bytes
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, grad
-from repro_torch.kernels.flash_attention import DTYPE_CODES, NEG_INF, check_inputs
+from repro_torch.kernels.flash_attention import DTYPE_CODES, NEG_INF, PADDED_HEAD_DIMS, check_inputs, pad_head_dim
 
 __all__ = [
     "MAX_GROUP",
@@ -49,6 +52,7 @@ __all__ = [
     "decode_attention_partials_plain",
     "decode_attention_plain",
     "launches",
+    "padded_launches",
     "split_plan",
 ]
 
@@ -57,16 +61,17 @@ MAX_GROUP = 32  # query heads per kv head that the CUDA kernel holds
 MAX_SPLITS = 16  # chunks per b·kv: the bf16 kernel's cluster holds one block per chunk
 
 launches = _build.LaunchCounter("decode_attention")
+padded_launches = _build.LaunchCounter("decode_attention_padded")  # of those, at a padded head dim (224)
 
 
-def decode_attention_plain(q, k, v, length):
+def decode_attention_plain(q, k, v, length, scale=None):
     """Plain PyTorch version: the same function over the whole cache."""
     length = int(length)
     if length <= 0:
         return torch.zeros_like(q)
     hd = q.shape[-1]
     t = k.shape[2]
-    scores = torch.einsum("bngh,bnth->bngt", q.float(), k.float()) * hd**-0.5
+    scores = torch.einsum("bngh,bnth->bngt", q.float(), k.float()) * (hd**-0.5 if scale is None else scale)
     keep = torch.arange(t, device=q.device) < length
     scores = scores.masked_fill(~keep, NEG_INF)
     p = torch.softmax(scores, dim=-1)
@@ -83,7 +88,7 @@ def _empty_partials(q):
     return m, l, torch.zeros((b, kv, g, hd), dtype=torch.float32, device=q.device)
 
 
-def decode_attention_partials_plain(q, k, v, length):
+def decode_attention_partials_plain(q, k, v, length, scale=None):
     """Plain PyTorch version of ``decode_attention_partials``, in
     ``decode_attention_plain``'s float32 arithmetic."""
     length = int(length)
@@ -91,7 +96,7 @@ def decode_attention_partials_plain(q, k, v, length):
         return _empty_partials(q)
     hd = q.shape[-1]
     t = k.shape[2]
-    s = torch.einsum("bngh,bnth->bngt", q.float(), k.float()) * hd**-0.5
+    s = torch.einsum("bngh,bnth->bngt", q.float(), k.float()) * (hd**-0.5 if scale is None else scale)
     s = s.masked_fill(~(torch.arange(t, device=q.device) < length), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -130,10 +135,21 @@ def _checked(name: str, q, k, v, length) -> int:
     return length
 
 
-def _launch(entry: str, q, k, v, length: int, outs: tuple) -> None:
+def _launch(entry: str, q, k, v, length: int, outs: tuple, scale=None) -> None:
     """One launch of ``entry`` over positions ``< length`` (> 0), writing
     ``outs`` (the output, or m, l, acc), with the split-K scratch."""
     b, kv, g, hd = q.shape
+    if hd in PADDED_HEAD_DIMS:  # zero columns change no score, and their outputs are dropped
+        wide = PADDED_HEAD_DIMS[hd]
+        outs_w = [torch.empty((*o.shape[:-1], wide), dtype=o.dtype, device=o.device) if o.shape[-1] == hd else o
+                  for o in outs]
+        _launch(entry, pad_head_dim(q, wide), pad_head_dim(k[:, :, :length], wide),
+                pad_head_dim(v[:, :, :length], wide), length, tuple(outs_w), hd**-0.5 if scale is None else scale)
+        for o, w in zip(outs, outs_w):
+            if w is not o:
+                o.copy_(w[..., :hd])
+        padded_launches.bump()
+        return
     splits, chunk = split_plan(b * kv, length, _sm_count(q.device.index))
     part_m = torch.empty((splits, b * kv, g), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
@@ -153,6 +169,7 @@ def _launch(entry: str, q, k, v, length: int, outs: tuple) -> None:
         length,
         chunk,
         splits,
+        0.0 if scale is None else float(scale),
         strides.ctypes.data,
         part_m.data_ptr(),
         part_l.data_ptr(),
@@ -163,23 +180,23 @@ def _launch(entry: str, q, k, v, length: int, outs: tuple) -> None:
     launches.bump()
 
 
-def decode_attention(q, k, v, length, block_k: int = 1024):
+def decode_attention(q, k, v, length, block_k: int = 1024, scale=None):
     """q: (B, KV, G, hd); k/v: (B, KV, T, hd); length: int or 0-d tensor,
-    attend to positions < length.
+    attend to positions < length; ``scale`` the scores' (None: hd^-0.5).
 
     ``block_k`` keeps the signature of ``repro.kernels.ops.decode_attention``;
     it sizes the TPU kernel's tile and changes nothing here."""
     if _build.runs_plain(q):
-        return decode_attention_plain(q, k, v, length)
+        return decode_attention_plain(q, k, v, length, scale)
     length = _checked("decode_attention", q, k, v, length)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if length == 0:
         return out.zero_()
-    _launch("dacp_decode_attention", q, k, v, length, (out,))
+    _launch("dacp_decode_attention", q, k, v, length, (out,), scale)
     return out
 
 
-def decode_attention_partials(q, k, v, length):
+def decode_attention_partials(q, k, v, length, scale=None):
     """The partial softmax state over positions ``< length`` of this slice of
     the cache, combinable across slices: q (B, KV, G, hd), k/v (B, KV, T,
     hd) -> m, l (B, KV, G, 1) and acc (B, KV, G, hd), float32.  m is the
@@ -195,7 +212,7 @@ def decode_attention_partials(q, k, v, length):
     this gives zeros, as ``decode_attention`` does at length 0.  One launch,
     counted with ``decode_attention``'s."""
     if _build.runs_plain(q):
-        return decode_attention_partials_plain(q, k, v, length)
+        return decode_attention_partials_plain(q, k, v, length, scale)
     length = _checked("decode_attention_partials", q, k, v, length)
     if length == 0:
         return _empty_partials(q)
@@ -203,5 +220,5 @@ def decode_attention_partials(q, k, v, length):
     m = torch.empty((b, kv, g, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q.device)
-    _launch("dacp_decode_attention_partials", q, k, v, length, (m, l, acc))
+    _launch("dacp_decode_attention_partials", q, k, v, length, (m, l, acc), scale)
     return m, l, acc

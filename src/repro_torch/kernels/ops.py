@@ -4,7 +4,9 @@ of ``repro.kernels.ops``.
 Each takes torch tensors and returns tensors on their device: on a CUDA
 device it launches the hand-written kernel (built from ``csrc/`` at first
 use) or raises; on the CPU it runs the kernel's plain PyTorch version.
-``LAUNCHES`` maps each wrapper to its thread-safe launch counter.  Every
+``LAUNCHES`` maps each wrapper to its thread-safe launch counter, and
+counts apart the attention launches at a padded head dim and the SSD
+scan's launches in B/C groups.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
 On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``
@@ -37,14 +39,17 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_plain,
 )
 from repro_torch.kernels.decode_attention import launches as _decode_launches
+from repro_torch.kernels.decode_attention import padded_launches as _decode_padded
 from repro_torch.kernels.filter_select import filter_select_planes
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention import launches as _flash_launches
+from repro_torch.kernels.flash_attention import padded_launches as _flash_padded
 from repro_torch.kernels.fused_pipeline import fused_chain_tiles
 from repro_torch.kernels.mlstm_chunk import launches as _mlstm_launches
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.project_arith import project_tiles
 from repro_torch.kernels.segment_reduce import SUM_ROW_CAP, segment_minmax_tiles, segment_sum_tiles
+from repro_torch.kernels.ssd_scan import grouped_launches as _ssd_grouped
 from repro_torch.kernels.ssd_scan import launches as _ssd_launches
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -75,6 +80,10 @@ LAUNCHES = {
     "decode_attention": _decode_launches,
     "ssd_scan": _ssd_launches,
     "mlstm_chunk": _mlstm_launches,
+    # of the launches above: attention at a padded head dim (zamba2-7b's 224), the SSD scan in B/C groups
+    "flash_attention_padded": _flash_padded,
+    "decode_attention_padded": _decode_padded,
+    "ssd_scan_grouped": _ssd_grouped,
 }
 
 

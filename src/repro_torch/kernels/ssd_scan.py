@@ -1,7 +1,10 @@
 """Mamba2 SSD chunk scan — the port of ``repro.kernels.ssd_scan``.
 
-    x (b, s, h, p), dt (b, s, h) f32, A (h,) f32 < 0, B/C (b, s, n)
+    x (b, s, h, p), dt (b, s, h) f32, A (h,) f32 < 0, B/C (b, s, n) or (b, s, g, n)
         -> y (b, s, h, p) f32, S_final (b, h, p, n) f32
+
+B and C in ``g`` groups (g divides h): head h reads group h // (h / g),
+as Mamba2's ``ngroups`` lays them out; (b, s, n) is one group.
 
 The recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_tᵀ, y_t = h_t C_t,
 computed chunk by chunk (length ``chunk``): within a chunk in its quadratic
@@ -13,7 +16,9 @@ pads it with dt = 0, which leaves the state unchanged and adds nothing).
 
 For a CUDA tensor the wrapper launches the hand-written kernels of
 ``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32
-or 64; chunk at most 256; bfloat16 rows 16-byte aligned) or raises; for a
+or 64; chunk at most 256; bfloat16 rows 16-byte aligned; in bfloat16 a
+group's heads a multiple of 4, so that the four heads of a block share
+one group's B and C) or raises; for a
 CPU tensor it runs ``ssd_scan_plain``.  On card tensors that need a
 gradient, y and the final state carry the plain version's backward
 (``grad.PlainBackward``).  Which kernels run is decided by
@@ -35,14 +40,16 @@ import torch
 
 from repro_torch.kernels import _build, grad
 
-__all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "launches", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "grouped_launches", "launches", "ssd_scan", "ssd_scan_plain"]
 
 MAX_CHUNK = 256  # one chunk row per thread of the CUDA kernels' blocks
+HEADS_A_BLOCK = 4  # heads of one block of the bfloat16 kernels' state and output passes
 P_DIMS = (32, 64)
 N_DIMS = (16, 32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter("ssd_scan")
+grouped_launches = _build.LaunchCounter("ssd_scan_grouped")  # of those, with B/C in more than one group
 
 
 def _segsum(x):
@@ -56,7 +63,16 @@ def _segsum(x):
 
 def ssd_scan_plain(x, dt, A, B, C, chunk: int = 256):
     """Plain PyTorch version: ``repro.models.ssm._ssd_chunked`` in torch,
-    with the (L, L) decay matrix of every chunk materialised."""
+    with the (L, L) decay matrix of every chunk materialised; B/C in groups
+    (b, s, g, n) scan each group's heads in turn."""
+    if B.dim() == 4:
+        g = B.shape[2]
+        if g == 1:
+            return ssd_scan_plain(x, dt, A, B[:, :, 0], C[:, :, 0], chunk)
+        hg = x.shape[2] // g
+        parts = [ssd_scan_plain(x[:, :, i * hg : (i + 1) * hg], dt[:, :, i * hg : (i + 1) * hg],
+                                A[i * hg : (i + 1) * hg], B[:, :, i], C[:, :, i], chunk) for i in range(g)]
+        return torch.cat([y for y, _ in parts], dim=2), torch.cat([st for _, st in parts], dim=1)
     b, s, nh, p = x.shape
     n = B.shape[-1]
     l = min(chunk, s)
@@ -108,20 +124,25 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
     _build.check_tensor(x, "ssd_scan: x", x.dtype, x.device, 4)
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16 x/B/C, got {x.dtype}")
-    _build.check_tensor(B, "ssd_scan: B", x.dtype, x.device, 3)
+    if B.dim() == 3:  # one group
+        B, C = B.unsqueeze(2), C.unsqueeze(2)
+    _build.check_tensor(B, "ssd_scan: B", x.dtype, x.device, 4)
     b, s, h, p = x.shape
-    n = B.shape[-1]
+    g, n = B.shape[2:]
     for what, t, dtype, shape in (
         ("dt", dt, torch.float32, (b, s, h)),
         ("A", A, torch.float32, (h,)),
-        ("B", B, x.dtype, (b, s, n)),
-        ("C", C, x.dtype, (b, s, n)),
+        ("B", B, x.dtype, (b, s, g, n)),
+        ("C", C, x.dtype, (b, s, g, n)),
     ):
         _build.check_tensor(t, f"ssd_scan: {what}", dtype, x.device, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"ssd_scan: {what} has shape {tuple(t.shape)}, expected {shape}")
     if p not in P_DIMS or n not in N_DIMS:
         raise ValueError(f"ssd_scan takes p in {P_DIMS} and n in {N_DIMS}, got p={p} n={n}")
+    if h % g or (g > 1 and x.dtype == torch.bfloat16 and (h // g) % HEADS_A_BLOCK):
+        raise ValueError(f"ssd_scan: {g} groups over {h} heads (bfloat16: a group's heads a multiple of "
+                         f"{HEADS_A_BLOCK})")
     if x.numel() == 0 or chunk < 1:
         raise ValueError(f"ssd_scan: empty input {tuple(x.shape)} or chunk {chunk}")
     if min(chunk, s) > MAX_CHUNK:
@@ -131,12 +152,14 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
-    """x (b, s, h, p); dt (b, s, h) f32; A (h,) f32; B/C (b, s, n), x's type
-    -> (y (b, s, h, p) f32, S_final (b, h, p, n) f32)."""
+    """x (b, s, h, p); dt (b, s, h) f32; A (h,) f32; B/C (b, s, n) or (b,
+    s, g, n), x's type -> (y (b, s, h, p) f32, S_final (b, h, p, n) f32)."""
     if _build.runs_plain(x):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
+    if B.dim() == 3:  # one group
+        B, C = B.unsqueeze(2), C.unsqueeze(2)
     if grad.needs_grad(x, dt, A, B, C):
         return grad.PlainBackward.apply(_launch, ssd_scan_plain, {"chunk": chunk}, x, dt, A, B, C)
     return _launch(x, dt, A, B, C, chunk)
@@ -146,7 +169,7 @@ def _launch(x, dt, A, B, C, chunk: int):
     """The CUDA kernels on card tensors; raises on what they do not take."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
-    n = B.shape[-1]
+    g, n = B.shape[2:]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     S_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     lc = min(chunk, s)
@@ -173,10 +196,13 @@ def _launch(x, dt, A, B, C, chunk: int):
         h,
         p,
         n,
+        g,
         lc,
         *ptrs,
         _build.stream_of(x),
     )
     _build.check(rc, "ssd_scan")
     launches.bump()
+    if g > 1:
+        grouped_launches.bump()
     return y, S_final

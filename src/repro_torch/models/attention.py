@@ -55,14 +55,16 @@ __all__ = [
 
 
 def attn_init(gen, cfg, dtype) -> dict:
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    """Weights from the attention's input width (``cfg.attn_in_dim``) to
+    d_model."""
+    d, h, kv, hd = cfg.attn_in_dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     bias_ax = ("heads", "head_dim") if cfg.qkv_bias else None
     bias_ax_kv = ("kv_heads", "head_dim") if cfg.qkv_bias else None
     params = {
         "wq": dense_init(gen, (d, h, hd), ("embed", "heads", "head_dim"), dtype, bias_axis=bias_ax),
         "wk": dense_init(gen, (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
         "wv": dense_init(gen, (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
-        "wo": dense_init(gen, (h, hd, d), ("heads", "head_dim", "embed"), dtype, scale=(h * hd) ** -0.5),
+        "wo": dense_init(gen, (h, hd, cfg.d_model), ("heads", "head_dim", "embed"), dtype, scale=(h * hd) ** -0.5),
     }
     if cfg.qk_norm:
         params["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype, device=gen.device)}
@@ -110,6 +112,11 @@ def _project_qkv(params, x, cfg, positions):
     return q.reshape(b, s, kv, h // kv, hd).contiguous(), k.contiguous(), v.contiguous()
 
 
+def _scale(cfg) -> dict:
+    """The kernels' ``scale`` where the configuration's is not their hd^-0.5."""
+    return {"scale": cfg.attn_scale} if cfg.hybrid_layer_ids else {}
+
+
 def _out_proj(params, out, x, kv: int):
     """(B, S, H, hd) attention output through wo (H, hd, D); ``kv`` is the KV
     head count H splits back into."""
@@ -136,7 +143,7 @@ def attn_apply(params, x, cfg, positions=None, causal=True, layer_cache=None, ke
         k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)
     # (B, KV, G, S, hd) views of q's memory; the CUDA kernel writes its
     # output in the same layout, so the permute back is free
-    out = kernels.flash_attention(q.permute(0, 2, 3, 1, 4), k_t, v_t, causal=causal)
+    out = kernels.flash_attention(q.permute(0, 2, 3, 1, 4), k_t, v_t, causal=causal, **_scale(cfg))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.n_heads, cfg.head_dim_)
     return _out_proj(params, out, x, cfg.n_kv_heads)
 
@@ -180,6 +187,6 @@ def attn_decode(params, x, cfg, layer_k, layer_v, index: int, kernels=KERNELS):
     else:
         layer_k[:, :, index] = k_new[:, 0].to(layer_k.dtype)
         layer_v[:, :, index] = v_new[:, 0].to(layer_v.dtype)
-    out = kernels.decode_attention(q[:, 0], layer_k, layer_v, index + 1)  # (B, KV, G, hd)
+    out = kernels.decode_attention(q[:, 0], layer_k, layer_v, index + 1, **_scale(cfg))  # (B, KV, G, hd)
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
     return _out_proj(params, out, x, cfg.n_kv_heads), layer_k, layer_v

@@ -75,6 +75,7 @@ class Dtypes:
 ACT = {
     "silu": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": F.gelu,  # erf's GELU (transformers' "gelu")
     "relu": F.relu,
 }
 
@@ -90,15 +91,18 @@ def softplus(x):
     return torch.log1p(torch.exp(-x.abs())) + x.clamp(min=0)
 
 
-def causal_conv_silu(x, w, state=None):
-    """Depthwise causal conv then SiLU, the front of the Mamba2 and xLSTM
-    blocks.  x (B, S, C), w (K, C); with ``state`` (B, K-1, C) it streams
-    (decode).  Returns (y, the last K-1 raw inputs: the next state)."""
+def causal_conv_silu(x, w, state=None, bias=None):
+    """Depthwise causal conv (plus ``bias`` (C,), if given) then SiLU, the
+    front of the Mamba2 and xLSTM blocks.  x (B, S, C), w (K, C); with
+    ``state`` (B, K-1, C) it streams (decode).  Returns (y, the last K-1 raw
+    inputs: the next state)."""
     k = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i : i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return F.silu(y), (xp[:, -(k - 1) :, :] if k > 1 else None)
 
 

@@ -37,6 +37,19 @@ zamba2 Mamba2 block, not zamba2's shared block nor any xlstm block;
 launches its kernels again.  The kernels' gradients are their plain
 versions' (``kernels.grad``).
 
+zamba2 has two layouts.  The reference's (zamba2-1.2b): one shared
+attention + MLP block over the stream, with residuals, after every
+``attn_every``-th Mamba block.  The published one (zamba2-7b), chosen by a
+non-empty ``cfg.hybrid_layer_ids``: before each Mamba layer listed,
+shared block ``j % n_mem_blocks`` of application j reads
+concat(stream, embedding output) (RMSNorm over 2·d_model, attention at
+``cfg.attn_scale``, o_proj to d_model, RMSNorm, a GLU MLP whose gate_up
+adds the application's own LoRA), with no residual inside; its output
+goes through the application's own d_model² ``linear`` and is added to
+that Mamba layer's *input* (before its norm), not to the stream.  Its
+parameters: ``mem_blocks`` (the shared blocks) and ``hybrid`` (per
+application: ``lora_a``, ``lora_b``, ``linear``).
+
 Caches: ``attn`` {k, v (layers, B, KV, T, hd), index}; ``zamba2`` {ssm:
 {ssm, conv_x, conv_B, conv_C} stacked over the Mamba layers, kv: the
 shared block's {k, v, index}, one cache layer per application}; ``xlstm``
@@ -60,7 +73,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
+    ACT,
     Dtypes,
+    dense_axes,
+    dense_init,
     embed_tokens,
     embedding_axes,
     embedding_init,
@@ -101,6 +117,40 @@ def check_supported(cfg) -> None:
 
 def _is_moe_layer(cfg, li: int) -> bool:
     return cfg.moe is not None and (li + 1) % cfg.moe.moe_every == 0
+
+
+def _published_zamba2(cfg) -> bool:
+    """zamba2's published layout (``hybrid_layer_ids``), not the reference's."""
+    return cfg.block_pattern == "zamba2" and bool(cfg.hybrid_layer_ids)
+
+
+# zamba2's published layout: the shared blocks and each application's own weights, with their axes
+def _mem_block_init(g, cfg, dtype, dev) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "ln_a": norm_init(cfg.attn_in_dim, cfg.norm, dtype, dev),
+        "attn": attn.attn_init(g, cfg, dtype),
+        "ln_m": norm_init(d, cfg.norm, dtype, dev),
+        "mlp": {"gate_up": dense_init(g, (d, 2 * f), ("embed", "ffn"), dtype),
+                "down": dense_init(g, (f, d), ("ffn", "embed"), dtype, scale=f**-0.5)},
+    }
+
+
+def _mem_block_axes(cfg) -> dict:
+    return {"ln_a": norm_axes(cfg.norm), "attn": attn.attn_axes(cfg), "ln_m": norm_axes(cfg.norm),
+            "mlp": {"gate_up": dense_axes(("embed", "ffn")), "down": dense_axes(("ffn", "embed"))}}
+
+
+def _application_init(g, cfg, dtype) -> dict:
+    d, r = cfg.d_model, cfg.adapter_rank
+    return {"lora_a": dense_init(g, (d, r), ("embed", None), dtype),
+            "lora_b": dense_init(g, (r, 2 * cfg.d_ff), (None, "ffn"), dtype),
+            "linear": dense_init(g, (d, d), ("embed", None), dtype)}
+
+
+def _application_axes() -> dict:
+    return {"lora_a": dense_axes(("embed", None)), "lora_b": dense_axes((None, "ffn")),
+            "linear": dense_axes(("embed", None))}
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +196,10 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
         else:
             layers.append({"ln": ln, "mlstm": xl.mlstm_init(g, cfg, dt.param)})
     params["layers"] = layers
-    if cfg.block_pattern == "zamba2":
+    if _published_zamba2(cfg):
+        params["mem_blocks"] = [_mem_block_init(g, cfg, dt.param, dev) for _ in range(cfg.n_mem_blocks)]
+        params["hybrid"] = [_application_init(g, cfg, dt.param) for _ in cfg.hybrid_layer_ids]
+    elif cfg.block_pattern == "zamba2":
         params["shared_attn"] = {
             "ln_a": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
             "attn": attn.attn_init(g, cfg, dt.param),
@@ -181,7 +234,10 @@ def param_axes(cfg) -> dict:
         else:
             layers.append({"ln": ln, "mlstm": xl.mlstm_axes(cfg)})
     axes["layers"] = layers
-    if cfg.block_pattern == "zamba2":
+    if _published_zamba2(cfg):
+        axes["mem_blocks"] = [_mem_block_axes(cfg) for _ in range(cfg.n_mem_blocks)]
+        axes["hybrid"] = [_application_axes() for _ in cfg.hybrid_layer_ids]
+    elif cfg.block_pattern == "zamba2":
         axes["shared_attn"] = {
             "ln_a": norm_axes(cfg.norm),
             "attn": attn.attn_axes(cfg),
@@ -251,6 +307,67 @@ def _shared_block(sp, x, cfg, kernels, layer_cache=None):
     return constrain(x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu), ACT_AXES)
 
 
+def _mem_block(params, j: int, x, emb, cfg, kernels, layer_cache=None, index=None):
+    """Application j of zamba2's published shared blocks on the stream x
+    and the embedding output emb: what it adds to the next Mamba layer's
+    input.  ``index`` set: one decode step at that position, its k and v
+    written into ``layer_cache`` (k, v)."""
+    bp, ap = params["mem_blocks"][j % cfg.n_mem_blocks], params["hybrid"][j]
+    h = norm_apply(bp["ln_a"], torch.cat([x, emb], dim=-1), cfg.norm, cfg.norm_eps)
+    if index is None:
+        h = attn.attn_apply(bp["attn"], h, cfg, layer_cache=layer_cache, kernels=kernels)
+    else:
+        h = attn.attn_decode(bp["attn"], h, cfg, *layer_cache, index, kernels)[0]
+    h = norm_apply(bp["ln_m"], h, cfg.norm, cfg.norm_eps)
+    mlp = bp["mlp"]
+    gate_up = h @ mlp["gate_up"]["w"].to(h.dtype) + (h @ ap["lora_a"]["w"].to(h.dtype)) @ ap["lora_b"]["w"].to(h.dtype)
+    gate, up = gate_up.chunk(2, dim=-1)
+    h = (ACT[cfg.act](gate) * up) @ mlp["down"]["w"].to(h.dtype)
+    return h @ ap["linear"]["w"].to(h.dtype)
+
+
+def _published_body(params, x, cfg, kernels, cache=None):
+    """zamba2's published layout over the whole sequence; with ``cache``
+    the layers write their decode state into it."""
+    emb = x
+    apps = {li: j for j, li in enumerate(cfg.hybrid_layer_ids)}
+    for li, lp in enumerate(params["layers"]):
+        inp = x
+        if li in apps:
+            j = apps[li]
+            layer_cache = None if cache is None else (cache["kv"]["k"][j], cache["kv"]["v"][j])
+            inp = x + _mem_block(params, j, x, emb, cfg, kernels, layer_cache)
+        h = norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps)
+        if cache is None:
+            mamba = functools.partial(ssm_mod.mamba_apply, lp["mamba"], cfg=cfg, kernels=kernels)
+            y = _remat_wrap(cfg, mamba)(h)
+        else:
+            y, st = ssm_mod.mamba_apply(lp["mamba"], h, cfg, True, kernels)
+            for name, t in st.items():
+                cache["ssm"][name][li].copy_(t)
+        x = constrain(x + y, ACT_AXES)
+    return x
+
+
+def _published_decode(params, x, cache, cfg, kernels):
+    """One decode step of zamba2's published layout at the cache's index."""
+    emb = x
+    kv = cache["kv"]
+    idx = int(kv["index"])
+    apps = {li: j for j, li in enumerate(cfg.hybrid_layer_ids)}
+    for li, lp in enumerate(params["layers"]):
+        inp = x
+        if li in apps:
+            j = apps[li]
+            inp = x + _mem_block(params, j, x, emb, cfg, kernels, (kv["k"][j], kv["v"][j]), idx)
+        layer = {name: t[li] for name, t in cache["ssm"].items()}
+        y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps), cfg, layer)
+        for name, t in st.items():
+            layer[name].copy_(t)
+        x = x + y
+    return x, {"ssm": cache["ssm"], "kv": {"k": kv["k"], "v": kv["v"], "index": idx + 1}}
+
+
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
 
 
@@ -273,7 +390,7 @@ def _remat_wrap(cfg, fn):
 
 
 def _head(params, x, cfg):
-    x = norm_apply(params["final_norm"], x, cfg.norm)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     emb = params["embed_out"] if not cfg.tie_embeddings else params["embed"]
     return constrain(logits_apply(emb, x, cfg.vocab_size), LOGIT_AXES)
 
@@ -293,6 +410,8 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
             else:
                 x, aux = _block(lp, x, cfg, kernels, (cache["k"][li], cache["v"][li]), gather_axes[li])
             aux_total = aux_total + aux
+    elif _published_zamba2(cfg):
+        x = _published_body(params, x, cfg, kernels, cache)
     elif cfg.block_pattern == "zamba2":
         ai = 0
         for li, lp in enumerate(params["layers"]):
@@ -354,9 +473,10 @@ def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict
     if cfg.block_pattern == "attn":
         return attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, dev)
     if cfg.block_pattern == "zamba2":
+        apps = len(cfg.hybrid_layer_ids) if cfg.hybrid_layer_ids else cfg.n_layers // cfg.attn_every
         return {
             "ssm": ssm_mod.make_ssm_cache(cfg, batch, cfg.n_layers, dtype, dev),
-            "kv": attn.make_cache(cfg, batch, max_seq, cfg.n_layers // cfg.attn_every, dtype, dev),
+            "kv": attn.make_cache(cfg, batch, max_seq, apps, dtype, dev),
         }
     return {"xlstm": xl.make_xlstm_cache(cfg, batch, dtype, dev), "index": 0}
 
@@ -406,6 +526,8 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
             x = x + h
             x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)[0]
         cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
+    elif _published_zamba2(cfg):
+        x, cache = _published_decode(params, x, cache, cfg, kernels)
     elif cfg.block_pattern == "zamba2":
         sp = params["shared_attn"]
         kv = cache["kv"]

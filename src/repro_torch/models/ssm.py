@@ -7,10 +7,14 @@ computes it in jnp (``_ssd_chunked``); the kernel also returns the final
 state the decode cache starts from.  Decode is the O(1) state update in
 PyTorch, as in the reference: no kernel there.
 
-Layout: d_inner = expand · d_model, heads nh = d_inner / head_dim, one B/C
-group; depthwise causal convs on x, B and C separately.  ``A_log``, ``D``
-and ``dt_bias`` are float32 whatever the parameter dtype, as in the
-reference.
+Layout: d_inner = expand · d_model, heads nh = d_inner / head_dim,
+``ssm.n_groups`` B/C groups (head h reads group h // (nh / n_groups));
+depthwise causal convs on x, B and C separately, with a bias each where
+``ssm.conv_bias``.  The gate then the RMSNorm (eps ``cfg.norm_eps``), over
+each group's d_inner / n_groups channels (zamba2-7b: 3584).  One group, no
+bias and one norm over d_inner is the reference's layout, which zamba2-1.2b
+keeps.  ``A_log``, ``D`` and ``dt_bias`` are float32 whatever
+the parameter dtype, as in the reference.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def mamba_init(gen, cfg, dtype) -> dict:
     s = cfg.ssm
     d_in = s.expand * d
     nh = d_in // s.head_dim
-    n = s.d_state
+    n = s.n_groups * s.d_state
     dev = gen.device
     params = {}
     for (name, ax), cols in zip(_PROJ_AXES, (d_in, d_in, n, n, nh)):
@@ -55,6 +59,9 @@ def mamba_init(gen, cfg, dtype) -> dict:
     params["conv_x"] = normal(gen, (s.conv_kernel, d_in), 0.1, dtype)
     params["conv_B"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
     params["conv_C"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
+    if s.conv_bias:
+        for name, cols in (("conv_x_b", d_in), ("conv_B_b", n), ("conv_C_b", n)):
+            params[name] = normal(gen, (cols,), 0.1, dtype)
     params["A_log"] = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=dev))
     params["D"] = torch.ones((nh,), dtype=torch.float32, device=dev)
     params["dt_bias"] = torch.zeros((nh,), dtype=torch.float32, device=dev)
@@ -76,6 +83,8 @@ def mamba_axes(cfg) -> dict:
         norm={"scale": ("ssm_in",)},
         out=dense_axes(("ssm_in", "embed")),
     )
+    if cfg.ssm.conv_bias:
+        axes.update(conv_x_b=("ssm_in",), conv_B_b=("state",), conv_C_b=("state",))
     return axes
 
 
@@ -84,10 +93,34 @@ def _in_proj(params, x):
     return tuple(x @ params[name]["w"].to(x.dtype) for name in ("wz", "wx", "wB", "wC", "wdt"))
 
 
-def _out(params, y, z, x_dtype, shape):
+def _convs(params, xr, Bm, Cm, cache_layer=None):
+    """The three depthwise causal convs (with their biases, if any) and SiLU:
+    (x, B, C) and their next conv states."""
+    out = []
+    for name, t in (("conv_x", xr), ("conv_B", Bm), ("conv_C", Cm)):
+        state = None if cache_layer is None else cache_layer[name]
+        out.append(causal_conv_silu(t, params[name], state, params.get(name + "_b")))
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def _dt(params, dt_raw):
+    return softplus(dt_raw.float() + params["dt_bias"][None, None, :])
+
+
+def _gated_norm(params, y, cfg):
+    """The RMSNorm after the gate, over each B/C group's d_inner / n_groups
+    channels (all of d_inner in one group)."""
+    if cfg.ssm.n_groups == 1:
+        return norm_apply(params["norm"], y, "rmsnorm", cfg.norm_eps)
+    yf = y.float().unflatten(-1, (cfg.ssm.n_groups, -1))
+    yf = yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    return (yf.flatten(-2) * params["norm"]["scale"].float()).to(y.dtype)
+
+
+def _out(params, y, z, x_dtype, shape, cfg):
     y = merge_heads(y, y.shape[-2]).reshape(shape).to(x_dtype)
     y = y * F.silu(z)
-    y = norm_apply(params["norm"], y, "rmsnorm")
+    y = _gated_norm(params, y, cfg)
     return y @ params["out"]["w"].to(x_dtype)
 
 
@@ -99,16 +132,16 @@ def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     d_in = s_cfg.expand * d
     nh = d_in // s_cfg.head_dim
     z, xr, Bm, Cm, dt_raw = _in_proj(params, x)
-    xr, conv_x_state = causal_conv_silu(xr, params["conv_x"])
-    Bm, conv_B_state = causal_conv_silu(Bm, params["conv_B"])
-    Cm, conv_C_state = causal_conv_silu(Cm, params["conv_C"])
+    (xr, Bm, Cm), (conv_x_state, conv_B_state, conv_C_state) = _convs(params, xr, Bm, Cm)
     xr = constrain(xr, ("act_batch", None, "act_ffn"))
-    dt = softplus(dt_raw.float() + params["dt_bias"][None, None, :])
+    dt = _dt(params, dt_raw)
     A = -torch.exp(params["A_log"])
     xh = split_heads(xr, nh, s_cfg.head_dim)
+    if s_cfg.n_groups > 1:  # (b, s, g, n): the kernel maps heads onto groups
+        Bm, Cm = Bm.unflatten(-1, (s_cfg.n_groups, -1)), Cm.unflatten(-1, (s_cfg.n_groups, -1))
     y, S_final = kernels.ssd_scan(xh, dt, A, Bm, Cm, s_cfg.chunk)
     y = y + params["D"][None, None, :, None] * xh.float()
-    out = _out(params, y, z, x.dtype, (b, s, d_in))
+    out = _out(params, y, z, x.dtype, (b, s, d_in), cfg)
     if return_state:
         return out, {"ssm": S_final, "conv_x": conv_x_state, "conv_B": conv_B_state, "conv_C": conv_C_state}
     return out
@@ -122,11 +155,12 @@ def make_ssm_cache(cfg, batch: int, n_layers: int, dtype, device) -> dict:
     d_in = s.expand * cfg.d_model
     nh = d_in // s.head_dim
     k = s.conv_kernel
+    n = s.n_groups * s.d_state
     return {
         "ssm": torch.zeros((n_layers, batch, nh, s.head_dim, s.d_state), dtype=torch.float32, device=device),
         "conv_x": torch.zeros((n_layers, batch, k - 1, d_in), dtype=dtype, device=device),
-        "conv_B": torch.zeros((n_layers, batch, k - 1, s.d_state), dtype=dtype, device=device),
-        "conv_C": torch.zeros((n_layers, batch, k - 1, s.d_state), dtype=dtype, device=device),
+        "conv_B": torch.zeros((n_layers, batch, k - 1, n), dtype=dtype, device=device),
+        "conv_C": torch.zeros((n_layers, batch, k - 1, n), dtype=dtype, device=device),
     }
 
 
@@ -147,16 +181,21 @@ def mamba_decode(params, x, cfg, cache_layer):
     d_in = s_cfg.expand * d
     nh = d_in // s_cfg.head_dim
     z, xr, Bm, Cm, dt_raw = _in_proj(params, x)
-    xr, cx = causal_conv_silu(xr, params["conv_x"], cache_layer["conv_x"])
-    Bm, cB = causal_conv_silu(Bm, params["conv_B"], cache_layer["conv_B"])
-    Cm, cC = causal_conv_silu(Cm, params["conv_C"], cache_layer["conv_C"])
-    dt = softplus(dt_raw.float() + params["dt_bias"][None, None, :])[:, 0]  # (b, nh)
+    (xr, Bm, Cm), (cx, cB, cC) = _convs(params, xr, Bm, Cm, cache_layer)
+    dt = _dt(params, dt_raw)[:, 0]  # (b, nh)
     A = -torch.exp(params["A_log"])
     xh = xr.reshape(b, nh, s_cfg.head_dim).float()
     Bv = Bm[:, 0].float()
     Cv = Cm[:, 0].float()
     decay = torch.exp(dt * A[None, :])
-    S_new = cache_layer["ssm"] * decay[..., None, None] + torch.einsum("bhp,bn,bh->bhpn", xh, Bv, dt)
-    y = torch.einsum("bhpn,bn->bhp", S_new, Cv) + params["D"][None, :, None] * xh
-    out = _out(params, y, z, x.dtype, (b, 1, d_in))
+    if s_cfg.n_groups > 1:  # each head's group: (b, nh, n)
+        Bv = Bv.unflatten(-1, (s_cfg.n_groups, -1)).repeat_interleave(nh // s_cfg.n_groups, dim=1)
+        Cv = Cv.unflatten(-1, (s_cfg.n_groups, -1)).repeat_interleave(nh // s_cfg.n_groups, dim=1)
+        S_new = cache_layer["ssm"] * decay[..., None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bv, dt)
+        y = torch.einsum("bhpn,bhn->bhp", S_new, Cv)
+    else:
+        S_new = cache_layer["ssm"] * decay[..., None, None] + torch.einsum("bhp,bn,bh->bhpn", xh, Bv, dt)
+        y = torch.einsum("bhpn,bn->bhp", S_new, Cv)
+    y = y + params["D"][None, :, None] * xh
+    out = _out(params, y, z, x.dtype, (b, 1, d_in), cfg)
     return out, {"ssm": S_new, "conv_x": cx, "conv_B": cB, "conv_C": cC}

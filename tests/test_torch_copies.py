@@ -6,7 +6,13 @@ the COOK path (``server/faird.py``) — are the only exemptions, so every
 other difference from the reference shows up here.
 ``client/torch_adapter.py`` is the port's own counterpart of
 ``client/jax_adapter.py``; its numpy-only helpers are held to the
-reference's.  ``trace.py``, the span recorder, is the port's own."""
+reference's.  ``trace.py``, the span recorder, is the port's own.
+``configs/base.py`` is ported too: its ``ArchConfig`` and ``SSMCfg`` carry
+the keys of zamba2's published layout (B/C groups, conv bias, the gated
+norm's groups, ``hybrid_layer_ids``, memory blocks, adapters, the
+concatenated input), which the reference has no configuration to use;
+``configs/zamba2_7b.py`` and ``models/score.py`` (the in-situ scoring map)
+are the port's own."""
 
 import inspect
 import re
@@ -17,8 +23,9 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED_DIRS = ("core", "transport", "server", "client", "configs", "data")
 COPIED_FILES = ("distributed/elastic.py",)  # framework-neutral modules outside those directories
-PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py", "server/faird.py"}
-PORT_ONLY = {"client/torch_adapter.py"}
+PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py", "server/faird.py",
+          "configs/base.py"}
+PORT_ONLY = {"client/torch_adapter.py", "configs/zamba2_7b.py"}
 DIR_COPIES = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for p in (SRC / "repro_torch").rglob("*.py")
@@ -29,7 +36,8 @@ COPIED = DIR_COPIES + list(COPIED_FILES)
 # the reference's modules the port has no counterpart of, and the port's own modules
 REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
 PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
-                  "models/convert.py", "distributed/per_shard.py", "trace.py"}
+                  "models/convert.py", "distributed/per_shard.py", "trace.py", "configs/zamba2_7b.py",
+                  "models/score.py"}
 
 
 def _rewrite(text: str) -> str:
