@@ -1,15 +1,19 @@
 """The model kernels on DTensors: each rank runs the kernel on its own shard.
 
 Attention and the two scans are independent across the batch and across
-heads, so on a mesh each rank can call the kernel wrapper (the CUDA kernel
-on a card, the plain version on the CPU or on meta tensors) on its local
-slice: the SPMD lowering the reference's compiler performs.  ``run`` lays
+heads, and the gated RMSNorm across the batch (its group spans heads), so
+on a mesh each rank can call the kernel wrapper (the CUDA kernel on a
+card, the plain version on the CPU or on meta tensors) on its local slice:
+the SPMD lowering the reference's compiler performs.  ``run`` lays
 every operand out so that the mesh dims sharding the leading operand's
 batch or head dim shard the same role in every operand, replicates the
 rest, calls the wrapper on the local tensors and wraps its outputs back as
-DTensors.  ``on_shards`` puts the four model kernels of a ``ModelKernels``
+DTensors.  ``on_shards`` puts the five model kernels of a ``ModelKernels``
 bundle behind ``run`` with their dim maps (``models.build`` does so for
-every bundle); plain tensors go straight to the kernel.
+every bundle); plain tensors go straight to the kernel.  The gated
+RMSNorm's map names the batch alone, so ``run`` gathers the heads that a
+mesh splits (zamba2-1.2b's one group spans all of them) and moves nothing
+when the operands are replicated.
 
 A KV cache whose positions are sharded (``cache_seq_long``) runs the
 flash-decoding merge of ``collectives.seq_sharded_decode_attention`` over
@@ -118,12 +122,14 @@ def replicated(fn, *args):
 _Q = {"batch": 0, "heads": 1, "groups": 2}  # (B, KV, G, ...) queries and outputs
 _BH = {"batch": 0, "heads": 2}  # (b, s, h, ...)
 _ST = {"batch": 0, "heads": 1}  # (b, h, ...) states
+_B = {"batch": 0}  # a group spans heads: only the batch stays sharded
 # kernel: (each tensor operand's roles, each output's roles, the operand whose layout leads)
 _ROLES = {
     "flash_attention": ((_Q, _ST, _ST), (_Q,), 0),
     "decode_attention": ((_Q, dict(_ST, seq=2), dict(_ST, seq=2)), (_Q,), 1),
     "ssd_scan": ((_BH, _BH, {"heads": 0}, {"batch": 0}, {"batch": 0}), (_BH, _ST), 0),
     "mlstm_chunk": ((_BH,) * 5, (_BH, _ST, _ST, _ST), 0),
+    "gated_rmsnorm": ((_B, _B, _B, {}, {}), (_B,), 0),
 }
 
 

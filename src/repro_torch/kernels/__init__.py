@@ -9,8 +9,11 @@
     decode_attention  — one query token against a KV cache (decode)
     ssd_scan          — the Mamba2 SSD chunk scan, returning the final state
     mlstm_chunk       — the chunkwise mLSTM, returning the final (C, n, m)
+    gated_norm        — the Mamba2 mixer's D skip, SiLU gate and grouped
+                        RMSNorm after the scan, in one pass
 
-Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here.
+Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here;
+``gated_norm`` replaces a chain the JAX package leaves to jnp.
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
@@ -23,6 +26,7 @@ from repro_torch.kernels.ops import (
     filter_select_planes,
     flash_attention,
     fused_chain_tiles,
+    gated_rmsnorm,
     mlstm_chunk,
     project_tiles,
     segment_minmax_tiles,
@@ -41,4 +45,5 @@ __all__ = [
     "decode_attention",
     "ssd_scan",
     "mlstm_chunk",
+    "gated_rmsnorm",
 ]

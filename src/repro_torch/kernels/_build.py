@@ -46,6 +46,7 @@ SOURCES = (
     "decode_attention.cu",
     "ssd_scan.cu",
     "mlstm_chunk.cu",
+    "gated_norm.cu",
 )
 HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh", "mma.cuh")
 NVCC_FLAGS = (
@@ -92,6 +93,8 @@ _SIGNATURES = {
     "dacp_ssd_scan": (_P,) * 7 + (_I,) * 8 + (_P,) * 5,
     # q, k, v, log_i, log_f, y, C, n, m, dtype, B, S, H, D, chunk, scratch (Cs, ns, mprev), stream
     "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,) * 4,
+    # y, x, z, D, scale, out, dtype, scale dtype, rows, d_inner, groups, head dim, eps, stream
+    "dacp_gated_rmsnorm": (_P,) * 6 + (_I, _I, _L, _I, _I, _I, _D, _P),
 }
 
 _lock = threading.Lock()

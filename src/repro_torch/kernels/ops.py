@@ -9,15 +9,16 @@ counts apart the attention launches at a padded head dim and the SSD
 scan's launches in B/C groups.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
-On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``
-and ``mlstm_chunk`` launch their kernel forward and take the plain
-version's backward (``grad.PlainBackward``); ``decode_attention`` raises.
+On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``,
+``mlstm_chunk`` and ``gated_rmsnorm`` launch their kernel forward and take
+the plain version's backward (``grad.PlainBackward``); ``decode_attention``
+raises.
 
 ``ssd_scan`` and ``mlstm_chunk`` return their final state beside y (the
 TPU kernels return y alone), because the model's prefill hands it to the
 decode cache.
 
-The model zoo calls its four kernels through a ``ModelKernels`` bundle:
+The model zoo calls its five kernels through a ``ModelKernels`` bundle:
 ``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
 versions), which holds the kernels against their plain versions on the
 card.  The bundle also carries ``decode_attention_partials``, the decode
@@ -45,6 +46,8 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention import launches as _flash_launches
 from repro_torch.kernels.flash_attention import padded_launches as _flash_padded
 from repro_torch.kernels.fused_pipeline import fused_chain_tiles
+from repro_torch.kernels.gated_norm import gated_rmsnorm, gated_rmsnorm_plain
+from repro_torch.kernels.gated_norm import launches as _gated_launches
 from repro_torch.kernels.mlstm_chunk import launches as _mlstm_launches
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.project_arith import project_tiles
@@ -58,6 +61,7 @@ __all__ = [
     "decode_attention",
     "ssd_scan",
     "mlstm_chunk",
+    "gated_rmsnorm",
     "filter_select_planes",
     "project_tiles",
     "segment_sum_tiles",
@@ -80,6 +84,7 @@ LAUNCHES = {
     "decode_attention": _decode_launches,
     "ssd_scan": _ssd_launches,
     "mlstm_chunk": _mlstm_launches,
+    "gated_rmsnorm": _gated_launches,
     # of the launches above: attention at a padded head dim (zamba2-7b's 224), the SSD scan in B/C groups
     "flash_attention_padded": _flash_padded,
     "decode_attention_padded": _decode_padded,
@@ -89,7 +94,7 @@ LAUNCHES = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelKernels:
-    """The four kernel functions the model zoo calls, and the decode
+    """The five kernel functions the model zoo calls, and the decode
     kernel's partials for a cache sharded by position."""
 
     flash_attention: Callable
@@ -97,9 +102,17 @@ class ModelKernels:
     ssd_scan: Callable
     mlstm_chunk: Callable
     decode_attention_partials: Callable
+    gated_rmsnorm: Callable
 
 
-KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan, mlstm_chunk, decode_attention_partials)
+KERNELS = ModelKernels(
+    flash_attention, decode_attention, ssd_scan, mlstm_chunk, decode_attention_partials, gated_rmsnorm
+)
 PLAIN = ModelKernels(
-    flash_attention_plain, decode_attention_plain, ssd_scan_plain, mlstm_chunk_plain, decode_attention_partials_plain
+    flash_attention_plain,
+    decode_attention_plain,
+    ssd_scan_plain,
+    mlstm_chunk_plain,
+    decode_attention_partials_plain,
+    gated_rmsnorm_plain,
 )

@@ -361,7 +361,7 @@ def _published_decode(params, x, cache, cfg, kernels):
             j = apps[li]
             inp = x + _mem_block(params, j, x, emb, cfg, kernels, (kv["k"][j], kv["v"][j]), idx)
         layer = {name: t[li] for name, t in cache["ssm"].items()}
-        y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps), cfg, layer)
+        y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps), cfg, layer, kernels)
         for name, t in st.items():
             layer[name].copy_(t)
         x = x + y
@@ -535,7 +535,7 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
         ai = 0
         for li, lp in enumerate(params["layers"]):
             layer = {name: t[li] for name, t in cache["ssm"].items()}
-            y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, layer)
+            y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, layer, kernels)
             for name, t in st.items():
                 layer[name].copy_(t)
             x = x + y

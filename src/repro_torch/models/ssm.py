@@ -5,7 +5,9 @@ Prefill runs the SSD chunk scan through ``kernels.ssd_scan`` (the CUDA
 kernel on the card, its plain version on the CPU) where the reference
 computes it in jnp (``_ssd_chunked``); the kernel also returns the final
 state the decode cache starts from.  Decode is the O(1) state update in
-PyTorch, as in the reference: no kernel there.
+PyTorch, as in the reference.  Both hand the scan's output to
+``kernels.gated_rmsnorm``: the D skip, the SiLU gate and the RMSNorm in one
+pass, where the reference runs them in jnp.
 
 Layout: d_inner = expand · d_model, heads nh = d_inner / head_dim,
 ``ssm.n_groups`` B/C groups (head h reads group h // (nh / n_groups));
@@ -20,20 +22,10 @@ the parameter dtype, as in the reference.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (
-    causal_conv_silu,
-    dense_axes,
-    dense_init,
-    merge_heads,
-    norm_apply,
-    normal,
-    softplus,
-    split_heads,
-)
+from repro_torch.models.layers import causal_conv_silu, dense_axes, dense_init, normal, softplus, split_heads
 
 __all__ = ["make_ssm_cache", "mamba_apply", "mamba_axes", "mamba_decode", "mamba_init", "ssm_cache_axes"]
 
@@ -107,30 +99,19 @@ def _dt(params, dt_raw):
     return softplus(dt_raw.float() + params["dt_bias"][None, None, :])
 
 
-def _gated_norm(params, y, cfg):
-    """The RMSNorm after the gate, over each B/C group's d_inner / n_groups
-    channels (all of d_inner in one group)."""
-    if cfg.ssm.n_groups == 1:
-        return norm_apply(params["norm"], y, "rmsnorm", cfg.norm_eps)
-    yf = y.float().unflatten(-1, (cfg.ssm.n_groups, -1))
-    yf = yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    return (yf.flatten(-2) * params["norm"]["scale"].float()).to(y.dtype)
-
-
-def _out(params, y, z, x_dtype, shape, cfg):
-    y = merge_heads(y, y.shape[-2]).reshape(shape).to(x_dtype)
-    y = y * F.silu(z)
-    y = _gated_norm(params, y, cfg)
-    return y @ params["out"]["w"].to(x_dtype)
+def _out(params, y, xh, z, cfg, kernels):
+    """The scan's y (b, s, h, p) f32 through the D skip on xh, the gate z and
+    the RMSNorm over each B/C group's d_inner / n_groups channels, then the
+    out-projection."""
+    y = kernels.gated_rmsnorm(y, xh, z, params["D"], params["norm"]["scale"], cfg.ssm.n_groups, cfg.norm_eps)
+    return y @ params["out"]["w"].to(z.dtype)
 
 
 def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS):
     """Full-sequence Mamba2 block.  x (B, S, D) -> (B, S, D); with
     ``return_state`` also the decode-cache layer {ssm, conv_x, conv_B, conv_C}."""
     s_cfg = cfg.ssm
-    b, s, d = x.shape
-    d_in = s_cfg.expand * d
-    nh = d_in // s_cfg.head_dim
+    nh = s_cfg.expand * x.shape[-1] // s_cfg.head_dim
     z, xr, Bm, Cm, dt_raw = _in_proj(params, x)
     (xr, Bm, Cm), (conv_x_state, conv_B_state, conv_C_state) = _convs(params, xr, Bm, Cm)
     xr = constrain(xr, ("act_batch", None, "act_ffn"))
@@ -140,8 +121,7 @@ def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     if s_cfg.n_groups > 1:  # (b, s, g, n): the kernel maps heads onto groups
         Bm, Cm = Bm.unflatten(-1, (s_cfg.n_groups, -1)), Cm.unflatten(-1, (s_cfg.n_groups, -1))
     y, S_final = kernels.ssd_scan(xh, dt, A, Bm, Cm, s_cfg.chunk)
-    y = y + params["D"][None, None, :, None] * xh.float()
-    out = _out(params, y, z, x.dtype, (b, s, d_in), cfg)
+    out = _out(params, y, xh, z, cfg, kernels)
     if return_state:
         return out, {"ssm": S_final, "conv_x": conv_x_state, "conv_B": conv_B_state, "conv_C": conv_C_state}
     return out
@@ -173,9 +153,10 @@ def ssm_cache_axes() -> dict:
     }
 
 
-def mamba_decode(params, x, cfg, cache_layer):
+def mamba_decode(params, x, cfg, cache_layer, kernels=ops.KERNELS):
     """x (B, 1, D); ``cache_layer`` {ssm, conv_x, conv_B, conv_C} of one
-    layer.  Returns (y (B, 1, D), the layer's new state)."""
+    layer; ``kernels`` the bundle whose ``gated_rmsnorm`` it calls.  Returns
+    (y (B, 1, D), the layer's new state)."""
     s_cfg = cfg.ssm
     b, _, d = x.shape
     d_in = s_cfg.expand * d
@@ -196,6 +177,6 @@ def mamba_decode(params, x, cfg, cache_layer):
     else:
         S_new = cache_layer["ssm"] * decay[..., None, None] + torch.einsum("bhp,bn,bh->bhpn", xh, Bv, dt)
         y = torch.einsum("bhpn,bn->bhp", S_new, Cv)
-    y = y + params["D"][None, :, None] * xh
-    out = _out(params, y, z, x.dtype, (b, 1, d_in), cfg)
+    heads = (b, 1, nh, s_cfg.head_dim)  # prefill's (b, s, h, p) at s = 1
+    out = _out(params, y.reshape(heads).contiguous(), xr.reshape(heads), z, cfg, kernels)
     return out, {"ssm": S_new, "conv_x": cx, "conv_B": cB, "conv_C": cC}

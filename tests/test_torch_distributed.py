@@ -562,7 +562,7 @@ ON_SHARDS_SCRIPT = textwrap.dedent(
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=4)
         from torch.distributed.device_mesh import init_device_mesh
-        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor import Replicate, Shard
         from repro_torch.distributed.per_shard import on_shards
         from repro_torch.distributed.sharding import shard_tensor
         from repro_torch.kernels import ops
@@ -595,8 +595,19 @@ ON_SHARDS_SCRIPT = textwrap.dedent(
         q, k, v, li, lf = r(4, 16, 2, 8), r(4, 16, 2, 8), r(4, 16, 2, 8), r(4, 16, 2), -r(4, 16, 2).abs()
         same(sharded.mlstm_chunk(shard_tensor(q, mesh, (Shard(0), Shard(2))), k, v, li, lf, 8),
              ops.mlstm_chunk(q, k, v, li, lf, 8), "mlstm_chunk")
+        # the gated norm's one group spans heads that the model axis splits: the heads are gathered
+        y, xh, z, D, scale = r(4, 6, 4, 8), r(4, 6, 4, 8), r(4, 6, 32), r(4), r(32)
+        lay = lambda t: shard_tensor(t, mesh, (Shard(0), Shard(2)))  # batch over data, heads (channels) over model
+        whole = lambda t: shard_tensor(t, mesh, (Replicate(), Replicate()))
+        out = sharded.gated_rmsnorm(lay(y), lay(xh), lay(z), shard_tensor(D, mesh, (Replicate(), Shard(0))), whole(scale), 1, 1e-5)
+        assert tuple(out.placements) == (Shard(0), Replicate()), out.placements
+        same(out, ops.gated_rmsnorm(y, xh, z, D, scale, 1, 1e-5), "gated_rmsnorm, heads sharded")
+        out = sharded.gated_rmsnorm(*(whole(t) for t in (y, xh, z, D, scale)), 2, 1e-5)  # replicated: nothing moves
+        assert tuple(out.placements) == (Replicate(), Replicate()), out.placements
+        same(out, ops.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5), "gated_rmsnorm, replicated")
         q, k, v = r(2, 2, 2, 16, 8), r(2, 2, 16, 8), r(2, 2, 16, 8)  # plain tensors go straight to the wrapper
         assert torch.equal(sharded.flash_attention(q, k, v), ops.flash_attention(q, k, v))
+        assert torch.equal(sharded.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5), ops.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5))
         dist.destroy_process_group()
 
     if __name__ == "__main__":
@@ -610,8 +621,9 @@ def test_on_shards_runs_each_model_kernel_per_rank_over_four_cpu_ranks(tmp_path)
     """``per_shard.on_shards`` (the bundle ``models.build`` hands the models)
     runs flash and decode attention, the SSD scan and the mLSTM per rank on
     DTensor shards over a (2, 2) gloo mesh, and a cache sharded over its
-    positions through the flash-decoding merge: each equals the wrapper on
-    the whole tensors."""
+    positions through the flash-decoding merge, and the gated RMSNorm with
+    the heads a mesh splits gathered: each equals the wrapper on the whole
+    tensors."""
     script = tmp_path / "on_shards_ranks.py"
     script.write_text(ON_SHARDS_SCRIPT % str(SRC))
     res = _run([sys.executable, str(script), str(_free_port())], timeout=300)

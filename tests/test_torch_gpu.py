@@ -7,6 +7,8 @@ Needs a CUDA card; skips without one.  On the card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -1093,7 +1095,8 @@ def test_hybrid_kernel_path_matches_plain_path_on_the_card(dev, arch):
     counts = {n: c.value for n, c in ops.LAUNCHES.items() if c.value}
     if arch.startswith("zamba2"):
         n_attn = cfg.n_layers // cfg.attn_every
-        assert counts == {"ssd_scan": cfg.n_layers, "flash_attention": n_attn, "decode_attention": 3 * n_attn}
+        assert counts == {"ssd_scan": cfg.n_layers, "flash_attention": n_attn, "decode_attention": 3 * n_attn,
+                          "gated_rmsnorm": 4 * cfg.n_layers}  # prefill and three decode steps
         torch.testing.assert_close(cache_k["ssm"]["ssm"], cache_p["ssm"]["ssm"], rtol=1e-4, atol=1e-4)
     else:
         n_m = sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
@@ -1155,6 +1158,13 @@ def _kernel_case(kernel, dtype, dev, rng):
     if kernel == "flash_attention":
         q, k, v = (_randn(rng, sh, dtype, dev) for sh in ((2, 2, 2, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64)))
         return ops.flash_attention, ops.flash_attention_plain, (q, k, v), _attn_tol(dtype)["rtol"]
+    if kernel == "gated_rmsnorm":  # reduced zamba2-7b's two groups; the backward is the plain version's
+        y = _randn(rng, (2, 100, 8, 32), torch.float32, dev)
+        x, z = _randn(rng, (2, 100, 8, 32), dtype, dev), _randn(rng, (2, 100, 256), dtype, dev)
+        D, scale = _randn(rng, (8,), torch.float32, dev), _randn(rng, (256,), dtype, dev)
+        fn = functools.partial(ops.gated_rmsnorm, groups=2, eps=1e-5)
+        plain = functools.partial(ops.gated_rmsnorm_plain, groups=2, eps=1e-5)
+        return fn, plain, (y, x, z, D, scale), 2.0**-8 if dtype == torch.bfloat16 else 2.0**-20
     if kernel == "ssd_scan":
         x, B, C = (_randn(rng, sh, dtype, dev) for sh in ((2, 300, 8, 32), (2, 300, 16), (2, 300, 16)))
         dt = torch.from_numpy((np.abs(rng.standard_normal((2, 300, 8))) * 0.1).astype(np.float32)).to(dev)
@@ -1167,7 +1177,7 @@ def _kernel_case(kernel, dtype, dev, rng):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk", "gated_rmsnorm"])
 def test_model_kernel_gradients_match_plain_version_on_the_card(dev, kernel, dtype):
     """On card tensors that need a gradient each kernel launches once and
     returns outputs with a grad_fn; the input gradients (every output used,
@@ -1470,11 +1480,46 @@ def test_ssd_scan_kernel_in_groups(dev, b, s, h, p, n, g, chunk, dtype):
         torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "b,s,h,p,groups,scale_dtype",
+    [
+        (3, 4096, 112, 64, 2, None),  # zamba2-7b's longest forward in the scoring cell
+        (4, 1024, 64, 64, 1, None),  # zamba2-1.2b: one group over all 4096 channels
+        (4, 1024, 64, 64, 1, torch.float32),  # float32 parameters under bfloat16 activations
+        (1, 1, 112, 64, 2, None),  # decode, one row
+        (4, 1, 112, 64, 2, None),  # decode, four rows
+        (3, 333, 112, 64, 2, None),  # an odd row count
+        (2, 75, 8, 32, 2, None),  # reduced zamba2-7b
+    ],
+)
+def test_gated_rmsnorm_kernel_matches_plain_version(dev, b, s, h, p, groups, scale_dtype, dtype):
+    """One launch; every element within ``gated_norm.ULPS`` units in the last
+    place of the plain version on the card."""
+    import sys
+
+    gn = sys.modules["repro_torch.kernels.gated_norm"]
+    rng = np.random.default_rng(b * s + h + groups)
+    y = _randn(rng, (b, s, h, p), torch.float32, dev)
+    x = _randn(rng, (b, s, h, p), dtype, dev)
+    z = (2 * _randn(rng, (b, s, h * p), torch.float32, dev)).to(dtype)
+    D = _randn(rng, (h,), torch.float32, dev) + 1
+    scale = (0.1 * _randn(rng, (h * p,), torch.float32, dev) + 1).to(scale_dtype or dtype)
+    before = gn.launches.value
+    got = gn.gated_rmsnorm(y, x, z, D, scale, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert gn.launches.value == before + 1
+    want = gn.gated_rmsnorm_plain(y, x, z, D, scale, groups, 1e-5)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (b, s, h * p)
+    assert bool(torch.isfinite(got.float()).all())
+    assert gn.ulps(got, want) <= gn.ULPS[dtype]
+
+
 def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_reference(dev):
     """7,356,749,648 parameters in bfloat16 from the seed; prefill of one
     document of 1000 tokens, then 16 decode steps through the cache, with
     the CUDA kernels (13 hd-224 flash launches at prefill, 81 grouped scans,
-    13 decode launches a step).  The 17 positions' logits against the plain
+    13 decode launches a step, 81 gated RMSNorms a forward).  The 17 positions' logits against the plain
     float32 reference's forward over the 1016 tokens, run layer by layer on
     the program's weights.  Random weights amplify bfloat16's rounding over
     81 layers: an H100 measured 0.30 largest and 0.085 mean absolute
@@ -1498,7 +1543,7 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert sum(t.numel() for t in tree_leaves(params)) == cfg.n_params() == 7_356_749_648
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, 1016)).to(dev)
     counts = {name: ops.LAUNCHES[name].value for name in ("flash_attention_padded", "ssd_scan_grouped",
-                                                          "decode_attention_padded")}
+                                                          "decode_attention_padded", "gated_rmsnorm")}
     with torch.no_grad():
         last, cache = api.prefill(params, {"tokens": toks[None, :1000]}, 1016)
         assert cache["kv"]["k"].shape == (13, 1, 32, 1016, 224) and cache["ssm"]["ssm"].shape == (81, 1, 112, 64, 64)
@@ -1512,6 +1557,7 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert ops.LAUNCHES["flash_attention_padded"].value - counts["flash_attention_padded"] == 13
     assert ops.LAUNCHES["ssd_scan_grouped"].value - counts["ssd_scan_grouped"] == 81
     assert ops.LAUNCHES["decode_attention_padded"].value - counts["decode_attention_padded"] == 13 * 16
+    assert ops.LAUNCHES["gated_rmsnorm"].value - counts["gated_rmsnorm"] == 81 * (1 + 16)  # 81 a forward
     err = (got - want).abs()
     assert float(err.max()) <= 0.75 and float(err.mean()) <= 0.2, (float(err.max()), float(err.mean()))
     low_err = (low - want).abs()
