@@ -2732,7 +2732,8 @@ def _long_decode_rank(rank: int, mesh, dev) -> dict:
     from repro_torch.distributed.sharding import shard_tree, sharding_for, use_mesh
     from repro_torch.kernels import ops
     from repro_torch.models import build, lm
-    from repro_torch.models.ssm import make_ssm_cache
+    from repro_torch.models.layers import materialize
+    from repro_torch.models.ssm import ssm_cache_spec
 
     cfg = get_config(LONG_ARCH)
     sites = cfg.n_layers // cfg.attn_every
@@ -2753,7 +2754,7 @@ def _long_decode_rank(rank: int, mesh, dev) -> dict:
                 local[site].copy_(_long_kv(site, rank, (1, kv, t_local, hd), dev)[j])
             stride = torch.empty(whole, device="meta").stride()
             cache_kv[name] = DTensor.from_local(local, mesh, placements, run_check=False, shape=whole, stride=stride)
-        ssm = shard_tree(make_ssm_cache(cfg, 1, cfg.n_layers, torch.bfloat16, dev), axes["ssm"])
+        ssm = shard_tree(materialize(ssm_cache_spec(cfg, 1, cfg.n_layers, torch.bfloat16), dev), axes["ssm"])
         cache = {"ssm": ssm, "kv": dict(cache_kv, index=LONG_INDEX)}
         torch.cuda.synchronize()
         plain_calls: list = []

@@ -128,13 +128,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, sharding_overrides=None
     import dataclasses
 
     import torch
-    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import distribute_tree, tree_shardings, use_mesh
     from repro_torch.models import build, input_axes, input_specs
-    from repro_torch.models.model_zoo import meta_like
+    from repro_torch.models.model_zoo import param_shapes
     from repro_torch.optim import AdamWConfig
     from repro_torch.roofline.analysis import (
         CollectiveBytesMode,
@@ -170,12 +169,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, sharding_overrides=None
 
     mesh = make_mesh(mesh_kind, mesh_shape)
     n_chips = mesh.size()
-    api = build(cfg)
-    with FakeTensorMode():
-        params_fake = api.init(torch.Generator(), "cpu")
-    params_shapes = meta_like(params_fake)
-    del params_fake
-    param_axes = api.param_axes()
+    params_shapes = param_shapes(cfg)
+    param_axes = build(cfg).param_axes()
     record["n_params_exact"] = int(sum(p.numel() for p in tree_leaves(params_shapes)))
     in_ax = input_axes(cfg, shape)
     in_specs_tree = input_specs(cfg, shape)
@@ -185,8 +180,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, sharding_overrides=None
     with use_mesh(mesh, rules=sharding_overrides), implicit_replication(), torch.no_grad():
         if shape.kind == "train":
             opt = {
-                "m": meta_like(_as_f32(params_shapes)),
-                "v": meta_like(_as_f32(params_shapes)),
+                "m": _f32_meta(params_shapes),
+                "v": _f32_meta(params_shapes),
                 "step": torch.empty((), dtype=torch.int32, device="meta"),
             }
             state_axes = opt_axes(param_axes)
@@ -245,12 +240,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, sharding_overrides=None
     return record
 
 
-def _as_f32(tree):
+def _f32_meta(tree):
+    """A new meta tensor of each tensor's shape, float32 where it is floating
+    (the AdamW moments)."""
     import torch
 
     from repro_torch.tree import tree_map
 
-    return tree_map(lambda t: t.to(torch.float32) if t.is_floating_point() else t, tree)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32 if t.is_floating_point() else t.dtype,
+                                          device="meta"), tree)
 
 
 def main(argv=None):

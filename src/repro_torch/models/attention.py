@@ -16,7 +16,7 @@ their plain versions on the card.
 Shapes: x (B, S, D); q (B, S, KV, G, hd); k/v (B, S, KV, hd).  The port's
 KV cache is (layers, B, KV, T, hd), the kernels' layout, where the
 reference's is (layers, B, T, KV, hd) (``models.convert.cache_to_reference``
-maps one to the other), so its logical axes (``cache_axes``) are the
+maps one to the other), so its logical axes (``kv_cache_spec``) are the
 reference's with the T and KV labels swapped.  Decode writes the new k and
 v into the cache in place.
 """
@@ -29,13 +29,14 @@ from repro_torch.distributed import per_shard
 from repro_torch.distributed.sharding import axis_divides, constrain
 from repro_torch.kernels.ops import KERNELS, PLAIN, ModelKernels
 from repro_torch.models.layers import (
+    Spec,
     apply_rope,
-    dense_axes,
-    dense_init,
+    dense_spec,
     flat_rows,
     flat_weight,
     merge_heads,
     norm_apply,
+    norm_spec,
     rope_freqs,
     split_heads,
     unflatten_rows,
@@ -46,46 +47,28 @@ __all__ = [
     "PLAIN",
     "ModelKernels",
     "attn_apply",
-    "attn_axes",
     "attn_decode",
-    "attn_init",
-    "cache_axes",
-    "make_cache",
+    "attn_spec",
+    "kv_cache_spec",
 ]
 
 
-def attn_init(gen, cfg, dtype) -> dict:
+def attn_spec(cfg, dtype) -> dict:
     """Weights from the attention's input width (``cfg.attn_in_dim``) to
     d_model."""
     d, h, kv, hd = cfg.attn_in_dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     bias_ax = ("heads", "head_dim") if cfg.qkv_bias else None
     bias_ax_kv = ("kv_heads", "head_dim") if cfg.qkv_bias else None
-    params = {
-        "wq": dense_init(gen, (d, h, hd), ("embed", "heads", "head_dim"), dtype, bias_axis=bias_ax),
-        "wk": dense_init(gen, (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
-        "wv": dense_init(gen, (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
-        "wo": dense_init(gen, (h, hd, cfg.d_model), ("heads", "head_dim", "embed"), dtype, scale=(h * hd) ** -0.5),
+    spec = {
+        "wq": dense_spec((d, h, hd), ("embed", "heads", "head_dim"), dtype, bias_axis=bias_ax),
+        "wk": dense_spec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
+        "wv": dense_spec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype, bias_axis=bias_ax_kv),
+        "wo": dense_spec((h, hd, cfg.d_model), ("heads", "head_dim", "embed"), dtype, scale=(h * hd) ** -0.5),
     }
     if cfg.qk_norm:
-        params["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype, device=gen.device)}
-        params["k_norm"] = {"scale": torch.ones((hd,), dtype=dtype, device=gen.device)}
-    return params
-
-
-def attn_axes(cfg) -> dict:
-    """The logical axes of ``attn_init``'s parameters."""
-    bias_ax = ("heads", "head_dim") if cfg.qkv_bias else None
-    bias_ax_kv = ("kv_heads", "head_dim") if cfg.qkv_bias else None
-    axes = {
-        "wq": dense_axes(("embed", "heads", "head_dim"), bias_ax),
-        "wk": dense_axes(("embed", "kv_heads", "head_dim"), bias_ax_kv),
-        "wv": dense_axes(("embed", "kv_heads", "head_dim"), bias_ax_kv),
-        "wo": dense_axes(("heads", "head_dim", "embed")),
-    }
-    if cfg.qk_norm:
-        axes["q_norm"] = {"scale": ("head_dim",)}
-        axes["k_norm"] = {"scale": ("head_dim",)}
-    return axes
+        spec["q_norm"] = norm_spec(hd, "rmsnorm", dtype, "head_dim")
+        spec["k_norm"] = norm_spec(hd, "rmsnorm", dtype, "head_dim")
+    return spec
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -151,25 +134,12 @@ def attn_apply(params, x, cfg, positions=None, causal=True, layer_cache=None, ke
 # ---------------------------------------------------------------------------
 # KV cache + decode
 # ---------------------------------------------------------------------------
-def make_cache(cfg, batch: int, max_seq: int, n_layers: int, dtype, device) -> dict:
-    kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    shape = (n_layers, batch, kv, max_seq, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "index": 0,
-    }
-
-
-def cache_axes(long_context: bool = False) -> dict:
-    """The logical axes of ``make_cache``'s tensors: (layers, B, KV, T, hd),
-    T sharded over ``cache_seq_long`` for a long context."""
-    seq_ax = "cache_seq_long" if long_context else None
-    return {
-        "k": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
-        "v": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
-        "index": (),
-    }
+def kv_cache_spec(cfg, batch: int, max_seq: int, n_layers: int, dtype, long_context: bool = False) -> dict:
+    """The zeroed KV cache (layers, B, KV, T, hd) and its index; a long
+    context shards T over ``cache_seq_long``."""
+    shape = (n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim_)
+    axes = ("layers", "cache_batch", "kv_heads", "cache_seq_long" if long_context else None, "head_dim")
+    return {"k": Spec(shape, dtype, axes), "v": Spec(shape, dtype, axes), "index": 0}
 
 
 def attn_decode(params, x, cfg, layer_k, layer_v, index: int, kernels=KERNELS):

@@ -23,9 +23,10 @@ step's cross-attention ``decode_attention`` with ``length = enc_seq``.
 Cache: {k, v (layers, B, KV, T, hd), cross_k, cross_v (layers, B, KV,
 enc_seq, hd), index}; the reference's is (layers, B, T, KV, hd)
 (``models.convert.cache_to_reference``).  ``k`` and ``v`` are updated in
-place.  ``param_axes`` and ``decode_cache_axes`` give the logical axes of
-the parameters and the cache (T and KV swapped for the port's layout);
-activations are constrained at the reference's sites.
+place.  ``spec`` declares every parameter once and ``decode_cache_spec``
+the cache: ``init`` / ``param_axes`` and ``make_decode_cache`` /
+``decode_cache_axes`` read them (the cache's T and KV swapped for the
+port's layout); activations are constrained at the reference's sites.
 """
 
 from __future__ import annotations
@@ -38,19 +39,18 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Dtypes,
+    Spec,
+    axes_of,
     embed_tokens,
-    embedding_axes,
-    embedding_init,
+    embedding_spec,
     flat_rows,
     flat_weight,
     logits_apply,
+    materialize,
     mlp_apply,
-    mlp_axes,
-    mlp_init,
+    mlp_spec,
     norm_apply,
-    norm_axes,
-    norm_init,
-    normal,
+    norm_spec,
     split_heads,
     unflatten_rows,
 )
@@ -59,6 +59,7 @@ from repro_torch.models.lm import ACT_AXES, LOGIT_AXES, cross_entropy, weights_d
 __all__ = [
     "DEC_POSITIONS",
     "decode_cache_axes",
+    "decode_cache_spec",
     "decode_step",
     "encode",
     "forward",
@@ -67,40 +68,38 @@ __all__ = [
     "make_decode_cache",
     "param_axes",
     "prefill",
+    "spec",
 ]
 
 DEC_POSITIONS = 33024  # the reference's decoder position table: decode_32k (32768) + train_4k
 
 
-def init(cfg, generator: torch.Generator, device=None) -> dict:
-    """Random weights with the reference's shapes, names and standard
-    deviations, drawn from ``generator`` on ``device`` (the generator's)."""
-    dev = weights_device(generator, device)
-    dt = Dtypes.from_cfg(cfg)
-    g, d = generator, cfg.d_model
+def spec(cfg) -> dict:
+    """The spec tree of the parameters: every tensor's shape, dtype, the
+    reference's logical axes and initial value, declared once."""
+    dt, d = Dtypes.from_cfg(cfg).param, cfg.d_model
 
     def ln():
-        return norm_init(d, cfg.norm, dt.param, dev)
+        return norm_spec(d, cfg.norm, dt)
 
     def mlp():
-        return mlp_init(g, d, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias)
+        return mlp_spec(d, cfg.d_ff, cfg.glu, dt, bias=cfg.mlp_bias)
 
     return {
-        "embed": embedding_init(g, cfg.padded_vocab, d, dt.param),
-        "enc_pos": normal(g, (cfg.enc_seq, d), 0.01, dt.param),
-        "dec_pos": normal(g, (DEC_POSITIONS, d), 0.01, dt.param),
+        "embed": embedding_spec(cfg.padded_vocab, d, dt),
+        "enc_pos": Spec((cfg.enc_seq, d), dt, (None, "embed"), std=0.01),
+        "dec_pos": Spec((DEC_POSITIONS, d), dt, (None, "embed"), std=0.01),
         "enc_final_norm": ln(),
         "final_norm": ln(),
         "encoder": [
-            {"ln1": ln(), "attn": attn.attn_init(g, cfg, dt.param), "ln2": ln(), "mlp": mlp()}
-            for _ in range(cfg.encoder_layers)
+            {"ln1": ln(), "attn": attn.attn_spec(cfg, dt), "ln2": ln(), "mlp": mlp()} for _ in range(cfg.encoder_layers)
         ],
         "decoder": [
             {
                 "ln1": ln(),
-                "self_attn": attn.attn_init(g, cfg, dt.param),
+                "self_attn": attn.attn_spec(cfg, dt),
                 "ln_x": ln(),
-                "cross_attn": attn.attn_init(g, cfg, dt.param),
+                "cross_attn": attn.attn_spec(cfg, dt),
                 "ln2": ln(),
                 "mlp": mlp(),
             }
@@ -109,35 +108,16 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     }
 
 
+def init(cfg, generator: torch.Generator, device=None) -> dict:
+    """Random weights with the reference's shapes, names and standard
+    deviations, drawn from ``generator`` on ``device`` (the generator's)."""
+    return materialize(spec(cfg), weights_device(generator, device), generator)
+
+
 def param_axes(cfg) -> dict:
     """The logical-axes tree of ``init(cfg, ...)``'s parameters, leaf for
     leaf the reference's ``init`` axes."""
-
-    def mlp():
-        return mlp_axes(cfg.glu, bias=cfg.mlp_bias)
-
-    return {
-        "embed": embedding_axes(),
-        "enc_pos": (None, "embed"),
-        "dec_pos": (None, "embed"),
-        "enc_final_norm": norm_axes(cfg.norm),
-        "final_norm": norm_axes(cfg.norm),
-        "encoder": [
-            {"ln1": norm_axes(cfg.norm), "attn": attn.attn_axes(cfg), "ln2": norm_axes(cfg.norm), "mlp": mlp()}
-            for _ in range(cfg.encoder_layers)
-        ],
-        "decoder": [
-            {
-                "ln1": norm_axes(cfg.norm),
-                "self_attn": attn.attn_axes(cfg),
-                "ln_x": norm_axes(cfg.norm),
-                "cross_attn": attn.attn_axes(cfg),
-                "ln2": norm_axes(cfg.norm),
-                "mlp": mlp(),
-            }
-            for _ in range(cfg.n_layers)
-        ],
-    }
+    return axes_of(spec(cfg))
 
 
 def encode(params, frames, cfg, kernels=ops.KERNELS):
@@ -237,23 +217,21 @@ def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
     return loss, {"ce": loss}
 
 
+def decode_cache_spec(cfg, batch: int, max_seq: int, dtype, long_context: bool = False) -> dict:
+    """The decoder's KV cache (a long context shards its T over
+    ``cache_seq_long``) and the memory's k and v per layer."""
+    tree = attn.kv_cache_spec(cfg, batch, max_seq, cfg.n_layers, dtype, long_context)
+    cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim_)
+    axes = ("layers", "cache_batch", "kv_heads", None, "head_dim")
+    return dict(tree, cross_k=Spec(cross, dtype, axes), cross_v=Spec(cross, dtype, axes))
+
+
 def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
-    cache = attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device_mod.resolve(device))
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim_)
-    cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=cache["k"].device)
-    cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=cache["k"].device)
-    return cache
+    return materialize(decode_cache_spec(cfg, batch, max_seq, dtype), device_mod.resolve(device))
 
 
 def decode_cache_axes(cfg, long_context: bool = False) -> dict:
-    seq_ax = "cache_seq_long" if long_context else None
-    return {
-        "k": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
-        "v": ("layers", "cache_batch", "kv_heads", seq_ax, "head_dim"),
-        "cross_k": ("layers", "cache_batch", "kv_heads", None, "head_dim"),
-        "cross_v": ("layers", "cache_batch", "kv_heads", None, "head_dim"),
-        "index": (),
-    }
+    return axes_of(decode_cache_spec(cfg, 1, 1, torch.float32, long_context))
 
 
 def prefill(params, batch, cfg, max_seq: int, kernels=ops.KERNELS):

@@ -3,11 +3,14 @@
 
 Parameters are nested dicts of tensors with the reference's names and
 shapes — ``wq["w"]`` is (d, h, hd), ``embed["table"]`` is (V, d) — so the
-reference's weights carry over by name (``models.convert``).  The
-``*_init`` functions return the parameters alone; the reference's logical
-sharding axes of the same tree come from the ``*_axes`` functions beside
-them (``repro_torch.distributed.sharding`` maps them onto a mesh).
-Weights are drawn from
+reference's weights carry over by name (``models.convert``).  Each tensor
+is declared once, as a ``Spec`` (shape, dtype, the reference's logical
+sharding axes, and how its value starts), in a block's spec tree
+(``dense_spec``, ``norm_spec``, ``embedding_spec``, ``mlp_spec`` here, the
+others beside their blocks).  Three readers walk a spec tree:
+``materialize`` makes the tensors, ``axes_of`` the logical-axes tree
+(``repro_torch.distributed.sharding`` maps it onto a mesh) and ``meta_of``
+empty meta tensors of each shape (the dry-run's).  Weights are drawn from
 an explicit ``torch.Generator`` with the reference's standard deviations
 (its ``jax.random`` bits cannot be reproduced, so tests convert weights).
 """
@@ -15,34 +18,36 @@ an explicit ``torch.Generator`` with the reference's standard deviations
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import axis_divides, constrain, current_mesh, layout_grad, sharding_for
+from repro_torch.tree import tree_map
 
 __all__ = [
     "ACT",
     "Dtypes",
+    "Spec",
     "apply_rope",
+    "axes_of",
     "causal_conv_silu",
     "dense_apply",
-    "dense_axes",
-    "dense_init",
+    "dense_spec",
     "embed_tokens",
-    "embedding_axes",
-    "embedding_init",
+    "embedding_spec",
     "flat_rows",
     "flat_weight",
     "logits_apply",
+    "materialize",
     "merge_heads",
+    "meta_of",
     "mlp_apply",
-    "mlp_axes",
-    "mlp_init",
+    "mlp_spec",
     "norm_apply",
-    "norm_axes",
-    "norm_init",
+    "norm_spec",
     "normal",
     "rope_freqs",
     "softplus",
@@ -85,6 +90,47 @@ def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * std).to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One tensor's declaration.  Its value starts as N(0, ``std``²)
+    (``normal``) when ``std`` is set, else full of ``fill``, or ``fill(device)``
+    when that is a function."""
+
+    shape: tuple
+    dtype: torch.dtype
+    axes: tuple
+    std: float | None = None
+    fill: float | Callable = 0.0
+
+
+def materialize(tree, device, generator: torch.Generator | None = None):
+    """The tensors of a spec tree on ``device``, the ``normal`` leaves drawn
+    from ``generator`` (on its own device) depth-first in the tree's order;
+    other leaves (a cache's int index) as they are."""
+
+    def one(s):
+        if not isinstance(s, Spec):
+            return s
+        if s.std is not None:
+            return normal(generator, s.shape, s.std, s.dtype)
+        if callable(s.fill):
+            return s.fill(device)
+        return torch.full(s.shape, s.fill, dtype=s.dtype, device=device)
+
+    return tree_map(one, tree)
+
+
+def axes_of(tree):
+    """The logical-axes tree of a spec tree; an int leaf's axes are ()."""
+    return tree_map(lambda s: s.axes if isinstance(s, Spec) else (), tree)
+
+
+def meta_of(tree):
+    """Empty meta-device tensors of a spec tree's shapes and dtypes (nothing
+    is allocated); other leaves as they are."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta") if isinstance(s, Spec) else s, tree)
+
+
 def softplus(x):
     """``jax.nn.softplus``'s form, log1p(exp(-|x|)) + max(x, 0), exact for
     every x (``F.softplus`` returns x itself above a threshold)."""
@@ -109,24 +155,16 @@ def causal_conv_silu(x, w, state=None, bias=None):
 # ---------------------------------------------------------------------------
 # dense
 # ---------------------------------------------------------------------------
-def dense_init(gen, shape, axes, dtype, bias_axis=None, scale=None) -> dict:
+def dense_spec(shape, axes, dtype, bias_axis=None, scale=None) -> dict:
     """General dense weight: ``shape``/``axes`` are aligned tuples; the axes
     named "embed" make the fan-in, as in the reference."""
     fan_in = int(np.prod([s for s, a in zip(shape, axes) if a == "embed"])) or shape[0]
     std = scale if scale is not None else fan_in**-0.5
-    params = {"w": normal(gen, tuple(shape), std, dtype)}
+    spec = {"w": Spec(tuple(shape), dtype, tuple(axes), std=std)}
     if bias_axis is not None:
-        out_dims = tuple(s for s, a in zip(shape, axes) if a in bias_axis)
-        params["b"] = torch.zeros(out_dims, dtype=dtype, device=gen.device)
-    return params
-
-
-def dense_axes(axes, bias_axis=None) -> dict:
-    """The logical axes of ``dense_init``'s parameters."""
-    ax = {"w": tuple(axes)}
-    if bias_axis is not None:
-        ax["b"] = tuple(a for a in axes if a in bias_axis)
-    return ax
+        out = [(s, a) for s, a in zip(shape, axes) if a in bias_axis]
+        spec["b"] = Spec(tuple(s for s, _ in out), dtype, tuple(a for _, a in out))
+    return spec
 
 
 class _FlatWeight(torch.autograd.Function):
@@ -208,16 +246,11 @@ def dense_apply(params, x, contract: str):
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
-def norm_init(d: int, kind: str, dtype, device) -> dict:
-    if kind == "rmsnorm":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
-    return {"scale": torch.ones((d,), dtype=dtype, device=device), "bias": torch.zeros((d,), dtype=dtype, device=device)}
-
-
-def norm_axes(kind: str) -> dict:
-    if kind == "rmsnorm":
-        return {"scale": ("embed",)}
-    return {"scale": ("embed",), "bias": ("embed",)}
+def norm_spec(d: int, kind: str, dtype, axis="embed") -> dict:
+    spec = {"scale": Spec((d,), dtype, (axis,), fill=1.0)}
+    if kind != "rmsnorm":
+        spec["bias"] = Spec((d,), dtype, (axis,))
+    return spec
 
 
 def norm_apply(params, x, kind: str, eps: float = 1e-6):
@@ -236,12 +269,8 @@ def norm_apply(params, x, kind: str, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 # embeddings / logits
 # ---------------------------------------------------------------------------
-def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
-    return {"table": normal(gen, (vocab, d), d**-0.5, dtype)}
-
-
-def embedding_axes() -> dict:
-    return {"table": ("vocab", "embed")}
+def embedding_spec(vocab: int, d: int, dtype) -> dict:
+    return {"table": Spec((vocab, d), dtype, ("vocab", "embed"), std=d**-0.5)}
 
 
 def embed_tokens(params, tokens, act_dtype):
@@ -265,22 +294,14 @@ def logits_apply(emb_params, x, real_vocab: int):
 # ---------------------------------------------------------------------------
 # MLP (plain or gated)
 # ---------------------------------------------------------------------------
-def mlp_init(gen, d: int, d_ff: int, glu: bool, dtype, bias: bool = False) -> dict:
-    params = {"up": dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype, bias_axis=("ffn",) if bias else None)}
+def mlp_spec(d: int, d_ff: int, glu: bool, dtype, bias: bool = False) -> dict:
+    spec = {"up": dense_spec((d, d_ff), ("embed", "ffn"), dtype, bias_axis=("ffn",) if bias else None)}
     if glu:
-        params["gate"] = dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype)
-    params["down"] = dense_init(
-        gen, (d_ff, d), ("ffn", "embed"), dtype, bias_axis=("embed",) if bias else None, scale=d_ff**-0.5
+        spec["gate"] = dense_spec((d, d_ff), ("embed", "ffn"), dtype)
+    spec["down"] = dense_spec(
+        (d_ff, d), ("ffn", "embed"), dtype, bias_axis=("embed",) if bias else None, scale=d_ff**-0.5
     )
-    return params
-
-
-def mlp_axes(glu: bool, bias: bool = False) -> dict:
-    axes = {"up": dense_axes(("embed", "ffn"), ("ffn",) if bias else None)}
-    if glu:
-        axes["gate"] = dense_axes(("embed", "ffn"))
-    axes["down"] = dense_axes(("ffn", "embed"), ("embed",) if bias else None)
-    return axes
+    return spec
 
 
 def mlp_apply(params, x, act: str, glu: bool):

@@ -1,6 +1,7 @@
 """Decoder-only LM for the ``attn`` (dense or MoE), ``zamba2`` and
 ``xlstm`` block patterns — the port of ``repro.models.lm``.
 
+    spec(cfg)                                      -> the parameters' spec tree
     init(cfg, generator, device)                   -> params
     forward(params, tokens, cfg)                   -> (logits, aux)
     loss_fn(params, batch, cfg)                    -> (loss, {ce, aux})
@@ -8,19 +9,24 @@
     decode_step(params, token, cache, cfg)         -> (logits, cache)
     make_decode_cache(cfg, batch, max_seq, dtype, device)
 
-Each entry point takes ``kernels``, the bundle of the four kernel functions
-the blocks call (``kernels.ops.KERNELS``, or ``PLAIN`` to hold the kernels
+Each entry point takes ``kernels``, the bundle of the kernel functions the
+blocks call (``kernels.ops.KERNELS``, or ``PLAIN`` to hold the kernels
 against their plain versions on the card): attention runs
-``flash_attention`` / ``decode_attention``, Mamba2 ``ssd_scan`` and mLSTM
-``mlstm_chunk``.  In a MoE configuration every ``moe_every``-th ``attn``
-layer takes ``models.moe`` in place of its MLP; ``forward`` returns the
-sum of those layers' load-balancing losses as ``aux`` (0.0 without MoE
-layers).
+``flash_attention`` / ``decode_attention``, Mamba2 ``ssd_scan`` and
+``gated_rmsnorm``, mLSTM ``mlstm_chunk``.  In a MoE configuration every
+``moe_every``-th ``attn`` layer takes ``models.moe`` in place of its MLP;
+``forward`` returns the sum of those layers' load-balancing losses as
+``aux`` (0.0 without MoE layers).
 
-Sharding: ``param_axes(cfg)`` is the logical-axes tree of ``init``'s
-parameters and ``decode_cache_axes`` that of the decode cache (the
-reference's, with the KV cache's T and KV labels swapped for the port's
-layout).  The activations are constrained at the reference's sites
+Declarations: ``spec(cfg)`` declares every parameter once
+(``layers.Spec``: shape, dtype, logical axes, initial value) and
+``decode_cache_spec`` every cache tensor.  ``init`` and ``param_axes``
+read the one, ``make_decode_cache`` and ``decode_cache_axes`` the other
+(the reference's axes, with the KV cache's T and KV labels swapped for
+the port's layout), so the branch on the block pattern for the tensor
+layout is written once.
+
+Sharding: the activations are constrained at the reference's sites
 (``distributed.sharding.constrain``: its input itself outside a mesh), and
 with ``cfg.zero3_gather`` each ``attn`` block re-lays its weights out
 TP-only at use (``_gather_weights``), the reference's ZeRO-3
@@ -75,24 +81,23 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     ACT,
     Dtypes,
-    dense_axes,
-    dense_init,
+    axes_of,
+    dense_spec,
     embed_tokens,
-    embedding_axes,
-    embedding_init,
+    embedding_spec,
     logits_apply,
+    materialize,
     mlp_apply,
-    mlp_axes,
-    mlp_init,
+    mlp_spec,
     norm_apply,
-    norm_axes,
-    norm_init,
+    norm_spec,
 )
 
 __all__ = [
     "check_supported",
     "cross_entropy",
     "decode_cache_axes",
+    "decode_cache_spec",
     "decode_step",
     "forward",
     "init",
@@ -100,6 +105,7 @@ __all__ = [
     "make_decode_cache",
     "param_axes",
     "prefill",
+    "spec",
 ]
 
 ACT_AXES = ("act_batch", None, None)
@@ -124,35 +130,6 @@ def _published_zamba2(cfg) -> bool:
     return cfg.block_pattern == "zamba2" and bool(cfg.hybrid_layer_ids)
 
 
-# zamba2's published layout: the shared blocks and each application's own weights, with their axes
-def _mem_block_init(g, cfg, dtype, dev) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
-    return {
-        "ln_a": norm_init(cfg.attn_in_dim, cfg.norm, dtype, dev),
-        "attn": attn.attn_init(g, cfg, dtype),
-        "ln_m": norm_init(d, cfg.norm, dtype, dev),
-        "mlp": {"gate_up": dense_init(g, (d, 2 * f), ("embed", "ffn"), dtype),
-                "down": dense_init(g, (f, d), ("ffn", "embed"), dtype, scale=f**-0.5)},
-    }
-
-
-def _mem_block_axes(cfg) -> dict:
-    return {"ln_a": norm_axes(cfg.norm), "attn": attn.attn_axes(cfg), "ln_m": norm_axes(cfg.norm),
-            "mlp": {"gate_up": dense_axes(("embed", "ffn")), "down": dense_axes(("ffn", "embed"))}}
-
-
-def _application_init(g, cfg, dtype) -> dict:
-    d, r = cfg.d_model, cfg.adapter_rank
-    return {"lora_a": dense_init(g, (d, r), ("embed", None), dtype),
-            "lora_b": dense_init(g, (r, 2 * cfg.d_ff), (None, "ffn"), dtype),
-            "linear": dense_init(g, (d, d), ("embed", None), dtype)}
-
-
-def _application_axes() -> dict:
-    return {"lora_a": dense_axes(("embed", None)), "lora_b": dense_axes((None, "ffn")),
-            "linear": dense_axes(("embed", None))}
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -167,84 +144,67 @@ def weights_device(generator: torch.Generator, device=None) -> torch.device:
     return dev
 
 
+def spec(cfg) -> dict:
+    """The spec tree of the parameters: every tensor's shape, dtype, the
+    reference's logical axes and initial value, declared once."""
+    check_supported(cfg)
+    dt = Dtypes.from_cfg(cfg).param
+    d = cfg.d_model
+
+    def ln(width=d):
+        return norm_spec(width, cfg.norm, dt)
+
+    tree: dict = {"embed": embedding_spec(cfg.padded_vocab, d, dt)}
+    if not cfg.tie_embeddings:
+        tree["embed_out"] = embedding_spec(cfg.padded_vocab, d, dt)
+    tree["final_norm"] = ln()
+    layers = []
+    for li in range(cfg.n_layers):
+        if cfg.block_pattern == "attn":
+            lp = {"ln1": ln(), "attn": attn.attn_spec(cfg, dt), "ln2": ln()}
+            if _is_moe_layer(cfg, li):
+                lp["moe"] = moe_mod.moe_spec(cfg, dt)
+            else:
+                lp["mlp"] = mlp_spec(d, cfg.d_ff, cfg.glu, dt, bias=cfg.mlp_bias)
+            layers.append(lp)
+        elif cfg.block_pattern == "zamba2":
+            layers.append({"ln": ln(), "mamba": ssm_mod.mamba_spec(cfg, dt)})
+        elif xl.is_slstm(cfg, li):
+            layers.append({"ln": ln(), "slstm": xl.slstm_spec(cfg, dt)})
+        else:
+            layers.append({"ln": ln(), "mlstm": xl.mlstm_spec(cfg, dt)})
+    tree["layers"] = layers
+    f, r = cfg.d_ff, cfg.adapter_rank
+    if _published_zamba2(cfg):  # the shared blocks, then each application's own weights
+        tree["mem_blocks"] = [
+            {"ln_a": ln(cfg.attn_in_dim), "attn": attn.attn_spec(cfg, dt), "ln_m": ln(),
+             "mlp": {"gate_up": dense_spec((d, 2 * f), ("embed", "ffn"), dt),
+                     "down": dense_spec((f, d), ("ffn", "embed"), dt, scale=f**-0.5)}}
+            for _ in range(cfg.n_mem_blocks)
+        ]
+        tree["hybrid"] = [
+            {"lora_a": dense_spec((d, r), ("embed", None), dt),
+             "lora_b": dense_spec((r, 2 * f), (None, "ffn"), dt),
+             "linear": dense_spec((d, d), ("embed", None), dt)}
+            for _ in cfg.hybrid_layer_ids
+        ]
+    elif cfg.block_pattern == "zamba2":
+        tree["shared_attn"] = {"ln_a": ln(), "attn": attn.attn_spec(cfg, dt), "ln_m": ln(),
+                               "mlp": mlp_spec(d, f, cfg.glu, dt)}
+    return tree
+
+
 def init(cfg, generator: torch.Generator, device=None) -> dict:
     """Random weights with the reference's shapes, names and standard
     deviations, drawn from ``generator`` on ``device`` (which must be the
     generator's device)."""
-    check_supported(cfg)
-    dev = weights_device(generator, device)
-    dt = Dtypes.from_cfg(cfg)
-    g = generator
-    params: dict = {"embed": embedding_init(g, cfg.padded_vocab, cfg.d_model, dt.param)}
-    if not cfg.tie_embeddings:
-        params["embed_out"] = embedding_init(g, cfg.padded_vocab, cfg.d_model, dt.param)
-    params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dt.param, dev)
-    layers = []
-    for li in range(cfg.n_layers):
-        ln = norm_init(cfg.d_model, cfg.norm, dt.param, dev)
-        if cfg.block_pattern == "attn":
-            lp = {"ln1": ln, "attn": attn.attn_init(g, cfg, dt.param), "ln2": norm_init(cfg.d_model, cfg.norm, dt.param, dev)}
-            if _is_moe_layer(cfg, li):
-                lp["moe"] = moe_mod.moe_init(g, cfg, dt.param)
-            else:
-                lp["mlp"] = mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param, bias=cfg.mlp_bias)
-            layers.append(lp)
-        elif cfg.block_pattern == "zamba2":
-            layers.append({"ln": ln, "mamba": ssm_mod.mamba_init(g, cfg, dt.param)})
-        elif xl.is_slstm(cfg, li):
-            layers.append({"ln": ln, "slstm": xl.slstm_init(g, cfg, dt.param)})
-        else:
-            layers.append({"ln": ln, "mlstm": xl.mlstm_init(g, cfg, dt.param)})
-    params["layers"] = layers
-    if _published_zamba2(cfg):
-        params["mem_blocks"] = [_mem_block_init(g, cfg, dt.param, dev) for _ in range(cfg.n_mem_blocks)]
-        params["hybrid"] = [_application_init(g, cfg, dt.param) for _ in cfg.hybrid_layer_ids]
-    elif cfg.block_pattern == "zamba2":
-        params["shared_attn"] = {
-            "ln_a": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
-            "attn": attn.attn_init(g, cfg, dt.param),
-            "ln_m": norm_init(cfg.d_model, cfg.norm, dt.param, dev),
-            "mlp": mlp_init(g, cfg.d_model, cfg.d_ff, cfg.glu, dt.param),
-        }
-    return params
+    return materialize(spec(cfg), weights_device(generator, device), generator)
 
 
 def param_axes(cfg) -> dict:
     """The logical-axes tree of ``init(cfg, ...)``'s parameters, leaf for
     leaf the reference's ``init`` axes."""
-    check_supported(cfg)
-    axes: dict = {"embed": embedding_axes()}
-    if not cfg.tie_embeddings:
-        axes["embed_out"] = embedding_axes()
-    axes["final_norm"] = norm_axes(cfg.norm)
-    layers = []
-    for li in range(cfg.n_layers):
-        ln = norm_axes(cfg.norm)
-        if cfg.block_pattern == "attn":
-            la = {"ln1": ln, "attn": attn.attn_axes(cfg), "ln2": norm_axes(cfg.norm)}
-            if _is_moe_layer(cfg, li):
-                la["moe"] = moe_mod.moe_axes(cfg)
-            else:
-                la["mlp"] = mlp_axes(cfg.glu, bias=cfg.mlp_bias)
-            layers.append(la)
-        elif cfg.block_pattern == "zamba2":
-            layers.append({"ln": ln, "mamba": ssm_mod.mamba_axes(cfg)})
-        elif xl.is_slstm(cfg, li):
-            layers.append({"ln": ln, "slstm": xl.slstm_axes(cfg)})
-        else:
-            layers.append({"ln": ln, "mlstm": xl.mlstm_axes(cfg)})
-    axes["layers"] = layers
-    if _published_zamba2(cfg):
-        axes["mem_blocks"] = [_mem_block_axes(cfg) for _ in range(cfg.n_mem_blocks)]
-        axes["hybrid"] = [_application_axes() for _ in cfg.hybrid_layer_ids]
-    elif cfg.block_pattern == "zamba2":
-        axes["shared_attn"] = {
-            "ln_a": norm_axes(cfg.norm),
-            "attn": attn.attn_axes(cfg),
-            "ln_m": norm_axes(cfg.norm),
-            "mlp": mlp_axes(cfg.glu),
-        }
-    return axes
+    return axes_of(spec(cfg))
 
 
 def _gather_weights(tree, axes_tree):
@@ -467,29 +427,29 @@ def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
     return loss, {"ce": ce, "aux": aux}
 
 
-def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
+def decode_cache_spec(cfg, batch: int, max_seq: int, dtype, long_context: bool = False) -> dict:
+    """The spec tree of the decode cache; a long context shards the KV
+    cache's T over ``cache_seq_long``."""
     check_supported(cfg)
-    dev = device_mod.resolve(device)
     if cfg.block_pattern == "attn":
-        return attn.make_cache(cfg, batch, max_seq, cfg.n_layers, dtype, dev)
+        return attn.kv_cache_spec(cfg, batch, max_seq, cfg.n_layers, dtype, long_context)
     if cfg.block_pattern == "zamba2":
         apps = len(cfg.hybrid_layer_ids) if cfg.hybrid_layer_ids else cfg.n_layers // cfg.attn_every
         return {
-            "ssm": ssm_mod.make_ssm_cache(cfg, batch, cfg.n_layers, dtype, dev),
-            "kv": attn.make_cache(cfg, batch, max_seq, apps, dtype, dev),
+            "ssm": ssm_mod.ssm_cache_spec(cfg, batch, cfg.n_layers, dtype),
+            "kv": attn.kv_cache_spec(cfg, batch, max_seq, apps, dtype, long_context),
         }
-    return {"xlstm": xl.make_xlstm_cache(cfg, batch, dtype, dev), "index": 0}
+    return {"xlstm": xl.xlstm_cache_spec(cfg, batch, dtype), "index": 0}
+
+
+def make_decode_cache(cfg, batch: int, max_seq: int, dtype, device=None) -> dict:
+    return materialize(decode_cache_spec(cfg, batch, max_seq, dtype), device_mod.resolve(device))
 
 
 def decode_cache_axes(cfg, long_context: bool = False):
-    """The logical axes of ``make_decode_cache``'s tree; a long context
-    shards the KV cache's T over ``cache_seq_long``."""
-    check_supported(cfg)
-    if cfg.block_pattern == "attn":
-        return attn.cache_axes(long_context)
-    if cfg.block_pattern == "zamba2":
-        return {"ssm": ssm_mod.ssm_cache_axes(), "kv": attn.cache_axes(long_context)}
-    return {"xlstm": xl.xlstm_cache_axes(cfg), "index": ()}
+    """The logical axes of ``make_decode_cache``'s tree (they depend on no
+    size)."""
+    return axes_of(decode_cache_spec(cfg, 1, 1, torch.float32, long_context))
 
 
 def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):

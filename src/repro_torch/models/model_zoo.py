@@ -15,9 +15,13 @@ block patterns, and the encoder-decoder (the port of
 ``batch`` is {tokens (B, S)}, and for an encoder-decoder also {frames (B,
 enc_seq, d)}; ``loss_fn`` also takes {labels (B, S)}.
 
-``input_specs(cfg, shape)`` gives meta-device stand-ins for every input of
-the step lowered at a shape (no allocation), and ``input_axes`` their
-logical axes: the dry-run's inputs.
+Both modules declare each parameter and cache tensor once, in a spec tree
+(``lm.spec`` / ``encdec.spec`` and their ``decode_cache_spec``): ``init``,
+``param_axes``, ``make_decode_cache`` and ``decode_cache_axes`` read it.
+``param_shapes(cfg)`` and ``input_specs(cfg, shape)`` read it too, as
+meta-device stand-ins for the parameters and for every input of the step
+lowered at a shape (no allocation), and ``input_axes`` gives the inputs'
+logical axes: the dry-run's arguments.
 """
 
 from __future__ import annotations
@@ -31,10 +35,9 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.distributed import per_shard
 from repro_torch.kernels import ops
 from repro_torch.models import encdec, lm
-from repro_torch.models.layers import torch_dtype
-from repro_torch.tree import tree_map
+from repro_torch.models.layers import meta_of, torch_dtype
 
-__all__ = ["ModelApi", "build", "input_axes", "input_specs", "meta_like"]
+__all__ = ["ModelApi", "build", "input_axes", "input_specs", "param_shapes"]
 
 
 @dataclass(frozen=True)
@@ -81,25 +84,23 @@ def build(cfg: ArchConfig, kernels: ops.ModelKernels = ops.KERNELS) -> ModelApi:
     )
 
 
-def meta_like(tree):
-    """Every tensor of ``tree`` as an empty tensor of its shape and dtype on
-    the meta device; other leaves (the cache's int index) as they are."""
-    return tree_map(
-        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta") if isinstance(t, torch.Tensor) else t, tree
-    )
-
-
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _module(cfg: ArchConfig):
+    return encdec if cfg.is_encdec else lm
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Meta-device stand-ins for every parameter (nothing is allocated)."""
+    return meta_of(_module(cfg).spec(cfg))
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec, act_dtype=None) -> dict:
     """Meta-device stand-ins for the inputs of the step lowered at this
     shape: {tokens, labels} (train), {tokens} (prefill), and {frames} for an
-    encoder-decoder; {token, cache} (decode).  Nothing is allocated: the
-    decode cache is built under ``FakeTensorMode`` and carried to meta."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
+    encoder-decoder; {token, cache} (decode).  Nothing is allocated."""
     act = torch_dtype(act_dtype or cfg.dtype)
     b, s = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
@@ -110,9 +111,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec, act_dtype=None) -> dict:
             specs["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), act)
         return specs
     if shape.kind == "decode":
-        with FakeTensorMode():
-            cache = build(cfg).make_decode_cache(b, s, act, "cpu")
-        return {"token": _meta((b, 1), torch.int32), "cache": meta_like(cache)}
+        cache = meta_of(_module(cfg).decode_cache_spec(cfg, b, s, act))
+        return {"token": _meta((b, 1), torch.int32), "cache": cache}
     raise ValueError(shape.kind)
 
 

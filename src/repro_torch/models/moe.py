@@ -28,14 +28,13 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import per_shard
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers import ACT, dense_axes, dense_init, mlp_apply, mlp_axes, mlp_init, normal
+from repro_torch.models.layers import ACT, Spec, dense_spec, mlp_apply, mlp_spec
 
 __all__ = [
     "moe_apply",
     "moe_apply_einsum",
     "moe_apply_scatter",
-    "moe_axes",
-    "moe_init",
+    "moe_spec",
     "route",
     "scatter_capacity",
     "slot_positions",
@@ -44,34 +43,20 @@ __all__ = [
 BUF_AXES = ("act_experts", "act_batch", None, None)
 
 
-def moe_init(gen, cfg, dtype) -> dict:
+def moe_spec(cfg, dtype) -> dict:
     """Router (d, E); ``up`` and ``gate`` (E, d, f) with std d^-1/2, ``down``
-    (E, f, d) with std f^-1/2; a shared-expert MLP when the config has one.
-    Each tensor is drawn in float32 on the generator's device and cast."""
+    (E, f, d) with std f^-1/2; a shared-expert MLP when the config has one."""
     d, m = cfg.d_model, cfg.moe
     e, f = m.n_experts, m.d_ff_expert
-    params = {
-        "router": dense_init(gen, (d, e), ("embed", "experts"), dtype),
-        "up": {"w": normal(gen, (e, d, f), d**-0.5, dtype)},
-        "gate": {"w": normal(gen, (e, d, f), d**-0.5, dtype)},
-        "down": {"w": normal(gen, (e, f, d), f**-0.5, dtype)},
+    spec = {
+        "router": dense_spec((d, e), ("embed", "experts"), dtype),
+        "up": {"w": Spec((e, d, f), dtype, ("experts", "embed", "ffn"), std=d**-0.5)},
+        "gate": {"w": Spec((e, d, f), dtype, ("experts", "embed", "ffn"), std=d**-0.5)},
+        "down": {"w": Spec((e, f, d), dtype, ("experts", "ffn", "embed"), std=f**-0.5)},
     }
     if m.n_shared_experts:
-        params["shared"] = mlp_init(gen, d, f * m.n_shared_experts, True, dtype)
-    return params
-
-
-def moe_axes(cfg) -> dict:
-    """The logical axes of ``moe_init``'s parameters."""
-    axes = {
-        "router": dense_axes(("embed", "experts")),
-        "up": {"w": ("experts", "embed", "ffn")},
-        "gate": {"w": ("experts", "embed", "ffn")},
-        "down": {"w": ("experts", "ffn", "embed")},
-    }
-    if cfg.moe.n_shared_experts:
-        axes["shared"] = mlp_axes(True)
-    return axes
+        spec["shared"] = mlp_spec(d, f * m.n_shared_experts, True, dtype)
+    return spec
 
 
 def moe_apply(params, x, cfg, act: str):

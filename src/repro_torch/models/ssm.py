@@ -25,59 +25,47 @@ import torch
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv_silu, dense_axes, dense_init, normal, softplus, split_heads
+from repro_torch.models.layers import Spec, causal_conv_silu, dense_spec, norm_spec, softplus, split_heads
 
-__all__ = ["make_ssm_cache", "mamba_apply", "mamba_axes", "mamba_decode", "mamba_init", "ssm_cache_axes"]
-
-_PROJ_AXES = [
-    ("wz", ("embed", "ssm_in")),
-    ("wx", ("embed", "ssm_in")),
-    ("wB", ("embed", "state")),
-    ("wC", ("embed", "state")),
-    ("wdt", ("embed", "ssm_heads")),
-]
+__all__ = ["mamba_apply", "mamba_decode", "mamba_spec", "ssm_cache_spec"]
 
 
-def mamba_init(gen, cfg, dtype) -> dict:
-    d = cfg.d_model
+def _widths(cfg) -> tuple:
+    """(d_inner, heads, B/C channels n_groups · d_state)."""
     s = cfg.ssm
-    d_in = s.expand * d
-    nh = d_in // s.head_dim
-    n = s.n_groups * s.d_state
-    dev = gen.device
-    params = {}
-    for (name, ax), cols in zip(_PROJ_AXES, (d_in, d_in, n, n, nh)):
-        params[name] = dense_init(gen, (d, cols), ax, dtype)
-    params["conv_x"] = normal(gen, (s.conv_kernel, d_in), 0.1, dtype)
-    params["conv_B"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
-    params["conv_C"] = normal(gen, (s.conv_kernel, n), 0.1, dtype)
+    d_in = s.expand * cfg.d_model
+    return d_in, d_in // s.head_dim, s.n_groups * s.d_state
+
+
+def mamba_spec(cfg, dtype) -> dict:
+    d, s = cfg.d_model, cfg.ssm
+    d_in, nh, n = _widths(cfg)
+    spec = {
+        "wz": dense_spec((d, d_in), ("embed", "ssm_in"), dtype),
+        "wx": dense_spec((d, d_in), ("embed", "ssm_in"), dtype),
+        "wB": dense_spec((d, n), ("embed", "state"), dtype),
+        "wC": dense_spec((d, n), ("embed", "state"), dtype),
+        "wdt": dense_spec((d, nh), ("embed", "ssm_heads"), dtype),
+        "conv_x": Spec((s.conv_kernel, d_in), dtype, ("conv_k", "ssm_in"), std=0.1),
+        "conv_B": Spec((s.conv_kernel, n), dtype, ("conv_k", "state"), std=0.1),
+        "conv_C": Spec((s.conv_kernel, n), dtype, ("conv_k", "state"), std=0.1),
+    }
     if s.conv_bias:
-        for name, cols in (("conv_x_b", d_in), ("conv_B_b", n), ("conv_C_b", n)):
-            params[name] = normal(gen, (cols,), 0.1, dtype)
-    params["A_log"] = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=dev))
-    params["D"] = torch.ones((nh,), dtype=torch.float32, device=dev)
-    params["dt_bias"] = torch.zeros((nh,), dtype=torch.float32, device=dev)
-    params["norm"] = {"scale": torch.ones((d_in,), dtype=dtype, device=dev)}
-    params["out"] = dense_init(gen, (d_in, d), ("ssm_in", "embed"), dtype, scale=d_in**-0.5)
-    return params
+        for name, cols, ax in (("conv_x_b", d_in, "ssm_in"), ("conv_B_b", n, "state"), ("conv_C_b", n, "state")):
+            spec[name] = Spec((cols,), dtype, (ax,), std=0.1)
+    f32 = torch.float32
 
+    def a_log(dev):
+        return torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=dev))
 
-def mamba_axes(cfg) -> dict:
-    """The logical axes of ``mamba_init``'s parameters."""
-    axes = {name: dense_axes(ax) for name, ax in _PROJ_AXES}
-    axes.update(
-        conv_x=("conv_k", "ssm_in"),
-        conv_B=("conv_k", "state"),
-        conv_C=("conv_k", "state"),
-        A_log=("ssm_heads",),
-        D=("ssm_heads",),
-        dt_bias=("ssm_heads",),
-        norm={"scale": ("ssm_in",)},
-        out=dense_axes(("ssm_in", "embed")),
+    spec.update(
+        A_log=Spec((nh,), f32, ("ssm_heads",), fill=a_log),
+        D=Spec((nh,), f32, ("ssm_heads",), fill=1.0),
+        dt_bias=Spec((nh,), f32, ("ssm_heads",)),
+        norm=norm_spec(d_in, "rmsnorm", dtype, "ssm_in"),
+        out=dense_spec((d_in, d), ("ssm_in", "embed"), dtype, scale=d_in**-0.5),
     )
-    if cfg.ssm.conv_bias:
-        axes.update(conv_x_b=("ssm_in",), conv_B_b=("state",), conv_C_b=("state",))
-    return axes
+    return spec
 
 
 def _in_proj(params, x):
@@ -130,26 +118,18 @@ def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
 # ---------------------------------------------------------------------------
 # decode (O(1) state update)
 # ---------------------------------------------------------------------------
-def make_ssm_cache(cfg, batch: int, n_layers: int, dtype, device) -> dict:
+def ssm_cache_spec(cfg, batch: int, n_layers: int, dtype) -> dict:
+    """The zeroed decode state of ``n_layers`` Mamba2 layers: the SSM state
+    (float32) and the three conv states."""
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    nh = d_in // s.head_dim
-    k = s.conv_kernel
-    n = s.n_groups * s.d_state
+    d_in, nh, n = _widths(cfg)
+    lead, k = (n_layers, batch), s.conv_kernel - 1
+    ax = ("layers", "cache_batch")
     return {
-        "ssm": torch.zeros((n_layers, batch, nh, s.head_dim, s.d_state), dtype=torch.float32, device=device),
-        "conv_x": torch.zeros((n_layers, batch, k - 1, d_in), dtype=dtype, device=device),
-        "conv_B": torch.zeros((n_layers, batch, k - 1, n), dtype=dtype, device=device),
-        "conv_C": torch.zeros((n_layers, batch, k - 1, n), dtype=dtype, device=device),
-    }
-
-
-def ssm_cache_axes() -> dict:
-    return {
-        "ssm": ("layers", "cache_batch", "ssm_heads", None, None),
-        "conv_x": ("layers", "cache_batch", None, "ssm_in"),
-        "conv_B": ("layers", "cache_batch", None, "state"),
-        "conv_C": ("layers", "cache_batch", None, "state"),
+        "ssm": Spec(lead + (nh, s.head_dim, s.d_state), torch.float32, ax + ("ssm_heads", None, None)),
+        "conv_x": Spec(lead + (k, d_in), dtype, ax + (None, "ssm_in")),
+        "conv_B": Spec(lead + (k, n), dtype, ax + (None, "state")),
+        "conv_C": Spec(lead + (k, n), dtype, ax + (None, "state")),
     }
 
 

@@ -23,12 +23,12 @@ import torch.nn.functional as F
 from repro_torch.distributed import per_shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
+    Spec,
     causal_conv_silu,
-    dense_axes,
-    dense_init,
+    dense_spec,
     merge_heads,
     norm_apply,
-    normal,
+    norm_spec,
     softplus,
     split_heads,
 )
@@ -36,16 +36,13 @@ from repro_torch.models.layers import (
 __all__ = [
     "MLSTM_CHUNK",
     "is_slstm",
-    "make_xlstm_cache",
     "mlstm_apply",
-    "mlstm_axes",
     "mlstm_decode",
-    "mlstm_init",
+    "mlstm_spec",
     "slstm_apply",
-    "slstm_axes",
     "slstm_decode",
-    "slstm_init",
-    "xlstm_cache_axes",
+    "slstm_spec",
+    "xlstm_cache_spec",
 ]
 
 MLSTM_CHUNK = 256  # the TPU kernel's default chunk; the CUDA kernel's largest
@@ -54,35 +51,24 @@ MLSTM_CHUNK = 256  # the TPU kernel's default chunk; the CUDA kernel's largest
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
-_MLSTM_AXES = [
-    ("up", ("embed", "ssm_in")),
-    ("gate", ("embed", "ssm_in")),
-    ("wq", ("ssm_in", None)),
-    ("wk", ("ssm_in", None)),
-    ("wv", ("ssm_in", None)),
-    ("wif", ("ssm_in", None)),
-    ("down", ("ssm_in", "embed")),
-]
-
-
-def mlstm_init(gen, cfg, dtype) -> dict:
+def mlstm_spec(cfg, dtype) -> dict:
     d = cfg.d_model
     d_in = 2 * d  # projection factor 2
     nh = cfg.n_heads
-    params = {}
-    shapes = [(d, d_in), (d, d_in), (d_in, d_in), (d_in, d_in), (d_in, d_in), (d_in, 2 * nh), (d_in, d)]
-    for (name, ax), shape in zip(_MLSTM_AXES, shapes):
-        params[name] = dense_init(gen, shape, ax, dtype, scale=shape[0] ** -0.5)
-    params["conv"] = normal(gen, (4, d_in), 0.1, dtype)
-    params["norm"] = {"scale": torch.ones((d_in,), dtype=dtype, device=gen.device)}
-    return params
-
-
-def mlstm_axes(cfg) -> dict:
-    """The logical axes of ``mlstm_init``'s parameters."""
-    axes = {name: dense_axes(ax) for name, ax in _MLSTM_AXES}
-    axes.update(conv=("conv_k", "ssm_in"), norm={"scale": ("ssm_in",)})
-    return axes
+    spec = {}
+    for name, shape, ax in (
+        ("up", (d, d_in), ("embed", "ssm_in")),
+        ("gate", (d, d_in), ("embed", "ssm_in")),
+        ("wq", (d_in, d_in), ("ssm_in", None)),
+        ("wk", (d_in, d_in), ("ssm_in", None)),
+        ("wv", (d_in, d_in), ("ssm_in", None)),
+        ("wif", (d_in, 2 * nh), ("ssm_in", None)),
+        ("down", (d_in, d), ("ssm_in", "embed")),
+    ):
+        spec[name] = dense_spec(shape, ax, dtype, scale=shape[0] ** -0.5)
+    spec["conv"] = Spec((4, d_in), dtype, ("conv_k", "ssm_in"), std=0.1)
+    spec["norm"] = norm_spec(d_in, "rmsnorm", dtype, "ssm_in")
+    return spec
 
 
 def _log_sigmoid(x):
@@ -144,36 +130,20 @@ def mlstm_decode(params, x, cfg, state):
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
-def slstm_init(gen, cfg, dtype) -> dict:
+def slstm_spec(cfg, dtype) -> dict:
     d = cfg.d_model
     nh = cfg.n_heads
     hd = d // nh
-    params = {}
-    for name in ("wz", "wi", "wf", "wo"):
-        params[name] = dense_init(gen, (d, d), ("embed", None), dtype)
+    spec = {name: dense_spec((d, d), ("embed", None), dtype) for name in ("wz", "wi", "wf", "wo")}
     for name in ("rz", "ri", "rf"):
-        params[name] = {"w": normal(gen, (nh, hd, hd), hd**-0.5, dtype)}
-    params["conv"] = normal(gen, (4, d), 0.1, dtype)
-    params["norm"] = {"scale": torch.ones((d,), dtype=dtype, device=gen.device)}
+        spec[name] = {"w": Spec((nh, hd, hd), dtype, (None, "head_dim", "head_dim"), std=hd**-0.5)}
+    spec["conv"] = Spec((4, d), dtype, ("conv_k", "embed"), std=0.1)
+    spec["norm"] = norm_spec(d, "rmsnorm", dtype)
     d_ff = int(d * 4 / 3)  # GLU ffn, projection factor 4/3
-    params["ffn_up"] = dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype)
-    params["ffn_gate"] = dense_init(gen, (d, d_ff), ("embed", "ffn"), dtype)
-    params["ffn_down"] = dense_init(gen, (d_ff, d), ("ffn", "embed"), dtype, scale=d_ff**-0.5)
-    return params
-
-
-def slstm_axes(cfg) -> dict:
-    """The logical axes of ``slstm_init``'s parameters."""
-    axes = {name: dense_axes(("embed", None)) for name in ("wz", "wi", "wf", "wo")}
-    axes.update({name: {"w": (None, "head_dim", "head_dim")} for name in ("rz", "ri", "rf")})
-    axes.update(
-        conv=("conv_k", "embed"),
-        norm={"scale": ("embed",)},
-        ffn_up=dense_axes(("embed", "ffn")),
-        ffn_gate=dense_axes(("embed", "ffn")),
-        ffn_down=dense_axes(("ffn", "embed")),
-    )
-    return axes
+    spec["ffn_up"] = dense_spec((d, d_ff), ("embed", "ffn"), dtype)
+    spec["ffn_gate"] = dense_spec((d, d_ff), ("embed", "ffn"), dtype)
+    spec["ffn_down"] = dense_spec((d_ff, d), ("ffn", "embed"), dtype, scale=d_ff**-0.5)
+    return spec
 
 
 def _slstm_cell_scan(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
@@ -265,44 +235,25 @@ def is_slstm(cfg, li: int) -> bool:
     return (li + 1) % cfg.slstm_every == 0
 
 
-def make_xlstm_cache(cfg, batch: int, dtype, device) -> list:
+def xlstm_cache_spec(cfg, batch: int, dtype) -> list:
+    """Each layer's decode state from the zero state: the cells and the
+    conv state zeroed, the stabiliser m at -1e30."""
     d = cfg.d_model
     nh = cfg.n_heads
     d_in = 2 * d
     hd_m = d_in // nh
-    f32 = dict(dtype=torch.float32, device=device)
-    caches = []
-    for li in range(cfg.n_layers):
+    f32 = torch.float32
+
+    def state(li: int) -> dict:
         if is_slstm(cfg, li):
-            cell = {k: torch.zeros((batch, d), **f32) for k in ("h", "c", "n")}
-            cell["m"] = torch.full((batch, d), -1e30, **f32)
-            caches.append({"cell": cell, "conv": torch.zeros((batch, 3, d), dtype=dtype, device=device)})
-        else:
-            caches.append(
-                {
-                    "C": torch.zeros((batch, nh, hd_m, hd_m), **f32),
-                    "n": torch.zeros((batch, nh, hd_m), **f32),
-                    "m": torch.full((batch, nh), -1e30, **f32),
-                    "conv": torch.zeros((batch, 3, d_in), dtype=dtype, device=device),
-                }
-            )
-    return caches
-
-
-def xlstm_cache_axes(cfg) -> list:
-    """The logical axes of ``make_xlstm_cache``'s states, layer by layer."""
-
-    def ax(li: int):
-        if is_slstm(cfg, li):
-            return {
-                "cell": {k: ("cache_batch", None) for k in ("h", "c", "n", "m")},
-                "conv": ("cache_batch", None, None),
-            }
+            cell = {k: Spec((batch, d), f32, ("cache_batch", None)) for k in ("h", "c", "n")}
+            cell["m"] = Spec((batch, d), f32, ("cache_batch", None), fill=-1e30)
+            return {"cell": cell, "conv": Spec((batch, 3, d), dtype, ("cache_batch", None, None))}
         return {
-            "C": ("cache_batch", None, None, None),
-            "n": ("cache_batch", None, None),
-            "m": ("cache_batch", None),
-            "conv": ("cache_batch", None, "ssm_in"),
+            "C": Spec((batch, nh, hd_m, hd_m), f32, ("cache_batch", None, None, None)),
+            "n": Spec((batch, nh, hd_m), f32, ("cache_batch", None, None)),
+            "m": Spec((batch, nh), f32, ("cache_batch", None), fill=-1e30),
+            "conv": Spec((batch, 3, d_in), dtype, ("cache_batch", None, "ssm_in")),
         }
 
-    return [ax(li) for li in range(cfg.n_layers)]
+    return [state(li) for li in range(cfg.n_layers)]

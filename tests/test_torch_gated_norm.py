@@ -23,7 +23,7 @@ from repro_torch.distributed.per_shard import on_shards  # noqa: E402
 from repro_torch.kernels import gated_norm, ops  # noqa: E402
 from repro_torch.kernels.gated_norm import ULPS, _check, gated_rmsnorm, gated_rmsnorm_plain, ulps  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from repro_torch.models.layers import merge_heads, norm_apply  # noqa: E402
+from repro_torch.models.layers import materialize, merge_heads, norm_apply  # noqa: E402
 
 EPS = 1e-5
 
@@ -168,7 +168,7 @@ def test_mamba_block_calls_the_bundles_norm_in_prefill_and_decode(arch):
     with the configuration's groups and eps; the plain bundle gives the
     kernels' bundle's outputs on the CPU, bit for bit."""
     cfg = get_config(arch).reduced()
-    params = ssm.mamba_init(torch.Generator().manual_seed(1), cfg, torch.float32)
+    params = materialize(ssm.mamba_spec(cfg, torch.float32), "cpu", torch.Generator().manual_seed(1))
     calls = []
 
     def recorded(y, x, z, D, scale, groups, eps):

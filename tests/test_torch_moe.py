@@ -26,6 +26,7 @@ from repro.models import moe as ref_moe  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build, lm, moe  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.layers import materialize  # noqa: E402
 
 MOE = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e"]  # top-2 and top-1 at reduced size
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -172,7 +173,7 @@ def test_moe_init_matches_reference_shapes_and_scales(arch):
     """The port draws the experts with the reference's names, shapes and
     standard deviations: ``up`` and ``gate`` d^-1/2, ``down`` f^-1/2."""
     rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
-    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    params = materialize(moe.moe_spec(cfg, torch.float32), "cpu", torch.Generator().manual_seed(0))
     rtree = jax.eval_shape(lambda k: ref_moe.moe_init(k, rcfg, jnp.float32)[0], jax.random.PRNGKey(0))
     mine = jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda t: tuple(t.shape), params))[0]
     want = jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda t: tuple(t.shape), rtree))[0]

@@ -32,6 +32,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import _check, ssd_scan_plain  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.layers import materialize  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -278,6 +279,6 @@ def test_mamba_decode_continues_the_full_sequence(mamba_pair):
 def test_make_ssm_cache_has_the_reference_layout():
     rcfg, cfg = ref_config("zamba2-1.2b").reduced(), get_config("zamba2-1.2b").reduced()
     want = ref_ssm.make_ssm_cache(rcfg, 3, 5, jnp.float32)
-    got = ssm.make_ssm_cache(cfg, 3, 5, torch.float32, "cpu")
+    got = materialize(ssm.ssm_cache_spec(cfg, 3, 5, torch.float32), "cpu")
     assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in want.items()}
     assert got["ssm"].dtype == torch.float32

@@ -33,6 +33,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import _check, mlstm_chunk_plain  # noqa: E402
 from repro_torch.models import xlstm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.layers import materialize  # noqa: E402
 
 TOL = dict(rtol=5e-4, atol=5e-4)
 
@@ -246,11 +247,11 @@ def test_blocks_match_reference_over_the_sequence_and_in_decode(xl_pair, kind, l
 
 
 def test_mlstm_decode_from_the_empty_state_matches_reference(xl_pair):
-    """Decode from ``make_xlstm_cache``'s state (m = -1e30), as the
+    """Decode from ``xlstm_cache_spec``'s state (m = -1e30), as the
     reference's decode runs from its own."""
     rcfg, rparams, cfg, params = xl_pair
     rcache = ref_xl.make_xlstm_cache(rcfg, 2, jnp.float32)
-    cache = xlstm.make_xlstm_cache(cfg, 2, torch.float32, "cpu")
+    cache = materialize(xlstm.xlstm_cache_spec(cfg, 2, torch.float32), "cpu")
     _close(cache[2], rcache[2])
     want_st, st = rcache[0], cache[0]
     _close(st, want_st)

@@ -79,24 +79,6 @@ def test_the_parameter_count_is_the_built_trees(model):
     assert params["layers"][0]["mamba"]["wB"]["w"].shape == (CFG.d_model, 2 * CFG.ssm.d_state)
 
 
-def test_param_axes_is_init_trees_shape(model):
-    api, params = model
-
-    def check(axes, tree):
-        if isinstance(tree, dict):
-            assert set(axes) == set(tree)
-            for k in tree:
-                check(axes[k], tree[k])
-        elif isinstance(tree, list):
-            assert len(axes) == len(tree)
-            for a, t in zip(axes, tree):
-                check(a, t)
-        else:
-            assert len(axes) == tree.dim()
-
-    check(api.param_axes(), params)
-
-
 def test_forward_matches_the_reference(model):
     """Both in float32 on the same weights; they sum in other orders (the
     port's SSD scan and flash attention against the reference's chunked
