@@ -51,7 +51,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      zamba2-7b's longest forward (b 3, s 4096, h 112, p 64, 2 groups),
      zamba2-1.2b's one group over 4096, a decode step, an odd row count and
      in float32, and timed there beside its bytes bound and the plain
-     chain's device time.  All ten kernels print their design and the fraction of
+     chain's device time.  ``causal_conv_silu`` (the depthwise causal conv,
+     bias and SiLU at the front of the Mamba2 and xLSTM blocks) is held to
+     its plain version bit for bit at zamba2-7b's longest forward (x and
+     B/C: b 3, s 4096, C 7168 and 128, with bias), zamba2-1.2b's and
+     xlstm-125m's widths, an odd width (the scalar path), a decode step
+     from a state and in float32, and timed there beside its bytes bound
+     and the plain version's device time.  All eleven kernels print their design and the fraction of
      their bound they reach, and the multi-kernel wrappers (min/max, fused,
      SSD, mLSTM) each kernel's device time by name;
      ``decode_attention_partials`` (the decode kernel's partial m, l, acc)
@@ -97,16 +103,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      DACP prompts: zamba2-1.2b (38 Mamba2 blocks, d_model 2048, ssm state
      64, head_dim 64, the shared attention block after every 6th; exactly
      38 ``ssd_scan`` and 6 ``flash_attention`` launches per prefill, 6 ×
-     32 ``decode_attention`` over the decode, and 38 ``gated_rmsnorm`` a
-     forward), xlstm-125m (12 blocks,
+     32 ``decode_attention`` over the decode, 38 ``gated_rmsnorm`` and
+     114 ``causal_conv_silu`` a forward), xlstm-125m (12 blocks,
      d_model 768, 4 heads, 11 mLSTM blocks through ``mlstm_chunk`` and one
-     sLSTM block in PyTorch; exactly 11 launches per prefill) and
+     sLSTM block in PyTorch; exactly 11 launches per prefill, and 12
+     ``causal_conv_silu`` a forward) and
      zamba2-7b at its published widths (81 Mamba2 blocks with B/C in 2
      groups, 13 applications of the shared blocks at head dim 224): exactly
      81 ``ssd_scan``, all ``ssd_scan_grouped``, and 13 ``flash_attention``,
      all ``flash_attention_padded``, per prefill, 13 × 32
      ``decode_attention``, all ``decode_attention_padded``, over the decode,
-     and 81 ``gated_rmsnorm`` a forward; its logits' limit is at least twice
+     81 ``gated_rmsnorm`` and 243 ``causal_conv_silu`` a forward; its
+     logits' limit is at least twice
      the plain path's difference from a plain path whose scan sums over
      chunks of half the length;
   6. serving the rest of the model zoo the same way, at full width from
@@ -135,8 +143,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``TorchFeed``) through ``Trainer`` (2 microbatches, int8 gradient
      compression, ``warmup_cosine``), printing each step's loss, grad norm,
      lr, CUDA-synchronised ms, tokens/s and launches (exactly 152
-     ``ssd_scan`` and 12 ``flash_attention`` a step: remat runs each Mamba2
-     block's forward twice), the peak memory and one profiled step (device
+     ``ssd_scan``, 152 ``gated_rmsnorm``, 456 ``causal_conv_silu`` and 12
+     ``flash_attention`` a step: remat runs each Mamba2 block's forward
+     twice), the peak memory and one profiled step (device
      against wall ms, top kernels, the plain backward's share); the losses
      and grad norms must be finite and the loss on step 1's batch after
      step 4 below step 1's; (c) one loss + backward through the kernels
@@ -166,8 +175,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``decode_cache_axes(long_context=True)``, 131072 a rank, K and V 25.8
      GB whole, seeded slice by slice), 4 teacher-forced steps from index
      499996 through ``lm.decode_step`` with ``on_shards(KERNELS)``: exactly
-     6 partials launches and 38 ``gated_rmsnorm`` a step on each rank (the
-     replicated SSM state moves nothing) and no plain partials, each
+     6 partials launches, 38 ``gated_rmsnorm`` and 114 ``causal_conv_silu``
+     a step on each rank (the replicated SSM state moves nothing) and no plain partials, each
      site's output within SEQ_ERR_UNITS half ulps of bf16 of one
      ``decode_attention`` launch over the whole cache on the same inputs (a
      planted fault, rank 0's partials replaced by an empty slice's, must
@@ -303,7 +312,8 @@ def _same(a, b) -> tuple:
 
 
 _OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_", "fsum_fold",
-                "flash_attn", "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel", "gated_rmsnorm_kernel")
+                "flash_attn", "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel", "gated_rmsnorm_kernel",
+                "causal_conv_silu_kernel")
 
 
 # Once a run has profiled for a while, every profiler session drops the device records of its first six
@@ -1567,6 +1577,66 @@ def check_gated_norm(dev, rng) -> KernelRecord:
     return rec
 
 
+def check_causal_conv(dev, rng) -> KernelRecord:
+    import torch
+
+    from repro_torch.kernels.causal_conv import causal_conv_silu, causal_conv_silu_plain
+
+    rec = KernelRecord("causal_conv_silu", "src/repro_torch/kernels/csrc/causal_conv.cu",
+                       "none: src/repro/models/layers.py computes the conv in jnp")
+
+    def raw(t):
+        return t.detach().contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32).cpu()
+
+    cases = [  # (label, b, s, c, k, bias, state, dtype)
+        ("zamba2-7b", 3, 4096, 7168, 4, True, False, torch.bfloat16),  # the scoring cell's longest forward, x
+        ("zamba2-7b B/C", 3, 4096, 128, 4, True, False, torch.bfloat16),
+        ("zamba2-1.2b", SERVE_BATCH, SERVE_PROMPT, 4096, 4, False, False, torch.bfloat16),
+        ("xlstm-125m", SERVE_BATCH, SERVE_PROMPT, 1536, 4, False, False, torch.bfloat16),
+        ("odd width", 2, 333, 1001, 4, True, False, torch.bfloat16),  # the scalar path
+        ("decode", SERVE_BATCH, 1, 7168, 4, True, True, torch.bfloat16),
+        ("f32", 2, 512, 7168, 4, True, False, torch.float32),
+    ]
+    rec.extra["exact_cases"] = {}
+    for label, b, s, c, k, with_bias, with_state, dtype in cases:
+        x, w, st, bias = _attn_inputs(rng, dev, torch.float32, (b, s, c), (k, c), (b, k - 1, c), (c,))
+        x, w, st, bias = x.to(dtype), (0.5 * w).to(dtype), st.to(dtype), bias.to(dtype)
+        args = (x, w, st if with_state else None, bias if with_bias else None)
+        got = causal_conv_silu(*args)
+        torch.cuda.synchronize()
+        want = causal_conv_silu_plain(*args)
+        same = all(torch.equal(raw(g), raw(wt)) for g, wt in zip(got, want))
+        rec.extra["exact_cases"][label] = same
+        rec.checks += 1
+        rec.max_abs_err = max(rec.max_abs_err, float((got[0].float() - want[0].float()).abs().max()))
+        rec.exact = rec.exact and same
+        rec.agrees = rec.agrees and same
+        if not same:
+            log(f"MISMATCH {rec.name}: {label}: max |err| {float((got[0].float() - want[0].float()).abs().max())}")
+        if label == "zamba2-7b":
+            call = lambda: causal_conv_silu(*args)  # noqa: E731
+            plain = lambda: causal_conv_silu_plain(*args)  # noqa: E731
+            _time_kernel(rec, call)
+            rec.plain_ms = _time_ms(plain)
+            rec.extra["plain_device_ms"] = _all_device_ms(plain)
+            rec.extra["plain_kernels_a_call"] = sum(_events_per_call(plain).values())
+            # x read once and y written once (4 bytes an element in bfloat16); the weights and the bias
+            nbytes = (x.numel() + got[0].numel() + w.numel() + bias.numel()) * x.element_size()
+            rec.bound_ms, rec.bound_by = _bytes_bound_ms(nbytes), "bytes"
+            rec.extra["bound_bytes"] = nbytes
+            rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+            rec.extra["call_device_ms"] = _all_device_ms(call)
+            rec.shape = f"b={b} s={s} C={c} K={k} bias bfloat16"
+        del x, w, st, bias, got, want
+    torch.cuda.empty_cache()
+    rec.extra["design"] = ("one thread per 8 channels (a 16-byte vector) and run of 4 time steps (8 in float32), the "
+                           "last K-1 inputs in registers so each input is read once (a run's K-1 halo rows again, from "
+                           "L2), the next 2 rows (4) in flight, weights and bias in registers, 16-byte stores; bf16 "
+                           "taps on bf16x2 instructions, silu by a fast form that declines near a rounding midpoint; "
+                           "a scalar path for odd widths")
+    return rec
+
+
 def check_mlstm(dev, rng) -> KernelRecord:
     import torch
 
@@ -2148,7 +2218,7 @@ def serve_hybrids(dev, counters):
         lambda c: (c.n_layers, c.d_model, c.ssm.d_state, c.ssm.head_dim, c.ssm.expand, c.attn_every, c.n_heads,
                    c.n_kv_heads, c.dtype),
         {"ssd_scan": n_z, "flash_attention": n_attn, "decode_attention": n_attn * SERVE_NEW,
-         "gated_rmsnorm": n_z * (1 + SERVE_NEW)},
+         "gated_rmsnorm": n_z * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_z * (1 + SERVE_NEW)},
         _logit_tol(n_z + n_attn),
     )
     n_x, s_every = 12, 8
@@ -2160,7 +2230,7 @@ def serve_hybrids(dev, counters):
     yield serve_model(
         dev, counters, "xlstm-125m", (n_x, 768, 4, s_every, "bfloat16"),
         lambda c: (c.n_layers, c.d_model, c.n_heads, c.slstm_every, c.dtype),
-        {"mlstm_chunk": n_m}, _logit_tol(n_m), reordered,
+        {"mlstm_chunk": n_m, "causal_conv_silu": n_x * (1 + SERVE_NEW)}, _logit_tol(n_m), reordered,
     )
     n_7, n_app = 81, 13
     # the plain scan over chunks of 128: the same function, its sums in another order
@@ -2173,7 +2243,7 @@ def serve_hybrids(dev, counters):
                    len(c.hybrid_layer_ids), c.n_heads, c.n_kv_heads, c.head_dim_, c.dtype),
         {"ssd_scan": n_7, "ssd_scan_grouped": n_7, "flash_attention": n_app, "flash_attention_padded": n_app,
          "decode_attention": n_app * SERVE_NEW, "decode_attention_padded": n_app * SERVE_NEW,
-         "gated_rmsnorm": n_7 * (1 + SERVE_NEW)},
+         "gated_rmsnorm": n_7 * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_7 * (1 + SERVE_NEW)},
         _logit_tol(n_7 + n_app), reordered,
     )
 
@@ -2454,7 +2524,8 @@ def train_full_width(dev, counters, card: str) -> dict:
     ``warmup_cosine``), with ``counters`` zeroed right before each step and
     read right after it: under remat each Mamba2 block's forward runs twice,
     so a step launches exactly TRAIN_MICRO × 2 × 38 ``ssd_scan`` and as
-    many ``gated_rmsnorm``, and TRAIN_MICRO × 6 ``flash_attention`` (the
+    many ``gated_rmsnorm``, three times as many ``causal_conv_silu`` (x, B
+    and C), and TRAIN_MICRO × 6 ``flash_attention`` (the
     shared block is not
     recomputed; the backward launches none); the losses and grad norms must
     be finite and the loss on step 1's batch after the last step below step
@@ -2484,7 +2555,7 @@ def train_full_width(dev, counters, card: str) -> dict:
           f"{TRAIN_ARCH} is not at full width with bf16 and full remat: {width}")
     n_mamba, n_attn = cfg.n_layers, cfg.n_layers // cfg.attn_every
     expected = {"ssd_scan": TRAIN_MICRO * 2 * n_mamba, "flash_attention": TRAIN_MICRO * n_attn,
-                "gated_rmsnorm": TRAIN_MICRO * 2 * n_mamba}
+                "gated_rmsnorm": TRAIN_MICRO * 2 * n_mamba, "causal_conv_silu": TRAIN_MICRO * 2 * 3 * n_mamba}
     tmp = tempfile.mkdtemp(prefix="dacp_train_")
     server, net = None, TcpNetwork()
     try:
@@ -3027,9 +3098,10 @@ def distributed_paths(dev, card: str) -> dict:
 def _check_long_decode(dev, got: dict, card: str) -> dict:
     """8e's checks, after the ranks exit: the whole-cache reference
     (``_long_decode_reference``) against rank 0's run.  Every rank launched
-    exactly one partials kernel a site a step and one ``gated_rmsnorm`` a
-    Mamba2 block a step, and ran no plain partials; the
-    reference one ``decode_attention`` a site a step; each site's output of
+    exactly one partials kernel a site a step, one ``gated_rmsnorm`` and
+    three ``causal_conv_silu`` a Mamba2 block a step, and ran no plain
+    partials; the reference one ``decode_attention`` a site a step and the
+    ranks' Mamba2 launches; each site's output of
     each step within SEQ_ERR_UNITS half ulps of bf16 at the peak of one
     ``decode_attention`` launch over the whole cache on the same inputs (a
     planted fault, rank 0's partials replaced by an empty slice's, must fall
@@ -3042,10 +3114,9 @@ def _check_long_decode(dev, got: dict, card: str) -> dict:
     check(sorted(rows) == list(range(LONG_INDEX, LONG_INDEX + LONG_STEPS)), f"8e: the ranks wrote rows {sorted(rows)}")
     want = _long_decode_reference(dev, got["queries"], rows)
     sites = want["sites_per_step"]
-    check(want["launches"] == {"decode_attention": sites * LONG_STEPS,
-                               "gated_rmsnorm": want["mamba_per_step"] * LONG_STEPS},
-          f"8e: the whole-cache reference made launches {want['launches']}")
-    per_rank = {"decode_attention": sites * LONG_STEPS, "gated_rmsnorm": want["mamba_per_step"] * LONG_STEPS}
+    per_rank = {"decode_attention": sites * LONG_STEPS, "gated_rmsnorm": want["mamba_per_step"] * LONG_STEPS,
+                "causal_conv_silu": 3 * want["mamba_per_step"] * LONG_STEPS}
+    check(want["launches"] == per_rank, f"8e: the whole-cache reference made launches {want['launches']}")
     for r, rank in enumerate(got["ranks"]):
         check(rank["launches"] == per_rank, f"8e: rank {r} made launches {rank['launches']}, expected {per_rank}")
         check(rank["partials_calls"] == sites * LONG_STEPS and rank["partials_ran_plain"] == 0,
@@ -3170,6 +3241,7 @@ def main() -> None:
         check_ssd(dev, rng),
         check_mlstm(dev, rng),
         check_gated_norm(dev, rng),
+        check_causal_conv(dev, rng),
     ]
     for r in records:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
@@ -3240,6 +3312,12 @@ def main() -> None:
         f"({gn.extra['bound_fraction']:.4f} of it; wrapper call {gn.extra['call_device_ms']:.6f}); the plain chain "
         f"{gn.extra['plain_device_ms']:.6f} ms device in {gn.extra['plain_kernels_a_call']} device events a call "
         f"(events {gn.plain_ms:.6f}); worst units in the last place per case {gn.extra['worst_ulps']}")
+    cc = records[10]
+    log(f"causal_conv_silu at zamba2-7b's {cc.shape}: {cc.ms:.6f} ms device against its bytes bound "
+        f"{cc.bound_ms:.6f} ({cc.extra['bound_fraction']:.4f} of it; wrapper call {cc.extra['call_device_ms']:.6f}); "
+        f"the plain version {cc.extra['plain_device_ms']:.6f} ms device in "
+        f"{cc.extra['plain_kernels_a_call']} device events a call (events {cc.plain_ms:.6f}); bit for bit per case "
+        f"{cc.extra['exact_cases']}")
     fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
         f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call); "
@@ -3279,8 +3357,8 @@ def main() -> None:
 
     for serving, serve_launches in serve_hybrids(dev, ops.LAUNCHES):
         log("serve: " + json.dumps(serving) + f" on {kind}")
-        for name in ("ssd_scan", "mlstm_chunk", "gated_rmsnorm", "ssd_scan_grouped", "flash_attention_padded",
-                     "decode_attention_padded"):
+        for name in ("ssd_scan", "mlstm_chunk", "gated_rmsnorm", "causal_conv_silu", "ssd_scan_grouped",
+                     "flash_attention_padded", "decode_attention_padded"):
             launches[name] = launches.get(name, 0) + serve_launches[name]
 
     phase_s["serve_hybrids"], t_phase = time.perf_counter() - t_phase, time.perf_counter()

@@ -1,19 +1,23 @@
 """The model kernels on DTensors: each rank runs the kernel on its own shard.
 
 Attention and the two scans are independent across the batch and across
-heads, and the gated RMSNorm across the batch (its group spans heads), so
+heads, the gated RMSNorm across the batch (its group spans heads) and the
+depthwise causal conv across the batch and channels, so
 on a mesh each rank can call the kernel wrapper (the CUDA kernel on a
 card, the plain version on the CPU or on meta tensors) on its local slice:
 the SPMD lowering the reference's compiler performs.  ``run`` lays
 every operand out so that the mesh dims sharding the leading operand's
 batch or head dim shard the same role in every operand, replicates the
 rest, calls the wrapper on the local tensors and wraps its outputs back as
-DTensors.  ``on_shards`` puts the five model kernels of a ``ModelKernels``
+DTensors.  ``on_shards`` puts the six model kernels of a ``ModelKernels``
 bundle behind ``run`` with their dim maps (``models.build`` does so for
-every bundle); plain tensors go straight to the kernel.  The gated
+every bundle); plain tensors go straight to the kernel, and any DTensor
+operand sends the call through ``run``.  The gated
 RMSNorm's map names the batch alone, so ``run`` gathers the heads that a
 mesh splits (zamba2-1.2b's one group spans all of them) and moves nothing
-when the operands are replicated.
+when the operands are replicated.  The conv's map keeps batch and
+channels sharded and gathers nothing but a sharded sequence, which its
+callers never hand it.
 
 A KV cache whose positions are sharded (``cache_seq_long``) runs the
 flash-decoding merge of ``collectives.seq_sharded_decode_attention`` over
@@ -48,7 +52,8 @@ def run(fn, args: tuple, dims: tuple, out_dims: tuple, lead: int = 0, seq_merge=
     of ``args[i]`` ("batch", "heads", "seq") to its tensor dims, and
     ``out_dims`` those of each output (one dict per output, a tuple of
     outputs when ``fn`` returns one).  The mesh dims that shard a role dim
-    of ``args[lead]`` shard that role everywhere.  A mesh dim sharding the
+    of ``args[lead]`` shard that role everywhere.  A None operand or output
+    passes through as None.  A mesh dim sharding the
     "seq" role calls ``seq_merge(mesh, axis name, *local args)`` in place
     of ``fn``."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -62,6 +67,9 @@ def run(fn, args: tuple, dims: tuple, out_dims: tuple, lead: int = 0, seq_merge=
 
     local = []
     for a, dmap in zip(args, dims):
+        if a is None:  # an optional operand left out
+            local.append(None)
+            continue
         if not isinstance(a, DTensor):
             a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
         want = placements(dmap)
@@ -75,7 +83,8 @@ def run(fn, args: tuple, dims: tuple, out_dims: tuple, lead: int = 0, seq_merge=
     single = not isinstance(out, tuple)
     outs = (out,) if single else out
     wrapped = tuple(
-        DTensor.from_local(o, mesh, placements(dmap), run_check=False) for o, dmap in zip(outs, out_dims, strict=True)
+        None if o is None else DTensor.from_local(o, mesh, placements(dmap), run_check=False)
+        for o, dmap in zip(outs, out_dims, strict=True)
     )
     return wrapped[0] if single else wrapped
 
@@ -123,6 +132,7 @@ _Q = {"batch": 0, "heads": 1, "groups": 2}  # (B, KV, G, ...) queries and output
 _BH = {"batch": 0, "heads": 2}  # (b, s, h, ...)
 _ST = {"batch": 0, "heads": 1}  # (b, h, ...) states
 _B = {"batch": 0}  # a group spans heads: only the batch stays sharded
+_BC = {"batch": 0, "channels": 2}  # (B, S, C) of the depthwise conv: each channel stands alone
 # kernel: (each tensor operand's roles, each output's roles, the operand whose layout leads)
 _ROLES = {
     "flash_attention": ((_Q, _ST, _ST), (_Q,), 0),
@@ -130,6 +140,7 @@ _ROLES = {
     "ssd_scan": ((_BH, _BH, {"heads": 0}, {"batch": 0}, {"batch": 0}), (_BH, _ST), 0),
     "mlstm_chunk": ((_BH,) * 5, (_BH, _ST, _ST, _ST), 0),
     "gated_rmsnorm": ((_B, _B, _B, {}, {}), (_B,), 0),
+    "causal_conv_silu": ((_BC, {"channels": 1}, _BC, {"channels": 0}), (_BC, _BC), 0),
 }
 
 
@@ -146,13 +157,16 @@ def _sharded(name: str, fn, partials):
     n = len(dims)
 
     def call(*args, **kwargs):
-        if not is_dtensor(args[lead]):
+        # the leading operand's layout leads; where it is a plain tensor, the first DTensor operand's
+        # (a decode step's conv state is a DTensor before the stream it convolves becomes one)
+        first = lead if is_dtensor(args[lead]) else next((i for i, a in enumerate(args[:n]) if is_dtensor(a)), None)
+        if first is None:
             return fn(*args, **kwargs)
         rest = args[n:]
         merge = None
         if name == "decode_attention":
             merge = _decode_merge(rest[0] if rest else kwargs["length"], partials)
-        return run(lambda *local: fn(*local, *rest, **kwargs), args[:n], dims, out_dims, lead=lead, seq_merge=merge)
+        return run(lambda *local: fn(*local, *rest, **kwargs), args[:n], dims, out_dims, lead=first, seq_merge=merge)
 
     return call
 

@@ -11,9 +11,12 @@
     mlstm_chunk       — the chunkwise mLSTM, returning the final (C, n, m)
     gated_norm        — the Mamba2 mixer's D skip, SiLU gate and grouped
                         RMSNorm after the scan, in one pass
+    causal_conv       — the depthwise causal conv, its bias and SiLU at the
+                        front of the Mamba2 and xLSTM blocks, in one pass
 
 Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here;
-``gated_norm`` replaces a chain the JAX package leaves to jnp.
+``gated_norm`` and ``causal_conv`` replace chains the JAX package leaves
+to jnp.
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for
@@ -22,6 +25,7 @@ tensors on the CPU.
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (
+    causal_conv_silu,
     decode_attention,
     filter_select_planes,
     flash_attention,
@@ -46,4 +50,5 @@ __all__ = [
     "ssd_scan",
     "mlstm_chunk",
     "gated_rmsnorm",
+    "causal_conv_silu",
 ]

@@ -47,6 +47,7 @@ SOURCES = (
     "ssd_scan.cu",
     "mlstm_chunk.cu",
     "gated_norm.cu",
+    "causal_conv.cu",
 )
 HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh", "mma.cuh")
 NVCC_FLAGS = (
@@ -95,6 +96,8 @@ _SIGNATURES = {
     "dacp_mlstm_chunk": (_P,) * 9 + (_I,) * 6 + (_P,) * 4,
     # y, x, z, D, scale, out, dtype, scale dtype, rows, d_inner, groups, head dim, eps, stream
     "dacp_gated_rmsnorm": (_P,) * 6 + (_I, _I, _L, _I, _I, _I, _D, _P),
+    # x, w, bias, state, y, dtype, batch, S, C, K, vector loads, stream
+    "dacp_causal_conv_silu": (_P,) * 5 + (_I, _L, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -229,12 +232,18 @@ def check(rc: int, what: str) -> None:
 
 
 def check_tensor(t, what: str, dtype, device, ndim: int) -> None:
-    """Validate a kernel input before its pointer reaches C: a tensor on
-    ``device`` with this dtype and rank, contiguous (row-major)."""
+    """Validate a kernel input before its pointer reaches C: a local tensor
+    (not a DTensor) on ``device`` with this dtype and rank, contiguous
+    (row-major)."""
     import torch
 
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
+    if type(t) is not torch.Tensor:  # a DTensor holds no storage of its own: its data_ptr() is 0
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what} is a DTensor: a kernel takes each rank's local tensor (per_shard.run)")
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -3,8 +3,8 @@
 The JAX package has no backward for any of its kernels (no ``custom_vjp``
 in ``repro``): it trains through jnp attention and scans.  The port's
 model calls its kernels on the training path too, so each of
-``flash_attention``, ``ssd_scan`` and ``mlstm_chunk`` on a CUDA tensor that
-needs a gradient runs through ``PlainBackward``: the forward launches the
+``flash_attention``, ``ssd_scan``, ``mlstm_chunk``, ``gated_rmsnorm`` and
+``causal_conv_silu`` on a CUDA tensor that needs a gradient runs through ``PlainBackward``: the forward launches the
 hand-written kernel as always, and the backward re-runs the kernel's plain
 PyTorch version on the saved inputs and differentiates that.  So the
 gradients are the plain version's, evaluated where the kernel's outputs
@@ -39,7 +39,8 @@ class PlainBackward(torch.autograd.Function):
     of ``forward(*inputs, **kwargs)`` (a tensor or a tuple of tensors), with
     the gradients of ``plain(*inputs, **kwargs)``, which must compute the
     same function.  ``forward`` is the kernel's launch on the card; the CPU
-    tests pass the plain version itself."""
+    tests pass the plain version itself.  An input may be None (an
+    optional operand left out); it gets no gradient."""
 
     @staticmethod
     def forward(ctx, forward, plain, kwargs, *inputs):
@@ -53,7 +54,7 @@ class PlainBackward(torch.autograd.Function):
         inputs = ctx.saved_tensors
         wants = ctx.needs_input_grad[3:]
         with torch.enable_grad():
-            args = [t.detach().requires_grad_(w) for t, w in zip(inputs, wants)]
+            args = [None if t is None else t.detach().requires_grad_(w) for t, w in zip(inputs, wants)]
             outs = ctx.plain(*args, **ctx.kwargs)
             outs = outs if isinstance(outs, tuple) else (outs,)
             pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]

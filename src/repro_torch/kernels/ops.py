@@ -10,7 +10,7 @@ scan's launches in B/C groups.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
 On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``,
-``mlstm_chunk`` and ``gated_rmsnorm`` launch their kernel forward and take
+``mlstm_chunk``, ``gated_rmsnorm`` and ``causal_conv_silu`` launch their kernel forward and take
 the plain version's backward (``grad.PlainBackward``); ``decode_attention``
 raises.
 
@@ -18,7 +18,7 @@ raises.
 TPU kernels return y alone), because the model's prefill hands it to the
 decode cache.
 
-The model zoo calls its five kernels through a ``ModelKernels`` bundle:
+The model zoo calls its six kernels through a ``ModelKernels`` bundle:
 ``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
 versions), which holds the kernels against their plain versions on the
 card.  The bundle also carries ``decode_attention_partials``, the decode
@@ -33,6 +33,8 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.kernels import filter_select, fused_pipeline, project_arith, segment_reduce
+from repro_torch.kernels.causal_conv import causal_conv_silu, causal_conv_silu_plain
+from repro_torch.kernels.causal_conv import launches as _conv_launches
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_partials,
@@ -62,6 +64,7 @@ __all__ = [
     "ssd_scan",
     "mlstm_chunk",
     "gated_rmsnorm",
+    "causal_conv_silu",
     "filter_select_planes",
     "project_tiles",
     "segment_sum_tiles",
@@ -85,6 +88,7 @@ LAUNCHES = {
     "ssd_scan": _ssd_launches,
     "mlstm_chunk": _mlstm_launches,
     "gated_rmsnorm": _gated_launches,
+    "causal_conv_silu": _conv_launches,
     # of the launches above: attention at a padded head dim (zamba2-7b's 224), the SSD scan in B/C groups
     "flash_attention_padded": _flash_padded,
     "decode_attention_padded": _decode_padded,
@@ -94,7 +98,7 @@ LAUNCHES = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelKernels:
-    """The five kernel functions the model zoo calls, and the decode
+    """The six kernel functions the model zoo calls, and the decode
     kernel's partials for a cache sharded by position."""
 
     flash_attention: Callable
@@ -103,10 +107,17 @@ class ModelKernels:
     mlstm_chunk: Callable
     decode_attention_partials: Callable
     gated_rmsnorm: Callable
+    causal_conv_silu: Callable
 
 
 KERNELS = ModelKernels(
-    flash_attention, decode_attention, ssd_scan, mlstm_chunk, decode_attention_partials, gated_rmsnorm
+    flash_attention,
+    decode_attention,
+    ssd_scan,
+    mlstm_chunk,
+    decode_attention_partials,
+    gated_rmsnorm,
+    causal_conv_silu,
 )
 PLAIN = ModelKernels(
     flash_attention_plain,
@@ -115,4 +126,5 @@ PLAIN = ModelKernels(
     mlstm_chunk_plain,
     decode_attention_partials_plain,
     gated_rmsnorm_plain,
+    causal_conv_silu_plain,
 )

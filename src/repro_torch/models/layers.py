@@ -13,6 +13,13 @@ others beside their blocks).  Three readers walk a spec tree:
 empty meta tensors of each shape (the dry-run's).  Weights are drawn from
 an explicit ``torch.Generator`` with the reference's standard deviations
 (its ``jax.random`` bits cannot be reproduced, so tests convert weights).
+
+The reference's ``causal_conv_silu`` (the depthwise causal conv and SiLU at
+the front of the Mamba2 and xLSTM blocks) is a kernel in the port:
+``kernels.causal_conv``, whose ``causal_conv_silu_plain`` keeps the
+expressions that stood here.  The blocks call it through their kernel
+bundle: the CUDA kernel on card tensors, the plain version on CPU and meta
+tensors and wherever a caller passes ``kernels.ops.PLAIN``.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ __all__ = [
     "Spec",
     "apply_rope",
     "axes_of",
-    "causal_conv_silu",
     "dense_apply",
     "dense_spec",
     "embed_tokens",
@@ -135,21 +141,6 @@ def softplus(x):
     """``jax.nn.softplus``'s form, log1p(exp(-|x|)) + max(x, 0), exact for
     every x (``F.softplus`` returns x itself above a threshold)."""
     return torch.log1p(torch.exp(-x.abs())) + x.clamp(min=0)
-
-
-def causal_conv_silu(x, w, state=None, bias=None):
-    """Depthwise causal conv (plus ``bias`` (C,), if given) then SiLU, the
-    front of the Mamba2 and xLSTM blocks.  x (B, S, C), w (K, C); with
-    ``state`` (B, K-1, C) it streams (decode).  Returns (y, the last K-1 raw
-    inputs: the next state)."""
-    k = w.shape[0]
-    if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    xp = torch.cat([state.to(x.dtype), x], dim=1)
-    y = sum(xp[:, i : i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
-    if bias is not None:
-        y = y + bias.to(x.dtype)
-    return F.silu(y), (xp[:, -(k - 1) :, :] if k > 1 else None)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@
 Each entry point takes ``kernels``, the bundle of the kernel functions the
 blocks call (``kernels.ops.KERNELS``, or ``PLAIN`` to hold the kernels
 against their plain versions on the card): attention runs
-``flash_attention`` / ``decode_attention``, Mamba2 ``ssd_scan`` and
-``gated_rmsnorm``, mLSTM ``mlstm_chunk``.  In a MoE configuration every
+``flash_attention`` / ``decode_attention``, Mamba2 ``causal_conv_silu``,
+``ssd_scan`` and ``gated_rmsnorm``, mLSTM ``causal_conv_silu`` and
+``mlstm_chunk``, sLSTM ``causal_conv_silu``.  In a MoE configuration every
 ``moe_every``-th ``attn`` layer takes ``models.moe`` in place of its MLP;
 ``forward`` returns the sum of those layers' load-balancing losses as
 ``aux`` (0.0 without MoE layers).
@@ -390,7 +391,7 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
         for li, lp in enumerate(params["layers"]):
             h = norm_apply(lp["ln"], x, cfg.norm)
             if xl.is_slstm(cfg, li):
-                y = xl.slstm_apply(lp["slstm"], h, cfg, return_state=cache is not None)
+                y = xl.slstm_apply(lp["slstm"], h, cfg, return_state=cache is not None, kernels=kernels)
             else:
                 y = xl.mlstm_apply(lp["mlstm"], h, cfg, return_state=cache is not None, kernels=kernels)
             if cache is not None:
@@ -512,9 +513,9 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
         for li, lp in enumerate(params["layers"]):
             h = norm_apply(lp["ln"], x, cfg.norm)
             if xl.is_slstm(cfg, li):
-                y, st = xl.slstm_decode(lp["slstm"], h, cfg, cache["xlstm"][li])
+                y, st = xl.slstm_decode(lp["slstm"], h, cfg, cache["xlstm"][li], kernels)
             else:
-                y, st = xl.mlstm_decode(lp["mlstm"], h, cfg, cache["xlstm"][li])
+                y, st = xl.mlstm_decode(lp["mlstm"], h, cfg, cache["xlstm"][li], kernels)
             states.append(st)
             x = x + y
         cache = {"xlstm": states, "index": int(cache["index"]) + 1}

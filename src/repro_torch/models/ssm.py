@@ -1,13 +1,18 @@
 """Mamba2 block with the chunked SSD algorithm (arXiv:2405.21060) — the
 port of ``repro.models.ssm``.
 
-Prefill runs the SSD chunk scan through ``kernels.ssd_scan`` (the CUDA
-kernel on the card, its plain version on the CPU) where the reference
-computes it in jnp (``_ssd_chunked``); the kernel also returns the final
-state the decode cache starts from.  Decode is the O(1) state update in
-PyTorch, as in the reference.  Both hand the scan's output to
-``kernels.gated_rmsnorm``: the D skip, the SiLU gate and the RMSNorm in one
-pass, where the reference runs them in jnp.
+Every kernel comes from the bundle the caller passes (``kernels.ops``'
+``KERNELS``: the CUDA kernel on card tensors, its plain version on CPU and
+meta tensors; or ``PLAIN``: the plain versions everywhere).  Prefill and
+decode run the three depthwise causal convs, their biases and SiLU through
+``kernels.causal_conv_silu``, one call each for x, B and C, where the
+reference computes them in jnp.  Prefill runs the SSD chunk scan through
+``kernels.ssd_scan`` where the reference computes it in jnp
+(``_ssd_chunked``); the kernel also returns the final state the decode
+cache starts from.  Decode is the O(1) state update in PyTorch, as in the
+reference.  Both hand the scan's output to ``kernels.gated_rmsnorm``: the D
+skip, the SiLU gate and the RMSNorm in one pass, where the reference runs
+them in jnp.
 
 Layout: d_inner = expand · d_model, heads nh = d_inner / head_dim,
 ``ssm.n_groups`` B/C groups (head h reads group h // (nh / n_groups));
@@ -25,7 +30,7 @@ import torch
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Spec, causal_conv_silu, dense_spec, norm_spec, softplus, split_heads
+from repro_torch.models.layers import Spec, dense_spec, norm_spec, softplus, split_heads
 
 __all__ = ["mamba_apply", "mamba_decode", "mamba_spec", "ssm_cache_spec"]
 
@@ -73,13 +78,14 @@ def _in_proj(params, x):
     return tuple(x @ params[name]["w"].to(x.dtype) for name in ("wz", "wx", "wB", "wC", "wdt"))
 
 
-def _convs(params, xr, Bm, Cm, cache_layer=None):
-    """The three depthwise causal convs (with their biases, if any) and SiLU:
-    (x, B, C) and their next conv states."""
+def _convs(params, xr, Bm, Cm, kernels, cache_layer=None):
+    """The three depthwise causal convs (with their biases, if any) and SiLU,
+    one call of the bundle's ``causal_conv_silu`` each: (x, B, C) and their
+    next conv states."""
     out = []
     for name, t in (("conv_x", xr), ("conv_B", Bm), ("conv_C", Cm)):
         state = None if cache_layer is None else cache_layer[name]
-        out.append(causal_conv_silu(t, params[name], state, params.get(name + "_b")))
+        out.append(kernels.causal_conv_silu(t, params[name], state, params.get(name + "_b")))
     return [o[0] for o in out], [o[1] for o in out]
 
 
@@ -101,7 +107,7 @@ def mamba_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     s_cfg = cfg.ssm
     nh = s_cfg.expand * x.shape[-1] // s_cfg.head_dim
     z, xr, Bm, Cm, dt_raw = _in_proj(params, x)
-    (xr, Bm, Cm), (conv_x_state, conv_B_state, conv_C_state) = _convs(params, xr, Bm, Cm)
+    (xr, Bm, Cm), (conv_x_state, conv_B_state, conv_C_state) = _convs(params, xr, Bm, Cm, kernels)
     xr = constrain(xr, ("act_batch", None, "act_ffn"))
     dt = _dt(params, dt_raw)
     A = -torch.exp(params["A_log"])
@@ -135,14 +141,15 @@ def ssm_cache_spec(cfg, batch: int, n_layers: int, dtype) -> dict:
 
 def mamba_decode(params, x, cfg, cache_layer, kernels=ops.KERNELS):
     """x (B, 1, D); ``cache_layer`` {ssm, conv_x, conv_B, conv_C} of one
-    layer; ``kernels`` the bundle whose ``gated_rmsnorm`` it calls.  Returns
+    layer; ``kernels`` the bundle whose ``causal_conv_silu`` and
+    ``gated_rmsnorm`` it calls.  Returns
     (y (B, 1, D), the layer's new state)."""
     s_cfg = cfg.ssm
     b, _, d = x.shape
     d_in = s_cfg.expand * d
     nh = d_in // s_cfg.head_dim
     z, xr, Bm, Cm, dt_raw = _in_proj(params, x)
-    (xr, Bm, Cm), (cx, cB, cC) = _convs(params, xr, Bm, Cm, cache_layer)
+    (xr, Bm, Cm), (cx, cB, cC) = _convs(params, xr, Bm, Cm, kernels, cache_layer)
     dt = _dt(params, dt_raw)[:, 0]  # (b, nh)
     A = -torch.exp(params["A_log"])
     xh = xr.reshape(b, nh, s_cfg.head_dim).float()

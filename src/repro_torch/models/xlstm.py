@@ -7,8 +7,12 @@ returns the final (C, n, m); the reference runs a time scan of the
 recurrent form (``_mlstm_cell_scan``), the same function.  Decode is one
 step of that recurrence in PyTorch.
 
-sLSTM has no kernel: its time scan is a loop over positions, as the
-reference's is a ``lax.scan``; decode is the same loop of length one.
+sLSTM has no kernel of its own: its time scan is a loop over positions, as
+the reference's is a ``lax.scan``; decode is the same loop of length one.
+
+Both blocks, prefill and decode, run their conv4 front (depthwise causal
+conv and SiLU) through the bundle's ``causal_conv_silu``, where the
+reference computes it in jnp.
 
 Block layout per the paper's 125M configuration: mLSTM with projection
 factor 2 (up → conv → cell → gated down), sLSTM with a conv4 front and a
@@ -24,7 +28,6 @@ from repro_torch.distributed import per_shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     Spec,
-    causal_conv_silu,
     dense_spec,
     merge_heads,
     norm_apply,
@@ -75,14 +78,15 @@ def _log_sigmoid(x):
     return -softplus(-x)
 
 
-def _mlstm_in(params, x, nh, conv_state=None):
-    """Projections of an mLSTM block: (q, k, v (B, S, nh, hd) in x's type,
-    log_i, log_f (B, S, nh) f32, the output gate g, the conv state)."""
+def _mlstm_in(params, x, nh, kernels, conv_state=None):
+    """Projections of an mLSTM block, the conv through the bundle's
+    ``causal_conv_silu``: (q, k, v (B, S, nh, hd) in x's type, log_i, log_f
+    (B, S, nh) f32, the output gate g, the conv state)."""
     b, s, _ = x.shape
     u = x @ params["up"]["w"].to(x.dtype)
     g = x @ params["gate"]["w"].to(x.dtype)
     hd = u.shape[-1] // nh
-    c, conv_state = causal_conv_silu(u, params["conv"], conv_state)
+    c, conv_state = kernels.causal_conv_silu(u, params["conv"], conv_state)
     q = split_heads(c @ params["wq"]["w"].to(x.dtype), nh, hd)
     k = split_heads(c @ params["wk"]["w"].to(x.dtype), nh, hd)
     v = split_heads(u @ params["wv"]["w"].to(x.dtype), nh, hd)
@@ -100,7 +104,7 @@ def _mlstm_out(params, h, g, x_dtype):
 def mlstm_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS):
     """Full-sequence mLSTM block from the zero state.  x (B, S, D) ->
     (B, S, D); with ``return_state`` also the decode state {C, n, m, conv}."""
-    q, k, v, log_i, log_f, g, conv_state = _mlstm_in(params, x, cfg.n_heads)
+    q, k, v, log_i, log_f, g, conv_state = _mlstm_in(params, x, cfg.n_heads, kernels)
     h, C, n, m = kernels.mlstm_chunk(q, k, v, log_i, log_f, MLSTM_CHUNK)
     out = _mlstm_out(params, h, g, x.dtype)
     if return_state:
@@ -108,10 +112,10 @@ def mlstm_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     return out
 
 
-def mlstm_decode(params, x, cfg, state):
+def mlstm_decode(params, x, cfg, state, kernels=ops.KERNELS):
     """One step of the stabilised recurrence.  x (B, 1, D); ``state``
     {C (B, nh, hd, hd), n (B, nh, hd), m (B, nh), conv}.  Returns (y, new state)."""
-    q, k, v, log_i, log_f, g, conv_state = _mlstm_in(params, x, cfg.n_heads, state["conv"])
+    q, k, v, log_i, log_f, g, conv_state = _mlstm_in(params, x, cfg.n_heads, kernels, state["conv"])
     q, k, v = (t[:, 0].float() for t in (q, k, v))  # (B, nh, hd)
     li, lf = log_i[:, 0], log_f[:, 0]  # (B, nh)
     scale = q.shape[-1] ** -0.5
@@ -202,12 +206,13 @@ def _slstm_scan_per_shard(z_in, i_in, f_in, o_in, params, nh, hd, state=None):
     return out[0], dict(zip(_CELL, out[1:]))
 
 
-def slstm_apply(params, x, cfg, return_state: bool = False, state=None):
+def slstm_apply(params, x, cfg, return_state: bool = False, state=None, kernels=ops.KERNELS):
     """sLSTM block.  x (B, S, D) -> (B, S, D); ``state`` {cell, conv}
-    continues from a decode state."""
+    continues from a decode state; the conv runs through the bundle's
+    ``causal_conv_silu``."""
     nh = cfg.n_heads
     hd = x.shape[-1] // nh
-    cx, conv_state = causal_conv_silu(x, params["conv"], None if state is None else state["conv"])
+    cx, conv_state = kernels.causal_conv_silu(x, params["conv"], None if state is None else state["conv"])
     z_in = x @ params["wz"]["w"].to(x.dtype)
     o_in = x @ params["wo"]["w"].to(x.dtype)
     i_in = cx @ params["wi"]["w"].to(x.dtype)
@@ -223,8 +228,8 @@ def slstm_apply(params, x, cfg, return_state: bool = False, state=None):
     return y
 
 
-def slstm_decode(params, x, cfg, state):
-    return slstm_apply(params, x, cfg, return_state=True, state=state)
+def slstm_decode(params, x, cfg, state, kernels=ops.KERNELS):
+    return slstm_apply(params, x, cfg, return_state=True, state=state, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ COPIED = DIR_COPIES + list(COPIED_FILES)
 REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
 PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
                   "models/convert.py", "distributed/per_shard.py", "trace.py", "configs/zamba2_7b.py",
-                  "models/score.py", "kernels/gated_norm.py"}
+                  "models/score.py", "kernels/gated_norm.py", "kernels/causal_conv.py"}
 
 
 def _rewrite(text: str) -> str:

@@ -605,6 +605,22 @@ ON_SHARDS_SCRIPT = textwrap.dedent(
         out = sharded.gated_rmsnorm(*(whole(t) for t in (y, xh, z, D, scale)), 2, 1e-5)  # replicated: nothing moves
         assert tuple(out.placements) == (Replicate(), Replicate()), out.placements
         same(out, ops.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5), "gated_rmsnorm, replicated")
+        # the depthwise conv: batch over data, channels over model, with and without a state and a bias
+        x, w, st, bias = r(4, 6, 32), r(4, 32), r(4, 3, 32), r(32)
+        out = sharded.causal_conv_silu(lay(x), shard_tensor(w, mesh, (Replicate(), Shard(1))), None, whole(bias))
+        assert tuple(out[0].placements) == tuple(out[1].placements) == (Shard(0), Shard(2)), out[0].placements
+        same(out, ops.causal_conv_silu(x, w, None, bias), "causal_conv_silu, batch and channels sharded")
+        same(sharded.causal_conv_silu(lay(x[:, :1]), w, lay(st)), ops.causal_conv_silu(x[:, :1], w, st),
+             "causal_conv_silu, a decode step from a state")
+        # a plain stream over a DTensor state (a decode step before the stream meets a DTensor): the state leads
+        same(sharded.causal_conv_silu(x[:, :1], w, lay(st)), ops.causal_conv_silu(x[:, :1], w, st),
+             "causal_conv_silu, a plain stream over a DTensor state")
+        from repro_torch.kernels.causal_conv import _check
+        try:  # a DTensor's data_ptr() is 0: it never reaches a kernel
+            _check(x[:, :1].contiguous(), w, lay(st), None)
+            raise AssertionError("a DTensor passed the launch checks")
+        except TypeError as e:
+            assert "DTensor" in str(e), e
         q, k, v = r(2, 2, 2, 16, 8), r(2, 2, 16, 8), r(2, 2, 16, 8)  # plain tensors go straight to the wrapper
         assert torch.equal(sharded.flash_attention(q, k, v), ops.flash_attention(q, k, v))
         assert torch.equal(sharded.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5), ops.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5))
@@ -621,9 +637,12 @@ def test_on_shards_runs_each_model_kernel_per_rank_over_four_cpu_ranks(tmp_path)
     """``per_shard.on_shards`` (the bundle ``models.build`` hands the models)
     runs flash and decode attention, the SSD scan and the mLSTM per rank on
     DTensor shards over a (2, 2) gloo mesh, and a cache sharded over its
-    positions through the flash-decoding merge, and the gated RMSNorm with
-    the heads a mesh splits gathered: each equals the wrapper on the whole
-    tensors."""
+    positions through the flash-decoding merge, the gated RMSNorm with
+    the heads a mesh splits gathered, and the depthwise causal conv with
+    batch and channels sharded (a state or bias left out passes through as
+    None; a plain stream over a DTensor state takes the state's layout):
+    each equals the wrapper on the whole tensors.  The launch checks refuse
+    a DTensor operand."""
     script = tmp_path / "on_shards_ranks.py"
     script.write_text(ON_SHARDS_SCRIPT % str(SRC))
     res = _run([sys.executable, str(script), str(_free_port())], timeout=300)

@@ -1096,11 +1096,12 @@ def test_hybrid_kernel_path_matches_plain_path_on_the_card(dev, arch):
     if arch.startswith("zamba2"):
         n_attn = cfg.n_layers // cfg.attn_every
         assert counts == {"ssd_scan": cfg.n_layers, "flash_attention": n_attn, "decode_attention": 3 * n_attn,
-                          "gated_rmsnorm": 4 * cfg.n_layers}  # prefill and three decode steps
+                          "gated_rmsnorm": 4 * cfg.n_layers,  # prefill and three decode steps
+                          "causal_conv_silu": 3 * 4 * cfg.n_layers}  # x, B and C a layer a forward
         torch.testing.assert_close(cache_k["ssm"]["ssm"], cache_p["ssm"]["ssm"], rtol=1e-4, atol=1e-4)
     else:
         n_m = sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
-        assert counts == {"mlstm_chunk": n_m}
+        assert counts == {"mlstm_chunk": n_m, "causal_conv_silu": 4 * cfg.n_layers}  # one a block a forward
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "whisper-small"])
@@ -1158,6 +1159,9 @@ def _kernel_case(kernel, dtype, dev, rng):
     if kernel == "flash_attention":
         q, k, v = (_randn(rng, sh, dtype, dev) for sh in ((2, 2, 2, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64)))
         return ops.flash_attention, ops.flash_attention_plain, (q, k, v), _attn_tol(dtype)["rtol"]
+    if kernel == "causal_conv_silu":  # zamba2-7b's B/C width with a bias and a state: y and the next state
+        x, w, st, bias = (_randn(rng, sh, dtype, dev) for sh in ((2, 100, 128), (4, 128), (2, 3, 128), (128,)))
+        return ops.causal_conv_silu, ops.causal_conv_silu_plain, (x, w, st, bias), 2.0**-8 if dtype == torch.bfloat16 else 2.0**-20
     if kernel == "gated_rmsnorm":  # reduced zamba2-7b's two groups; the backward is the plain version's
         y = _randn(rng, (2, 100, 8, 32), torch.float32, dev)
         x, z = _randn(rng, (2, 100, 8, 32), dtype, dev), _randn(rng, (2, 100, 256), dtype, dev)
@@ -1177,7 +1181,7 @@ def _kernel_case(kernel, dtype, dev, rng):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk", "gated_rmsnorm"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk", "gated_rmsnorm", "causal_conv_silu"])
 def test_model_kernel_gradients_match_plain_version_on_the_card(dev, kernel, dtype):
     """On card tensors that need a gradient each kernel launches once and
     returns outputs with a grad_fn; the input gradients (every output used,
@@ -1237,9 +1241,10 @@ def test_train_step_kernel_path_matches_plain_path_on_the_card(dev, arch):
     cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
     tol = 1e-4 if arch.startswith("granite") else 5e-4
     if arch.startswith("granite"):
-        kernel, per_micro = "flash_attention", 2 * cfg.n_layers
-    else:
-        kernel, per_micro = "mlstm_chunk", sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
+        per_micro = {"flash_attention": 2 * cfg.n_layers}
+    else:  # every xlstm block's conv, the mLSTM blocks' chunk scans
+        per_micro = {"mlstm_chunk": sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers)),
+                     "causal_conv_silu": cfg.n_layers}
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, 259, (4, 65)).astype(np.int64)).to(dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1251,13 +1256,13 @@ def test_train_step_kernel_path_matches_plain_path_on_the_card(dev, arch):
         assert float((a - b).abs().max()) <= tol * scale
     opt = AdamWConfig(lr=warmup_cosine(1e-3, 1, 4))
     metrics = []
-    for kernels, launches in ((ops.KERNELS, 2 * per_micro), (ops.PLAIN, 0)):
+    for kernels, launches in ((ops.KERNELS, {k: 2 * n for k, n in per_micro.items()}), (ops.PLAIN, {})):
         for c in ops.LAUNCHES.values():
             c.reset()
         state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
         _, m = make_train_step(cfg, opt, 2, kernels=kernels)(state, batch)
         torch.cuda.synchronize()
-        assert {n: c.value for n, c in ops.LAUNCHES.items() if c.value} == ({kernel: launches} if launches else {})
+        assert {n: c.value for n, c in ops.LAUNCHES.items() if c.value} == launches
         assert np.isfinite(float(m["loss"]))
         metrics.append(m)
     for key in ("loss", "grad_norm"):
@@ -1515,11 +1520,70 @@ def test_gated_rmsnorm_kernel_matches_plain_version(dev, b, s, h, p, groups, sca
     assert gn.ulps(got, want) <= gn.ULPS[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "b,s,c,k,bias,state",
+    [
+        (3, 4096, 7168, 4, True, False),  # zamba2-7b's x at the scoring cell's longest forward
+        (3, 4096, 128, 4, True, False),  # zamba2-7b's B and C
+        (4, 1024, 4096, 4, False, False),  # zamba2-1.2b's x: no bias
+        (4, 1024, 64, 4, False, False),  # zamba2-1.2b's B and C
+        (4, 1024, 1536, 4, False, False),  # xlstm-125m's mLSTM
+        (2, 333, 1001, 4, True, False),  # an odd width: the scalar path
+        (4, 1, 7168, 4, True, True),  # a decode step from a state
+        (4, 1, 128, 4, True, True),
+        (2, 2, 256, 4, False, True),  # fewer positions than the state holds
+        (2, 100, 256, 3, True, True),  # shorter filters
+        (2, 100, 256, 2, True, False),
+        (2, 100, 256, 1, True, False),
+    ],
+)
+def test_causal_conv_silu_kernel_matches_plain_version(dev, b, s, c, k, bias, state, dtype):
+    """One launch; y and the next state bit for bit the plain version's on
+    the card."""
+    import sys
+
+    cc = sys.modules["repro_torch.kernels.causal_conv"]
+    raw = lambda t: _bits(t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32))  # noqa: E731
+    rng = np.random.default_rng(b * s + c + k)
+    x, w = _randn(rng, (b, s, c), dtype, dev), (0.5 * _randn(rng, (k, c), torch.float32, dev)).to(dtype)
+    st = _randn(rng, (b, k - 1, c), dtype, dev) if state else None
+    bias = _randn(rng, (c,), dtype, dev) if bias else None
+    before = cc.launches.value
+    got, got_state = cc.causal_conv_silu(x, w, st, bias)
+    torch.cuda.synchronize()
+    assert cc.launches.value == before + 1
+    want, want_state = cc.causal_conv_silu_plain(x, w, st, bias)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (b, s, c)
+    assert bool(torch.isfinite(got.float()).all())
+    assert raw(got) == raw(want)
+    if k == 1:
+        assert got_state is None and want_state is None
+    else:
+        assert got_state.shape == want_state.shape == (b, k - 1, c) and raw(got_state) == raw(want_state)
+
+
+@pytest.mark.parametrize("c", [8, 1], ids=["vector", "scalar"])
+def test_causal_conv_silu_kernel_matches_plain_version_on_every_bfloat16_input(dev, c):
+    """silu's input in bfloat16 has 65536 values; at K 1 with a unit weight
+    the conv hands each of them, NaNs, infinities and subnormals included,
+    to silu unchanged: every output bit for bit the plain version's."""
+    import sys
+
+    cc = sys.modules["repro_torch.kernels.causal_conv"]
+    x = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).reshape(1, -1, c)
+    x, w = x.to(dev), torch.ones((1, c), dtype=torch.bfloat16, device=dev)
+    got, _ = cc.causal_conv_silu(x, w)
+    want, _ = cc.causal_conv_silu_plain(x, w)
+    bad = (got.view(torch.int16) != want.view(torch.int16)).nonzero()
+    assert bad.numel() == 0, [hex(int(x.view(torch.int16)[tuple(i)]) & 0xFFFF) for i in bad[:8].tolist()]
+
+
 def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_reference(dev):
     """7,356,749,648 parameters in bfloat16 from the seed; prefill of one
     document of 1000 tokens, then 16 decode steps through the cache, with
     the CUDA kernels (13 hd-224 flash launches at prefill, 81 grouped scans,
-    13 decode launches a step, 81 gated RMSNorms a forward).  The 17 positions' logits against the plain
+    13 decode launches a step, 81 gated RMSNorms and 243 convs a forward).  The 17 positions' logits against the plain
     float32 reference's forward over the 1016 tokens, run layer by layer on
     the program's weights.  Random weights amplify bfloat16's rounding over
     81 layers: an H100 measured 0.30 largest and 0.085 mean absolute
@@ -1543,7 +1607,8 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert sum(t.numel() for t in tree_leaves(params)) == cfg.n_params() == 7_356_749_648
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, 1016)).to(dev)
     counts = {name: ops.LAUNCHES[name].value for name in ("flash_attention_padded", "ssd_scan_grouped",
-                                                          "decode_attention_padded", "gated_rmsnorm")}
+                                                          "decode_attention_padded", "gated_rmsnorm",
+                                                          "causal_conv_silu")}
     with torch.no_grad():
         last, cache = api.prefill(params, {"tokens": toks[None, :1000]}, 1016)
         assert cache["kv"]["k"].shape == (13, 1, 32, 1016, 224) and cache["ssm"]["ssm"].shape == (81, 1, 112, 64, 64)
@@ -1558,6 +1623,7 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert ops.LAUNCHES["ssd_scan_grouped"].value - counts["ssd_scan_grouped"] == 81
     assert ops.LAUNCHES["decode_attention_padded"].value - counts["decode_attention_padded"] == 13 * 16
     assert ops.LAUNCHES["gated_rmsnorm"].value - counts["gated_rmsnorm"] == 81 * (1 + 16)  # 81 a forward
+    assert ops.LAUNCHES["causal_conv_silu"].value - counts["causal_conv_silu"] == 243 * (1 + 16)  # x, B, C: 243 a forward
     err = (got - want).abs()
     assert float(err.max()) <= 0.75 and float(err.mean()) <= 0.2, (float(err.max()), float(err.mean()))
     low_err = (low - want).abs()
