@@ -2248,6 +2248,152 @@ def serve_hybrids(dev, counters):
     )
 
 
+# granite-4.0-h-small's two new kernel routes at the scoring cell's shapes
+# (kernel-table rows 15 and 16): the SSD scan at d_state 128 in one group,
+# and one MoE layer's expert products at the cell's largest forward
+GRANITE_SSD = (3, 4096, 128, 64, 128)  # b, s, h, p, n: 3 documents of 4096 tokens
+GRANITE_TOKENS = 12288  # the cell's largest forward: 3 × 4096
+# its logits against the float32 reference's, max and mean |Δ| over 4 prompts' 17 positions: the bf16
+# program read 0.038 and 0.0042 on an H100 80GB HBM3 at 700 W, the reference in float8 products 0.137 and
+# 0.0197 (random weights, logits divided by 16); the limits lie near the geometric middles
+GRANITE_LOGIT_MAX, GRANITE_LOGIT_MEAN = 0.072, 0.0091
+
+
+def check_granite_kernels(dev, rng) -> dict:
+    """Rows 15 and 16: ``ssd_scan`` at (b 3, s 4096, h 128, p 64, n 128,
+    g 1) against its plain version within SSD_TOL, its three kernels' device
+    time against the least bytes (x, dt, B, C read once; y and the state
+    written once); and one MoE layer's expert products (``grouped_mm`` twice
+    over 12,288 tokens × 10 assignments, 72 experts of 768 at d 4096, the
+    routing drawn from the seed) against the plain loop, their device time
+    against 2 · 3 · d · f FLOPs an assignment at the bf16 rate."""
+    import torch
+
+    from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, wide_state_launches
+
+    b, s, h, p, n = GRANITE_SSD
+    x, B, C = _attn_inputs(rng, dev, torch.bfloat16, (b, s, h, p), (b, s, n), (b, s, n))
+    dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
+    A = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), h)).astype(np.float32)).to(dev)
+    before = wide_state_launches.value
+    got = ssd_scan(x, dt, A, B, C, 256)
+    torch.cuda.synchronize()
+    check(wide_state_launches.value == before + 1, "the n = 128 scan did not count its launch")
+    ratio = 0.0
+    for a, w in zip(got, ssd_scan_plain(x, dt, A, B, C, 256)):
+        ratio = max(ratio, float(((a - w).abs() / (SSD_TOL + SSD_TOL * w.abs())).max()))
+    check(ratio <= 1.0, f"ssd_scan at n = 128 leaves its plain version by {ratio} of its tolerance")
+    call = lambda: ssd_scan(x, dt, A, B, C, 256)  # noqa: E731
+    nbytes = x.numel() * 2 + dt.numel() * 4 + 2 * B.numel() * 2 + x.numel() * 4 + b * h * p * n * 4
+    kernels = _kernels_by_name(call, r"ssd_scan_kernel_\w+<64, 128>")
+    ssd_ms = sum(kernels.values())
+    ssd = {"shape": f"b={b} s={s} h={h} p={p} n={n} g=1 chunk=256 bfloat16", "worst_ratio": ratio,
+           "device_ms": ssd_ms, "kernels_ms": kernels, "call_ms": _time_ms(call),
+           "bound_ms": _bytes_bound_ms(nbytes), "bound_fraction": _bytes_bound_ms(nbytes) / ssd_ms}
+    del x, B, C, got
+
+    e, k, d, f = 72, 10, 4096, 768
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    experts = torch.sort(torch.randint(0, e, (GRANITE_TOKENS * k,), device=dev, generator=gen))[0]
+    offs = torch.searchsorted(experts, torch.arange(e, device=dev), right=True, out_int32=True)
+    rows = (torch.randn(GRANITE_TOKENS * k, d, device=dev, generator=gen)).to(torch.bfloat16)
+    w_in = (torch.randn(e, 2 * f, d, device=dev, generator=gen) * d**-0.5).to(torch.bfloat16).transpose(1, 2)
+    w_out = (torch.randn(e, d, f, device=dev, generator=gen) * f**-0.5).to(torch.bfloat16).transpose(1, 2)
+    mid = (torch.randn(GRANITE_TOKENS * k, f, device=dev, generator=gen)).to(torch.bfloat16)
+    worst = 0.0
+    for a, w in ((rows, w_in), (mid, w_out)):
+        got, want = grouped_mm(a, w, offs).float(), grouped_mm_plain(a, w, offs).float()
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    check(worst <= 2**-7, f"grouped_mm leaves its plain loop by {worst} of the largest output")
+    products = lambda: (grouped_mm(rows, w_in, offs), grouped_mm(mid, w_out, offs))  # noqa: E731
+    kernels = _kernels_by_name(products, r"GroupProblemShape|prepare_grouped_gemm_data")
+    moe_ms = sum(kernels.values())
+    flops = GRANITE_TOKENS * k * 2 * 3 * d * f
+    moe = {"shape": f"{GRANITE_TOKENS} tokens x top-{k} of {e} experts, d={d} f={f} bfloat16", "worst_rel": worst,
+           "device_ms": moe_ms, "kernels_ms": kernels, "call_ms": _time_ms(products),
+           "bound_ms": flops / BF16_FLOPS * 1e3, "bound_fraction": flops / BF16_FLOPS * 1e3 / moe_ms,
+           "plain_ms": _time_ms(lambda: (grouped_mm_plain(rows, w_in, offs), grouped_mm_plain(mid, w_out, offs)))}
+    del rows, mid, w_in, w_out
+    torch.cuda.empty_cache()
+    return {"ssd_scan_n128": ssd, "moe_expert_products": moe}
+
+
+def serve_granite4h(dev, counters):
+    """Phase 5b: granite-4.0-h-small at full width (32,207,337,984 bf16
+    parameters: 36 Mamba2 layers through the n = 128 ``ssd_scan``,
+    ``causal_conv_silu`` and ``gated_rmsnorm``, 4 NoPE attention layers
+    through ``flash_attention`` / ``decode_attention`` at the config's
+    scale, 40 dropless MoE layers through ``grouped_mm``) served from DACP
+    prompts with exact launch counts and the kernel path held to the plain
+    path, as ``serve_model`` does; then each prompt prefilled and decoded 16
+    teacher-forced steps, its 17 positions' logits held to the float32
+    reference's full forward (``GRANITE_LOGIT_MAX``, ``GRANITE_LOGIT_MEAN``),
+    which the reference in float8 products must fail."""
+    import dataclasses
+    import sys as _sys
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.models import build
+
+    _sys.path.insert(0, ROOT)
+    from perfbench import harness
+    from perfbench.reference import granitemoehybrid as reference
+
+    n_m, n_a, n_l = 36, 4, 40
+    reordered = dataclasses.replace(
+        ops.PLAIN, ssd_scan=lambda x, dt, A, B, C, chunk: ssd_scan_plain(x, dt, A, B, C, chunk // 2)
+    )
+    report, launches = serve_model(
+        dev, counters, "granite-4.0-h-small", (n_l, 4096, 128, 64, 128, 72, 10, 768, 1536, 32, 8, 128, "bfloat16"),
+        lambda c: (c.n_layers, c.d_model, c.ssm.expand * c.d_model // c.ssm.head_dim, c.ssm.head_dim, c.ssm.d_state,
+                   c.moe.n_experts, c.moe.top_k, c.moe.d_ff_expert, c.moe.d_ff_shared, c.n_heads, c.n_kv_heads,
+                   c.head_dim_, c.dtype),
+        {"ssd_scan": n_m, "ssd_scan_n128": n_m, "flash_attention": n_a, "decode_attention": n_a * SERVE_NEW,
+         "gated_rmsnorm": n_m * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_m * (1 + SERVE_NEW),
+         "grouped_mm": 2 * n_l * (1 + SERVE_NEW)},
+        _logit_tol(n_m + n_a + n_l), reordered,
+    )
+    cfg = get_config("granite-4.0-h-small")
+    conf = harness.load_json(harness.BENCH / "configs" / "granite-4.0-h-small.json")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts, _ = dacp_serving_prompts()
+    steps = 16
+    extra = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (SERVE_BATCH, steps)).astype(np.int32)
+    toks = torch.from_numpy(np.concatenate([prompts, extra], axis=1)).to(dev)
+    with torch.no_grad():
+        last, cache = api.prefill(params, {"tokens": toks[:, :SERVE_PROMPT]}, SERVE_PROMPT + steps)
+        got = [last[:, -1].float()]
+        for i in range(steps):
+            logits, cache = api.decode_step(params, toks[:, SERVE_PROMPT + i : SERVE_PROMPT + i + 1], cache)
+            got.append(logits[:, -1].float())
+        got = torch.stack(got, 1)  # (batch, positions SERVE_PROMPT - 1 .. SERVE_PROMPT + steps - 1, vocab)
+        del cache
+        errs, lows = [], []
+        for bi in range(SERVE_BATCH):
+            want = reference.forward(params, toks[bi], conf)[SERVE_PROMPT - 1 :]
+            low = reference.forward(params, toks[bi], conf, fp8=True)[SERVE_PROMPT - 1 :]
+            errs.append((got[bi] - want).abs())
+            lows.append((low - want).abs())
+    err, low = torch.stack(errs), torch.stack(lows)
+    held = {"positions": int(err.shape[0] * err.shape[1]), "max": float(err.max()), "mean": float(err.mean()),
+            "fp8_max": float(low.max()), "fp8_mean": float(low.mean()), "limits": [GRANITE_LOGIT_MAX, GRANITE_LOGIT_MEAN]}
+    log("granite-4.0-h-small against the float32 reference: " + json.dumps(held))
+    check(held["max"] <= GRANITE_LOGIT_MAX and held["mean"] <= GRANITE_LOGIT_MEAN,
+          f"granite-4.0-h-small's logits leave the reference's: {held}")
+    check(held["fp8_max"] > GRANITE_LOGIT_MAX or held["fp8_mean"] > GRANITE_LOGIT_MEAN,
+          f"the float8 reference passes the limits the program is held to: {held}")
+    del params
+    torch.cuda.empty_cache()
+    report["reference_logits"] = held
+    return report, launches
+
+
 # ---------------------------------------------------------------------------
 # phase 6: serve moonshot-v1-16b-a3b (MoE) and whisper-small (encoder-decoder)
 # ---------------------------------------------------------------------------
@@ -2304,11 +2450,11 @@ def moe_routing(kern, plain, params, batch) -> dict:
     def routed(api):
         seen = []
 
-        def recording(p, x, cfg, act):
+        def recording(p, x, cfg, act, kernels):
             _, _, gate_i = moe.route(p, x, cfg)
             _, _, keep = moe.slot_positions(gate_i, cfg.moe.n_experts, moe.scatter_capacity(x.shape[1], cfg))
             seen.append((gate_i, int((~keep).sum())))
-            return real(p, x, cfg, act)
+            return real(p, x, cfg, act, kernels)
 
         moe.moe_apply = recording
         try:
@@ -3330,6 +3476,10 @@ def main() -> None:
         f"plain version {fused.extra['cell_plain_ms']:.6f} ms (events)")
     check(pt.extra["local_memory_instructions"] == 0,
           f"project_kernel's SASS holds {pt.extra['local_memory_instructions']} LDL / STL: its stack is in local memory")
+    granite = check_granite_kernels(dev, rng)
+    for row, r in granite.items():
+        log(f"{row} at granite-4.0-h-small's {r['shape']}: {r['device_ms']:.6f} ms device against its bound "
+            f"{r['bound_ms']:.6f} ({r['bound_fraction']:.4f} of it; call {r['call_ms']:.6f}); kernels {r['kernels_ms']}")
     copies = time_morsel_copies(dev)
     log("morsel copies: " + json.dumps(copies))
     phase_s["kernels"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -3361,6 +3511,10 @@ def main() -> None:
                      "flash_attention_padded", "decode_attention_padded"):
             launches[name] = launches.get(name, 0) + serve_launches[name]
 
+    serving, serve_launches = serve_granite4h(dev, ops.LAUNCHES)
+    log("serve: " + json.dumps(serving) + f" on {kind}")
+    for name in ("ssd_scan", "ssd_scan_n128", "gated_rmsnorm", "causal_conv_silu", "grouped_mm"):
+        launches[name] = launches.get(name, 0) + serve_launches[name]
     phase_s["serve_hybrids"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     for serving, _ in serve_zoo(dev, ops.LAUNCHES):

@@ -23,6 +23,8 @@ class MoECfg:
     router_aux_weight: float = 0.01
     moe_every: int = 1  # every Nth block is MoE (1 = all)
     group_size: int = 512  # einsum-dispatch token group (GShard G×g regroup)
+    d_ff_shared: int = 0  # the shared MLP's own width (0: d_ff_expert × n_shared_experts)
+    fused_gate_up: bool = False  # experts as published: input_linear (E, 2·d_ff, d) [SiLU half, up half], output_linear (E, d, d_ff)
 
 
 @dataclass(frozen=True)
@@ -61,7 +63,7 @@ class ArchConfig:
     # MoE
     moe: MoECfg | None = None
     # hybrid / ssm topology
-    block_pattern: str = "attn"  # attn | zamba2 | xlstm
+    block_pattern: str = "attn"  # attn | zamba2 | xlstm | hybrid_moe
     ssm: SSMCfg | None = None
     attn_every: int = 6  # zamba2: shared attn after every Nth mamba block
     # zamba2's published layout, chosen by a non-empty ``hybrid_layer_ids``:
@@ -73,6 +75,15 @@ class ArchConfig:
     n_mem_blocks: int = 1
     adapter_rank: int = 0
     norm_eps: float = 1e-6  # the model's RMSNorms, the Mamba gated norm's too
+    # hybrid_moe (granitemoehybrid): each layer's mixer ("mamba" or "attention"),
+    # then a MoE FFN beside a shared MLP; the µP multipliers of the embedding,
+    # of every residual branch and (as a divisor) of the logits; the scores'
+    # scale where the config gives one (0: the head dim's)
+    layer_types: tuple = ()
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
     slstm_every: int = 8  # xlstm: one sLSTM per N blocks
     # encoder-decoder
     is_encdec: bool = False
@@ -115,8 +126,11 @@ class ArchConfig:
 
     @property
     def attn_scale(self) -> float:
-        """The scores' scale: hd^-0.5, or (hd/2)^-0.5 over the concatenated
-        input, as published (its heads are twice the stream's width)."""
+        """The scores' scale: the config's ``attention_multiplier`` where it
+        gives one, else hd^-0.5, or (hd/2)^-0.5 over the concatenated input,
+        as published (its heads are twice the stream's width)."""
+        if self.attention_multiplier:
+            return self.attention_multiplier
         return (self.head_dim_ / 2 if self.hybrid_layer_ids else self.head_dim_) ** -0.5
 
     def n_params(self) -> int:
@@ -160,6 +174,16 @@ class ArchConfig:
                                    + len(self.hybrid_layer_ids) * per_app + d)
             else:
                 per_layer_total = self.n_layers * mamba + (attn + mlp_dense)
+        elif self.block_pattern == "hybrid_moe":
+            s, m = self.ssm, self.moe
+            d_in = s.expand * d
+            nh, gn = d_in // s.head_dim, s.n_groups * s.d_state
+            mamba = (d * (2 * d_in + 2 * gn + nh) + d_in * d + (s.conv_kernel + s.conv_bias) * (d_in + 2 * gn)
+                     + d_in + 3 * nh)  # projections, convs and their biases, gated norm, A, D, dt bias
+            shared = 3 * d * (m.d_ff_shared or m.d_ff_expert * m.n_shared_experts)
+            ffn = d * m.n_experts + m.n_experts * 3 * d * m.d_ff_expert + shared + 2 * d  # router, experts, norms
+            n_attn = sum(t == "attention" for t in self.layer_types)
+            per_layer_total = self.n_layers * ffn + n_attn * attn + (self.n_layers - n_attn) * mamba + d
         elif self.block_pattern == "xlstm":
             pf = 2
             d_in = pf * d
@@ -237,6 +261,10 @@ class ArchConfig:
         if self.block_pattern == "xlstm":
             changes["slstm_every"] = 3
             changes["n_layers"] = 4
+        if self.block_pattern == "hybrid_moe":  # every layer kind: three Mamba2 layers, one attention layer
+            changes.update(layer_types=("mamba", "mamba", "attention", "mamba"), n_layers=4, n_kv_heads=2)
+            changes["moe"] = dataclasses.replace(self.moe, n_experts=8, top_k=3, d_ff_expert=64, d_ff_shared=96)
+            changes["ssm"] = dataclasses.replace(self.ssm, d_state=16, head_dim=32, chunk=32)
         return dataclasses.replace(self, **changes)
 
 
@@ -292,6 +320,7 @@ def _ensure_loaded() -> None:
         "qwen1_5_0_5b",
         "zamba2_1_2b",
         "zamba2_7b",
+        "granite_4_0_h_small",
         "xlstm_125m",
         "paper_lm",
     ):

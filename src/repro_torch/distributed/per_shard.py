@@ -9,7 +9,7 @@ the SPMD lowering the reference's compiler performs.  ``run`` lays
 every operand out so that the mesh dims sharding the leading operand's
 batch or head dim shard the same role in every operand, replicates the
 rest, calls the wrapper on the local tensors and wraps its outputs back as
-DTensors.  ``on_shards`` puts the six model kernels of a ``ModelKernels``
+DTensors.  ``on_shards`` puts the model kernels of a ``ModelKernels``
 bundle behind ``run`` with their dim maps (``models.build`` does so for
 every bundle); plain tensors go straight to the kernel, and any DTensor
 operand sends the call through ``run``.  The gated
@@ -141,6 +141,8 @@ _ROLES = {
     "mlstm_chunk": ((_BH,) * 5, (_BH, _ST, _ST, _ST), 0),
     "gated_rmsnorm": ((_B, _B, _B, {}, {}), (_B,), 0),
     "causal_conv_silu": ((_BC, {"channels": 1}, _BC, {"channels": 0}), (_BC, _BC), 0),
+    # the expert products' rows are the routing's order, not the batch's: every rank runs them whole
+    "grouped_mm": (({}, {}, {}), ({},), 0),
 }
 
 

@@ -13,6 +13,9 @@
                         RMSNorm after the scan, in one pass
     causal_conv       — the depthwise causal conv, its bias and SiLU at the
                         front of the Mamba2 and xLSTM blocks, in one pass
+    grouped_mm        — the dropless MoE's expert products over contiguous
+                        row segments (PyTorch's grouped GEMM on the card,
+                        not a kernel of this package)
 
 Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here;
 ``gated_norm`` and ``causal_conv`` replace chains the JAX package leaves
@@ -31,6 +34,7 @@ from repro_torch.kernels.ops import (
     flash_attention,
     fused_chain_tiles,
     gated_rmsnorm,
+    grouped_mm,
     mlstm_chunk,
     project_tiles,
     segment_minmax_tiles,
@@ -51,4 +55,5 @@ __all__ = [
     "mlstm_chunk",
     "gated_rmsnorm",
     "causal_conv_silu",
+    "grouped_mm",
 ]

@@ -12,7 +12,7 @@
 //   the TPU kernel, the final state S (b, h, p, n) float32, which prefill
 //   hands to the decode cache.  Any s: the last chunk may be shorter (the
 //   TPU kernel asserts s % L == 0); rows past s are neither read nor
-//   written.  p is 32 or 64, n 16, 32 or 64, L at most 256.
+//   written.  p is 32 or 64, n 16, 32, 64 or 128, L at most 256.
 //
 //   Bound: bytes.  At the zamba2-1.2b prefill shape (b 4, s 1024, h 64,
 //   p 64, n 64, L 256, bf16) the function moves about 107 MB (0.032 ms at
@@ -547,12 +547,37 @@ __global__ void __launch_bounds__(kThreads)
   reinterpret_cast<float4*>(S_out + bh * P * N)[e4] = S;
 }
 
+// Pass 3's shared memory.  Up to n = 64 it holds C, B, x and S_prev of
+// this head and the next, and the tables.  At n = 128 that would be 330 KB,
+// so S_prev is staged one head at a time into the rows C held: C stays in
+// registers as mma fragments after the first head (225 KB at p = 64).
+template <int P, int N>
+struct OutSmem {
+  static constexpr int LN = Tc<P, N>::LN;
+  static constexpr bool kOneS = N > 64;
+  static constexpr int kFirst = kOneS && 3 * P > kThreads ? 3 * P * LN : kThreads * LN;  // bf16 of C's (or S_prev's) rows
+};
+
+// C rows of the warp's row blocks as A fragments of C·Bᵀ and C·S_prevᵀ.
+template <int N, int LN>
+__device__ __forceinline__ void load_c_fragments(uint32_t (&cf)[2][N / 16][4], const bf16* sC, const int (&rbs)[2],
+                                                 int lane) {
+  const int mat = lane >> 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      if (rbs[q] >= 0)
+        ldsm_x4(cf[q][kk], sC + (rbs[q] * kRB + (lane & 7) + (mat & 1) * 8) * LN + kk * 16 + (mat >> 1) * 8);
+}
+
 // Pass 3: rows of chunk c for the block's heads,
 //   y_i = sum_{j<=i} M_ij x_j + exp(cs_i) C_i·S_prev,  M_ij = (C_i·B_j) exp(cs_i - cs_j) dt_j,
 // from pass 1's decay tables and pass 2's S_prev.  Each warp owns row
 // blocks rb = warp and (for chunks longer than 8 row blocks) R-1-warp.  A
 // head's x, S_prev and tables arrive by cp.async while the previous
-// head's products run: one barrier per head.
+// head's products run: one barrier per head (two at n = 128, whose S_prev
+// is staged after the head's first barrier, into C's rows).
 template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_scan_kernel_out(const bf16* __restrict__ x, const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -562,12 +587,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int NK = N / 16;  // k16 steps over n
   constexpr int NP = P / 8;   // n8 tiles over p
   constexpr int SB = 3 * P * LN;  // bf16 of one S_prev buffer: hi, mid and lo planes, [p][n]
+  constexpr bool kOneS = OutSmem<P, N>::kOneS;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sC = reinterpret_cast<bf16*>(smem);  // kThreads × LN
-  bf16* sB = sC + kThreads * LN;             // kThreads × LN
-  bf16* sX = sB + kThreads * LN;             // 2 × kThreads × LP: x of this head and the next
-  bf16* sS = sX + 2 * kThreads * LP;         // 2 × SB: S_prev of this head and the next
-  float* sT = reinterpret_cast<float*>(sS + 2 * SB);  // 2 × kTables × kThreads: decay tables
+  bf16* sC = reinterpret_cast<bf16*>(smem);             // kThreads × LN (kOneS: then this head's S_prev)
+  bf16* sB = sC + OutSmem<P, N>::kFirst;                // kThreads × LN
+  bf16* sX = sB + kThreads * LN;                        // 2 × kThreads × LP: x of this head and the next
+  bf16* sS = kOneS ? sC : sX + 2 * kThreads * LP;       // 2 × SB (kOneS: 1 × SB): S_prev
+  float* sT = reinterpret_cast<float*>(sX + 2 * kThreads * LP + (kOneS ? 0 : 2 * SB));  // 2 × kTables × kThreads
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / NC, c = blockIdx.x % NC;
@@ -582,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int h = h0 + hh, buf = hh & 1;
     const long long slot = ((long long)b * H + h) * NC + c;
     stage_rows<P, LP>(sX + buf * kThreads * LP, x + row0 * xs + (long long)h * P, xs, R16, Lc);
-    if (c > 0) stage_rows<N, LN>(sS + buf * SB, Sp + slot * 3 * P * N, N, 3 * P, 3 * P);
+    if (!kOneS && c > 0) stage_rows<N, LN>(sS + buf * SB, Sp + slot * 3 * P * N, N, 3 * P, 3 * P);
     const float* tb = Tb + slot * kTables * kThreads;
     float* st = sT + buf * kTables * kThreads;
     for (int e = tid; e < kTables * kThreads / 4; e += kThreads) cp_async16(st + 4 * e, tb + 4 * e, true);
@@ -598,25 +624,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   rbs[0] = warp < R ? warp : -1;
   rbs[1] = R > kWarps && R - 1 - warp >= kWarps ? R - 1 - warp : -1;
   const int kmax = max(rbs[0], rbs[1]);
-  const int mat = lane >> 3;
   uint32_t cf[2][NK][4];  // C rows of the row blocks as A fragments, loaded once
 
   for (int hh = 0; hh < nh; ++hh) {
     const int h = h0 + hh;
     cp_async_wait<0>();  // this head's copies (and, for the first, B and C)
     __syncthreads();     // ... for every thread; and every warp is done with the other buffer
-    if (hh + 1 < nh) stage_head(hh + 1);
-    cp_async_commit();
-    if (hh == 0) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int kk = 0; kk < NK; ++kk)
-          if (rbs[q] >= 0)
-            ldsm_x4(cf[q][kk], sC + (rbs[q] * kRB + (lane & 7) + (mat & 1) * 8) * LN + kk * 16 + (mat >> 1) * 8);
+    if constexpr (kOneS) {  // C's rows give way to S_prev, one head's at a time
+      if (hh == 0) {
+        load_c_fragments<N, LN>(cf, sC, rbs, lane);
+        __syncthreads();  // every warp holds its C fragments
+      }
+      if (c > 0) stage_rows<N, LN>(sS, Sp + (((long long)b * H + h) * NC + c) * 3 * P * N, N, 3 * P, 3 * P);
+      cp_async_commit();
+      if (hh + 1 < nh) stage_head(hh + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // S_prev of this head; the next head's x and tables may still fly
+      __syncthreads();
+    } else {
+      if (hh + 1 < nh) stage_head(hh + 1);
+      cp_async_commit();
+      if (hh == 0) load_c_fragments<N, LN>(cf, sC, rbs, lane);
     }
     const bf16* sXc = sX + (hh & 1) * kThreads * LP;
-    const bf16* sSc = sS + (hh & 1) * SB;
+    const bf16* sSc = kOneS ? sS : sS + (hh & 1) * SB;
     const float* tab = sT + (hh & 1) * kTables * kThreads;
     const float* sCs = tab + T_CS * kThreads;
     const float* sDt = tab + T_DT * kThreads;
@@ -757,7 +788,8 @@ size_t state_smem_bytes() {
 template <int P, int N>
 size_t out_smem_bytes() {
   using T = Tc<P, N>;
-  return (size_t)(2 * kThreads * T::LN + 2 * kThreads * T::LP + 6 * P * T::LN) * sizeof(bf16) +
+  using O = OutSmem<P, N>;
+  return (size_t)(O::kFirst + kThreads * T::LN + 2 * kThreads * T::LP + (O::kOneS ? 0 : 6 * P * T::LN)) * sizeof(bf16) +
          (size_t)(2 * kTables * kThreads) * sizeof(float);
 }
 
@@ -817,6 +849,8 @@ int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* 
       return launch_ssd<T, P, 32>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     case 64:
       return launch_ssd<T, P, 64>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
+    case 128:
+      return launch_ssd<T, P, 128>(x, dt, A, Bm, Cm, y, S_out, Bn, Sn, H, L, G, w, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,7 @@ device it launches the hand-written kernel (built from ``csrc/`` at first
 use) or raises; on the CPU it runs the kernel's plain PyTorch version.
 ``LAUNCHES`` maps each wrapper to its thread-safe launch counter, and
 counts apart the attention launches at a padded head dim and the SSD
-scan's launches in B/C groups.  Every
+scan's launches in B/C groups and at d_state 128.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
 On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``,
@@ -18,7 +18,7 @@ raises.
 TPU kernels return y alone), because the model's prefill hands it to the
 decode cache.
 
-The model zoo calls its six kernels through a ``ModelKernels`` bundle:
+The model zoo calls its seven kernels through a ``ModelKernels`` bundle:
 ``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
 versions), which holds the kernels against their plain versions on the
 card.  The bundle also carries ``decode_attention_partials``, the decode
@@ -50,12 +50,15 @@ from repro_torch.kernels.flash_attention import padded_launches as _flash_padded
 from repro_torch.kernels.fused_pipeline import fused_chain_tiles
 from repro_torch.kernels.gated_norm import gated_rmsnorm, gated_rmsnorm_plain
 from repro_torch.kernels.gated_norm import launches as _gated_launches
+from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_plain
+from repro_torch.kernels.grouped_mm import launches as _grouped_launches
 from repro_torch.kernels.mlstm_chunk import launches as _mlstm_launches
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.project_arith import project_tiles
 from repro_torch.kernels.segment_reduce import SUM_ROW_CAP, segment_minmax_tiles, segment_sum_tiles
 from repro_torch.kernels.ssd_scan import grouped_launches as _ssd_grouped
 from repro_torch.kernels.ssd_scan import launches as _ssd_launches
+from repro_torch.kernels.ssd_scan import wide_state_launches as _ssd_wide
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 __all__ = [
@@ -65,6 +68,7 @@ __all__ = [
     "mlstm_chunk",
     "gated_rmsnorm",
     "causal_conv_silu",
+    "grouped_mm",
     "filter_select_planes",
     "project_tiles",
     "segment_sum_tiles",
@@ -89,17 +93,20 @@ LAUNCHES = {
     "mlstm_chunk": _mlstm_launches,
     "gated_rmsnorm": _gated_launches,
     "causal_conv_silu": _conv_launches,
+    "grouped_mm": _grouped_launches,  # the dropless MoE's expert products: two a MoE layer
     # of the launches above: attention at a padded head dim (zamba2-7b's 224), the SSD scan in B/C groups
+    # and at d_state 128 (granite-4.0-h-small's)
     "flash_attention_padded": _flash_padded,
     "decode_attention_padded": _decode_padded,
     "ssd_scan_grouped": _ssd_grouped,
+    "ssd_scan_n128": _ssd_wide,
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelKernels:
-    """The six kernel functions the model zoo calls, and the decode
-    kernel's partials for a cache sharded by position."""
+    """The kernel functions the model zoo calls, and the decode kernel's
+    partials for a cache sharded by position."""
 
     flash_attention: Callable
     decode_attention: Callable
@@ -108,6 +115,7 @@ class ModelKernels:
     decode_attention_partials: Callable
     gated_rmsnorm: Callable
     causal_conv_silu: Callable
+    grouped_mm: Callable
 
 
 KERNELS = ModelKernels(
@@ -118,6 +126,7 @@ KERNELS = ModelKernels(
     decode_attention_partials,
     gated_rmsnorm,
     causal_conv_silu,
+    grouped_mm,
 )
 PLAIN = ModelKernels(
     flash_attention_plain,
@@ -127,4 +136,5 @@ PLAIN = ModelKernels(
     decode_attention_partials_plain,
     gated_rmsnorm_plain,
     causal_conv_silu_plain,
+    grouped_mm_plain,
 )

@@ -15,8 +15,8 @@ decode cache.  Any S: a ragged tail chunk is shorter (the reference model
 pads it with dt = 0, which leaves the state unchanged and adds nothing).
 
 For a CUDA tensor the wrapper launches the hand-written kernels of
-``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32
-or 64; chunk at most 256; bfloat16 rows 16-byte aligned; in bfloat16 a
+``csrc/ssd_scan.cu`` (x, B, C float32 or bfloat16; p 32 or 64; n 16, 32,
+64 or 128; chunk at most 256; bfloat16 rows 16-byte aligned; in bfloat16 a
 group's heads a multiple of 4, so that the four heads of a block share
 one group's B and C) or raises; for a
 CPU tensor it runs ``ssd_scan_plain``.  On card tensors that need a
@@ -40,16 +40,18 @@ import torch
 
 from repro_torch.kernels import _build, grad
 
-__all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "grouped_launches", "launches", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["MAX_CHUNK", "P_DIMS", "N_DIMS", "grouped_launches", "launches", "ssd_scan", "ssd_scan_plain",
+           "wide_state_launches"]
 
 MAX_CHUNK = 256  # one chunk row per thread of the CUDA kernels' blocks
 HEADS_A_BLOCK = 4  # heads of one block of the bfloat16 kernels' state and output passes
 P_DIMS = (32, 64)
-N_DIMS = (16, 32, 64)
+N_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter("ssd_scan")
 grouped_launches = _build.LaunchCounter("ssd_scan_grouped")  # of those, with B/C in more than one group
+wide_state_launches = _build.LaunchCounter("ssd_scan_n128")  # of those, at d_state 128
 
 
 def _segsum(x):
@@ -205,4 +207,6 @@ def _launch(x, dt, A, B, C, chunk: int):
     launches.bump()
     if g > 1:
         grouped_launches.bump()
+    if n == 128:
+        wide_state_launches.bump()
     return y, S_final

@@ -97,7 +97,7 @@ def _project_qkv(params, x, cfg, positions):
 
 def _scale(cfg) -> dict:
     """The kernels' ``scale`` where the configuration's is not their hd^-0.5."""
-    return {"scale": cfg.attn_scale} if cfg.hybrid_layer_ids else {}
+    return {"scale": cfg.attn_scale} if cfg.hybrid_layer_ids or cfg.attention_multiplier else {}
 
 
 def _out_proj(params, out, x, kv: int):

@@ -1,5 +1,6 @@
-"""Decoder-only LM for the ``attn`` (dense or MoE), ``zamba2`` and
-``xlstm`` block patterns — the port of ``repro.models.lm``.
+"""Decoder-only LM for the ``attn`` (dense or MoE), ``zamba2``, ``xlstm``
+and ``hybrid_moe`` block patterns — the port of ``repro.models.lm``
+(``hybrid_moe`` is the port's own).
 
     spec(cfg)                                      -> the parameters' spec tree
     init(cfg, generator, device)                   -> params
@@ -57,7 +58,20 @@ that Mamba layer's *input* (before its norm), not to the stream.  Its
 parameters: ``mem_blocks`` (the shared blocks) and ``hybrid`` (per
 application: ``lora_a``, ``lora_b``, ``linear``).
 
-Caches: ``attn`` {k, v (layers, B, KV, T, hd), index}; ``zamba2`` {ssm:
+``hybrid_moe`` (granitemoehybrid, granite-4.0-h-small) has no reference
+counterpart: each layer is RMSNorm → its mixer (Mamba2 or attention, as
+``cfg.layer_types`` says) → the branch times ``cfg.residual_multiplier``
+added to the stream → RMSNorm → the MoE (``models.moe``, the config's
+dispatch) plus the shared MLP → the same multiplier and residual.  The
+embedding is multiplied by ``cfg.embedding_multiplier`` and the logits
+divided by ``cfg.logits_scaling``; attention has no position embedding
+and scales its scores by ``cfg.attn_scale``.  One walk
+(``_hybrid_moe_walk``) serves ``forward``, ``prefill`` and
+``decode_step``.
+
+Caches: ``attn`` {k, v (layers, B, KV, T, hd), index}; ``hybrid_moe`` the
+same over its attention layers, and ``ssm`` (as zamba2's) over its Mamba2
+layers; ``zamba2`` {ssm:
 {ssm, conv_x, conv_B, conv_C} stacked over the Mamba layers, kv: the
 shared block's {k, v, index}, one cache layer per application}; ``xlstm``
 {xlstm: one state per layer, index}.  Tensors of the ``attn`` and
@@ -118,12 +132,17 @@ def check_supported(cfg) -> None:
     an encoder-decoder (``models.encdec``) or an unknown block pattern."""
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name} is an encoder-decoder: build it with models.encdec")
-    if cfg.block_pattern not in ("attn", "zamba2", "xlstm"):
+    if cfg.block_pattern not in ("attn", "zamba2", "xlstm", "hybrid_moe"):
         raise ValueError(f"unknown block pattern {cfg.block_pattern}")
 
 
 def _is_moe_layer(cfg, li: int) -> bool:
     return cfg.moe is not None and (li + 1) % cfg.moe.moe_every == 0
+
+
+def _is_mamba(cfg, li: int) -> bool:
+    """``hybrid_moe``: layer li mixes with Mamba2 (else with attention)."""
+    return cfg.layer_types[li] == "mamba"
 
 
 def _published_zamba2(cfg) -> bool:
@@ -170,6 +189,9 @@ def spec(cfg) -> dict:
             layers.append(lp)
         elif cfg.block_pattern == "zamba2":
             layers.append({"ln": ln(), "mamba": ssm_mod.mamba_spec(cfg, dt)})
+        elif cfg.block_pattern == "hybrid_moe":
+            mixer = {"mamba": ssm_mod.mamba_spec(cfg, dt)} if _is_mamba(cfg, li) else {"attn": attn.attn_spec(cfg, dt)}
+            layers.append({"ln1": ln(), **mixer, "ln2": ln(), "moe": moe_mod.moe_spec(cfg, dt)})
         elif xl.is_slstm(cfg, li):
             layers.append({"ln": ln(), "slstm": xl.slstm_spec(cfg, dt)})
         else:
@@ -240,10 +262,10 @@ def _maybe_gather(cfg, subtree, axes_subtree):
 # ---------------------------------------------------------------------------
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
-def _ffn(lp, x, cfg) -> tuple:
+def _ffn(lp, x, cfg, kernels) -> tuple:
     """The layer's MLP or MoE FFN on x (already normed): (y, aux)."""
     if "moe" in lp:
-        return moe_mod.moe_apply(lp["moe"], x, cfg, cfg.act)
+        return moe_mod.moe_apply(lp["moe"], x, cfg, cfg.act, kernels)
     return mlp_apply(lp["mlp"], x, cfg.act, cfg.glu), 0.0
 
 
@@ -251,7 +273,7 @@ def _block(lp, x, cfg, kernels, layer_cache=None, lp_axes=None) -> tuple:
     lp = _maybe_gather(cfg, lp, lp_axes)
     x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
     x = constrain(x, ACT_AXES)
-    y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)
+    y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg, kernels)
     return constrain(x + y, ACT_AXES), aux
 
 
@@ -329,6 +351,51 @@ def _published_decode(params, x, cache, cfg, kernels):
     return x, {"ssm": cache["ssm"], "kv": {"k": kv["k"], "v": kv["v"], "index": idx + 1}}
 
 
+def _hybrid_moe_layer(lp, x, cfg, kernels, state=None, index=None):
+    """One ``hybrid_moe`` layer on the stream x: (x, the MoE's aux loss).
+    ``state``: the layer's decode state (a Mamba2 layer's {ssm, conv_x,
+    conv_B, conv_C}, an attention layer's (k, v)), which prefill writes and
+    a decode step at position ``index`` reads and writes."""
+    h = norm_apply(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+    if "mamba" in lp:
+        if state is None:
+            y = ssm_mod.mamba_apply(lp["mamba"], h, cfg, kernels=kernels)
+        else:
+            if index is None:
+                y, st = ssm_mod.mamba_apply(lp["mamba"], h, cfg, True, kernels)
+            else:
+                y, st = ssm_mod.mamba_decode(lp["mamba"], h, cfg, state, kernels)
+            for name, t in st.items():
+                state[name].copy_(t)
+    elif index is None:
+        y = attn.attn_apply(lp["attn"], h, cfg, layer_cache=state, kernels=kernels)
+    else:
+        y = attn.attn_decode(lp["attn"], h, cfg, *state, index, kernels)[0]
+    x = constrain(x + y * cfg.residual_multiplier, ACT_AXES)
+    y, aux = moe_mod.moe_apply(lp["moe"], norm_apply(lp["ln2"], x, cfg.norm, cfg.norm_eps), cfg, cfg.act, kernels)
+    return constrain(x + y * cfg.residual_multiplier, ACT_AXES), aux
+
+
+def _hybrid_moe_walk(params, x, cfg, kernels, cache=None, index=None) -> tuple:
+    """Every ``hybrid_moe`` layer once, from the embedding's output x:
+    (x, the summed aux loss).  Over the whole sequence with ``index``
+    None (``cache``: a fresh decode cache the layers fill), or one decode
+    step at position ``index`` through ``cache``."""
+    x = x * cfg.embedding_multiplier
+    aux_total, mi, ai = 0.0, 0, 0
+    for li, lp in enumerate(params["layers"]):
+        state = None
+        if cache is not None and "mamba" in lp:
+            state = {name: t[mi] for name, t in cache["ssm"].items()}
+        elif cache is not None:
+            state = (cache["k"][ai], cache["v"][ai])
+        mi, ai = mi + ("mamba" in lp), ai + ("attn" in lp)
+        layer = functools.partial(_hybrid_moe_layer, lp, cfg=cfg, kernels=kernels, state=state, index=index)
+        x, aux = (layer if cache is not None else _remat_wrap(cfg, layer))(x)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
 
 
@@ -353,7 +420,10 @@ def _remat_wrap(cfg, fn):
 def _head(params, x, cfg):
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     emb = params["embed_out"] if not cfg.tie_embeddings else params["embed"]
-    return constrain(logits_apply(emb, x, cfg.vocab_size), LOGIT_AXES)
+    logits = logits_apply(emb, x, cfg.vocab_size)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return constrain(logits, LOGIT_AXES)
 
 
 def _body(params, x, cfg, kernels, cache=None) -> tuple:
@@ -371,6 +441,8 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
             else:
                 x, aux = _block(lp, x, cfg, kernels, (cache["k"][li], cache["v"][li]), gather_axes[li])
             aux_total = aux_total + aux
+    elif cfg.block_pattern == "hybrid_moe":
+        x, aux_total = _hybrid_moe_walk(params, x, cfg, kernels, cache)
     elif _published_zamba2(cfg):
         x = _published_body(params, x, cfg, kernels, cache)
     elif cfg.block_pattern == "zamba2":
@@ -434,6 +506,10 @@ def decode_cache_spec(cfg, batch: int, max_seq: int, dtype, long_context: bool =
     check_supported(cfg)
     if cfg.block_pattern == "attn":
         return attn.kv_cache_spec(cfg, batch, max_seq, cfg.n_layers, dtype, long_context)
+    if cfg.block_pattern == "hybrid_moe":
+        n_mamba = sum(t == "mamba" for t in cfg.layer_types)
+        return dict(attn.kv_cache_spec(cfg, batch, max_seq, cfg.n_layers - n_mamba, dtype, long_context),
+                    ssm=ssm_mod.ssm_cache_spec(cfg, batch, n_mamba, dtype))
     if cfg.block_pattern == "zamba2":
         apps = len(cfg.hybrid_layer_ids) if cfg.hybrid_layer_ids else cfg.n_layers // cfg.attn_every
         return {
@@ -485,8 +561,12 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
                 lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
             )
             x = x + h
-            x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg)[0]
+            x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg, kernels)[0]
         cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
+    elif cfg.block_pattern == "hybrid_moe":
+        idx = int(cache["index"])
+        x, _ = _hybrid_moe_walk(params, x, cfg, kernels, cache, idx)
+        cache = dict(cache, index=idx + 1)
     elif _published_zamba2(cfg):
         x, cache = _published_decode(params, x, cache, cfg, kernels)
     elif cfg.block_pattern == "zamba2":

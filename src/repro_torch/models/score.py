@@ -29,7 +29,8 @@ positions.  The log-softmax of the real positions runs in slices of
 and the morsel's log-probabilities come back to the host in one copy.
 
 Spans (``trace``): ``score`` (the map on one morsel), inside it a
-``forward`` per group and a ``logprob`` per group.  Counters: ``STATS``
+``forward`` per group and a ``logprob`` per group; a MoE model's ``moe``
+and ``route`` spans (``models.moe``) open inside ``forward``.  Counters: ``STATS``
 (a ``ScoreStats``: documents, forwards, real and padded tokens).
 Importing this module registers the map, as ``repro_torch.data`` registers
 ``tokenize_and_pack``.

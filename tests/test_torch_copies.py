@@ -11,8 +11,9 @@ reference's.  ``trace.py``, the span recorder, is the port's own.
 the keys of zamba2's published layout (B/C groups, conv bias, the gated
 norm's groups, ``hybrid_layer_ids``, memory blocks, adapters, the
 concatenated input), which the reference has no configuration to use;
-``configs/zamba2_7b.py`` and ``models/score.py`` (the in-situ scoring map)
-are the port's own."""
+``configs/zamba2_7b.py``, ``configs/granite_4_0_h_small.py``,
+``models/score.py`` (the in-situ scoring map) and ``kernels/grouped_mm.py``
+(the dropless MoE's expert products) are the port's own."""
 
 import inspect
 import re
@@ -25,7 +26,7 @@ COPIED_DIRS = ("core", "transport", "server", "client", "configs", "data")
 COPIED_FILES = ("distributed/elastic.py",)  # framework-neutral modules outside those directories
 PORTED = {"core/backend.py", "core/executor.py", "core/env.py", "core/lockcheck.py", "server/faird.py",
           "configs/base.py"}
-PORT_ONLY = {"client/torch_adapter.py", "configs/zamba2_7b.py"}
+PORT_ONLY = {"client/torch_adapter.py", "configs/zamba2_7b.py", "configs/granite_4_0_h_small.py"}
 DIR_COPIES = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for p in (SRC / "repro_torch").rglob("*.py")
@@ -37,7 +38,8 @@ COPIED = DIR_COPIES + list(COPIED_FILES)
 REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
 PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
                   "models/convert.py", "distributed/per_shard.py", "trace.py", "configs/zamba2_7b.py",
-                  "models/score.py", "kernels/gated_norm.py", "kernels/causal_conv.py"}
+                  "models/score.py", "kernels/gated_norm.py", "kernels/causal_conv.py",
+                  "configs/granite_4_0_h_small.py", "kernels/grouped_mm.py"}
 
 
 def _rewrite(text: str) -> str:

@@ -1628,3 +1628,68 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert float(err.max()) <= 0.75 and float(err.mean()) <= 0.2, (float(err.max()), float(err.mean()))
     low_err = (low - want).abs()
     assert float(low_err.max()) > 0.75 or float(low_err.mean()) > 0.2
+
+
+# granite-4.0-h-small: the SSD scan at d_state 128 in one group, and the dropless MoE's grouped expert products
+@pytest.mark.parametrize(
+    "b,s,h,p,chunk,dtype",
+    [
+        (3, 4096, 128, 64, 256, torch.bfloat16),  # granite-4.0-h-small's longest forward in the scoring cell
+        (2, 1000, 128, 64, 256, torch.bfloat16),  # ragged tail chunk
+        (1, 300, 8, 64, 256, torch.bfloat16),  # one ragged chunk
+        (2, 700, 8, 32, 256, torch.bfloat16),  # p 32
+        (1, 1000, 6, 64, 128, torch.bfloat16),  # heads no multiple of the block's 4
+        (2, 600, 8, 64, 256, torch.float32),
+        (2, 300, 4, 32, 96, torch.float32),  # chunk 96, ragged
+    ],
+)
+def test_ssd_scan_kernel_at_d_state_128(dev, b, s, h, p, chunk, dtype):
+    """n = 128, one B/C group (b, s, n): within test_ssd_scan_kernel's 2e-4
+    of the plain version, each launch counted at n = 128."""
+    import sys
+
+    ssd = sys.modules["repro_torch.kernels.ssd_scan"]
+    rng = np.random.default_rng(s + h + p)
+    x = _randn(rng, (b, s, h, p), dtype, dev)
+    dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)).to(dev)
+    A = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), h)).astype(np.float32)).to(dev)
+    B, C = _randn(rng, (b, s, 128), dtype, dev), _randn(rng, (b, s, 128), dtype, dev)
+    before, wide = ssd.launches.value, ssd.wide_state_launches.value
+    got = ssd.ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches.value == before + 1 and ssd.wide_state_launches.value == wide + 1
+    for a, w in zip(got, ssd.ssd_scan_plain(x, dt, A, B, C, chunk)):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("tokens,dtype", [(4096, torch.bfloat16), (333, torch.float32)], ids=["bf16", "f32"])
+def test_dropless_moe_on_the_card_matches_its_plain_loop(dev, tokens, dtype):
+    """One MoE layer at granite-4.0-h-small's widths (d 4096, 72 experts of
+    768, top 10, the shared MLP of 1536), routed on the card: the grouped
+    expert products (``torch._grouped_mm``) against the same dispatch
+    through the plain per-expert loop on the same card tensors.  bfloat16,
+    the cell's type, runs with no host sync (checked in PyTorch's sync
+    debug mode) and lands within 2^-7 of the largest output (each product
+    rounded to bf16 in another order); float32 (PyTorch's fallback, which
+    reads the segment ends on the host) within 1e-4.  Every assignment is
+    counted, none dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.layers import materialize
+
+    cfg = get_config("granite-4.0-h-small")
+    params = materialize(moe.moe_spec(cfg, dtype), dev, torch.Generator(device=dev).manual_seed(tokens))
+    x = _randn(np.random.default_rng(tokens), (1, tokens, cfg.d_model), dtype, dev)
+    before, grouped = moe.STATS.snapshot(), ops.LAUNCHES["grouped_mm"].value
+    torch.cuda.set_sync_debug_mode("error" if dtype == torch.bfloat16 else 0)
+    try:
+        got, _ = moe.moe_apply_dropless(params, x, cfg, "silu", ops.KERNELS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = moe.STATS.snapshot()
+    assert ops.LAUNCHES["grouped_mm"].value == grouped + 2
+    assert after["assignments"] - before["assignments"] == tokens * 10 and after["dropped"] == before["dropped"]
+    want, _ = moe.moe_apply_dropless(params, x, cfg, "silu", ops.PLAIN)
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    assert err <= (2.0**-7 if dtype == torch.bfloat16 else 1e-4), err

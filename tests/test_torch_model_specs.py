@@ -6,7 +6,8 @@ the same order, one axis name per dim).
 
 The digests were recorded from the twin ``*_init`` / ``*_axes`` functions
 that the spec trees replaced: the same seed still draws the same weights,
-in the same order, with the same float32-then-cast draw.  A change that
+in the same order, with the same float32-then-cast draw (granite-4.0-h-small's,
+added later, were recorded from its spec tree).  A change that
 means to alter a configuration's tensors prints the new digests with
 ``PYTHONPATH=src python tests/test_torch_model_specs.py``.
 """
@@ -25,6 +26,7 @@ WEIGHTS = {
     "chameleon-34b": "0de4c8e49f9767946ad009a6bcea7ad1da365e732d1f6e50a46720285c42fb8f",
     "gemma-2b": "75486e3d57c523cdbf462d65b6aeb5cf7180a0bcd3b0306109a5816b99f6f517",
     "granite-3-8b": "75486e3d57c523cdbf462d65b6aeb5cf7180a0bcd3b0306109a5816b99f6f517",
+    "granite-4.0-h-small": "45990ce1bbd595040f14a99fd6f64be630109d3b744d8bcb76df8fc0cc8e4531",
     "llama4-scout-17b-a16e": "b0403a3a8d787db5cea245cade597681c39fbad17ae6d8286f46005ece32dd67",
     "moonshot-v1-16b-a3b": "d78049a699f123cdc6ea2cb789fb1ab9acca344ee82656f8b3956f01dadaa772",
     "paper-lm-100m": "a82de4d697590fc03909a67f001d0512e1151fbb8012be764f0e6e3dd9caaa9f",
@@ -39,6 +41,7 @@ CACHES = {
     "chameleon-34b": "026bd2a5d21b809bd73cf64af5dc034a33b6a2b3f64c32066c2fb51d1b0c5ebe",
     "gemma-2b": "026bd2a5d21b809bd73cf64af5dc034a33b6a2b3f64c32066c2fb51d1b0c5ebe",
     "granite-3-8b": "026bd2a5d21b809bd73cf64af5dc034a33b6a2b3f64c32066c2fb51d1b0c5ebe",
+    "granite-4.0-h-small": "75dc0b0c5ae2fe4291c236e33cc5ade9f9d8bc016f792f6531d1bd499e77376c",
     "llama4-scout-17b-a16e": "026bd2a5d21b809bd73cf64af5dc034a33b6a2b3f64c32066c2fb51d1b0c5ebe",
     "moonshot-v1-16b-a3b": "059039f04f0c8a1db671ffec163eda5415787c41a345dd57c92a74c6a5b3e1b7",
     "paper-lm-100m": "059039f04f0c8a1db671ffec163eda5415787c41a345dd57c92a74c6a5b3e1b7",

@@ -193,3 +193,87 @@ def test_moe_entry_points_default_to_the_card(arch):
         lm.make_decode_cache(cfg, 1, 8, torch.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         build(cfg).init(torch.Generator())
+
+
+# ---------------------------------------------------------------------------
+# the dropless dispatch (granite-4.0-h-small's): the port's own, no reference counterpart
+# ---------------------------------------------------------------------------
+GRANITE = get_config("granite-4.0-h-small").reduced()
+
+
+def _granite_layer(seed=0):
+    return materialize(moe.moe_spec(GRANITE, torch.float32), "cpu", torch.Generator().manual_seed(seed))
+
+
+def test_dropless_dispatch_is_each_tokens_dense_loop_over_its_top_k():
+    """Every token through its own top-k experts one at a time (float32
+    router logits, their top k, a softmax over those k; SiLU of
+    ``input_linear``'s first half times its second, ``output_linear``) plus
+    the shared MLP: the dispatch's output within 1e-5 (sums in other
+    orders), with exactly tokens × k assignments counted and none dropped."""
+    params = _granite_layer()
+    x = torch.from_numpy(_x(GRANITE, b=3, s=21, seed=4))
+    before = moe.STATS.snapshot()
+    y, aux = moe.moe_apply(params, x, GRANITE, "silu")
+    after = moe.STATS.snapshot()
+    k, f = GRANITE.moe.top_k, GRANITE.moe.d_ff_expert
+    want = torch.zeros_like(x)
+    for bi in range(3):
+        for t in range(21):
+            h = x[bi, t]
+            logits = h @ params["router"]["w"]
+            top, idx = logits.topk(k)
+            for g, e in zip(torch.softmax(top, -1), idx.tolist()):
+                gu = params["input_linear"]["w"][e] @ h
+                want[bi, t] += g * (params["output_linear"]["w"][e] @ (torch.nn.functional.silu(gu[:f]) * gu[f:]))
+            sh = params["shared"]
+            want[bi, t] += (torch.nn.functional.silu(h @ sh["gate"]["w"]) * (h @ sh["up"]["w"])) @ sh["down"]["w"]
+    assert_allclose(y.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert after["assignments"] - before["assignments"] == 3 * 21 * k
+    assert after["tokens"] - before["tokens"] == 63 and after["forwards"] - before["forwards"] == 1
+    assert after["dropped"] == before["dropped"] and float(aux) > 0
+
+
+def test_dropless_dispatch_scores_a_token_whatever_shares_its_batch():
+    """A document's rows give the same output alone and beside others: no
+    capacity couples tokens (the scatter dispatch's drops would)."""
+    params = _granite_layer(1)
+    x = torch.from_numpy(_x(GRANITE, b=4, s=16, seed=5))
+    together, _ = moe.moe_apply_dropless(params, x, GRANITE, "silu")
+    alone, _ = moe.moe_apply_dropless(params, x[2:3], GRANITE, "silu")
+    assert_allclose(together[2:3].numpy(), alone.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_a_capacity_dropping_dispatch_fails_the_logits_comparison():
+    """The same model through the scatter dispatch at capacity factor 1
+    drops slots (counted in ``STATS``) and its logits leave the dropless
+    path's by far more than the 1e-4 the port is held to against the
+    reference: the comparison sees drops."""
+    cfg_drop = dataclasses.replace(GRANITE, moe_dispatch="scatter",
+                                   moe=dataclasses.replace(GRANITE.moe, capacity_factor=1.0))
+    api, api_drop = build(GRANITE), build(cfg_drop)
+    params = api.init(torch.Generator().manual_seed(7), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, GRANITE.vocab_size, (2, 48)))
+    want, _ = api.forward(params, {"tokens": toks})
+    before = moe.STATS.snapshot()
+    got, _ = api_drop.forward(params, {"tokens": toks})
+    assert moe.STATS.snapshot()["dropped"] > before["dropped"]
+    assert float((got - want).abs().max()) > 100 * 1e-4 * float(want.abs().max())
+    roomy = dataclasses.replace(cfg_drop, moe=dataclasses.replace(cfg_drop.moe, capacity_factor=GRANITE.moe.n_experts))
+    full, _ = build(roomy).forward(params, {"tokens": toks})  # a capacity that holds every slot: the same function
+    assert float((full - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_grouped_products_plain_version_is_pytorchs_grouped_gemm():
+    """``grouped_mm_plain`` against ``torch._grouped_mm`` (the card path's
+    op, which this PyTorch also runs on the CPU) on segments with an empty
+    one, the weights as the published transposed views."""
+    from repro_torch.kernels.grouped_mm import grouped_mm, grouped_mm_plain
+
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((37, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 24, 16)).astype(np.float32)).transpose(1, 2)
+    offs = torch.tensor([5, 5, 30, 37], dtype=torch.int32)
+    want = torch._grouped_mm(a, w, offs=offs)
+    assert_allclose(grouped_mm_plain(a, w, offs).numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(grouped_mm(a, w, offs), grouped_mm_plain(a, w, offs))

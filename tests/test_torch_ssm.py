@@ -184,7 +184,7 @@ def test_ssd_two_pass_without_the_lo_halves_misses_the_tolerance():
     "change,error,match",
     [
         (dict(p=48), ValueError, "takes p in"),
-        (dict(n=128), ValueError, "n in"),
+        (dict(n=256), ValueError, "n in"),
         (dict(chunk=512), ValueError, "at most 256"),
         (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
         (dict(dt_dtype=torch.bfloat16), TypeError, "dt must be torch.float32"),
