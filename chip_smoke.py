@@ -57,7 +57,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      B/C: b 3, s 4096, C 7168 and 128, with bias), zamba2-1.2b's and
      xlstm-125m's widths, an odd width (the scalar path), a decode step
      from a state and in float32, and timed there beside its bytes bound
-     and the plain version's device time.  All eleven kernels print their design and the fraction of
+     and the plain version's device time.  ``rms_norm`` (the model's
+     RMSNorm) is held to its plain version within ``gated_norm.ULPS`` at
+     12,288 rows of 3584, 4096 and 7168 (the scoring cells' longest
+     forward), a decode step, the q/k norms' rows of 128 and in float32,
+     and timed at each of the three widths beside its bytes bound (0.053,
+     0.060 and 0.105 ms), the plain chain's device time and that of
+     ``torch.nn.functional.rms_norm`` (whose units in the last place from
+     the plain version it records).  All twelve
+     kernels print their design and the fraction of
      their bound they reach, and the multi-kernel wrappers (min/max, fused,
      SSD, mLSTM) each kernel's device time by name;
      ``decode_attention_partials`` (the decode kernel's partial m, l, acc)
@@ -95,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a seeded prompt corpus in place (``training_dag``), the model prefills
      4 prompts of 1024 byte tokens through ``flash_attention`` and greedily
      decodes 32 tokens through ``decode_attention`` (exactly 40 and 40 × 32
-     launches), then holds the kernel path's prefill logits and 4
+     launches, and 81 ``rms_norm`` a forward), then holds the kernel path's prefill logits and 4
      teacher-forced decode steps against the plain path's on the same
      weights and tokens, and profiles a prefill and a decode step (whose
      ``decode_attn`` kernels over 40 give the in-model time a launch);
@@ -103,17 +111,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      DACP prompts: zamba2-1.2b (38 Mamba2 blocks, d_model 2048, ssm state
      64, head_dim 64, the shared attention block after every 6th; exactly
      38 ``ssd_scan`` and 6 ``flash_attention`` launches per prefill, 6 ×
-     32 ``decode_attention`` over the decode, 38 ``gated_rmsnorm`` and
-     114 ``causal_conv_silu`` a forward), xlstm-125m (12 blocks,
+     32 ``decode_attention`` over the decode, 38 ``gated_rmsnorm``,
+     114 ``causal_conv_silu`` and 51 ``rms_norm`` a forward), xlstm-125m (12 blocks,
      d_model 768, 4 heads, 11 mLSTM blocks through ``mlstm_chunk`` and one
      sLSTM block in PyTorch; exactly 11 launches per prefill, and 12
-     ``causal_conv_silu`` a forward) and
+     ``causal_conv_silu`` and 12 ``rms_norm`` a forward) and
      zamba2-7b at its published widths (81 Mamba2 blocks with B/C in 2
      groups, 13 applications of the shared blocks at head dim 224): exactly
      81 ``ssd_scan``, all ``ssd_scan_grouped``, and 13 ``flash_attention``,
      all ``flash_attention_padded``, per prefill, 13 × 32
      ``decode_attention``, all ``decode_attention_padded``, over the decode,
-     81 ``gated_rmsnorm`` and 243 ``causal_conv_silu`` a forward; its
+     81 ``gated_rmsnorm``, 243 ``causal_conv_silu`` and 108 ``rms_norm``
+     a forward; its
      logits' limit is at least twice
      the plain path's difference from a plain path whose scan sums over
      chunks of half the length;
@@ -121,7 +130,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      DACP prompts: moonshot-v1-16b-a3b (48 MHA layers, d_model 2048, 16
      heads of head_dim 128, each FFN 64 experts top-6 of d_ff 1408; about
      2.8 × 10^10 parameters, 56 GB; exactly 48 ``flash_attention`` and
-     48 × 32 ``decode_attention`` launches), held to the plain path within
+     48 × 32 ``decode_attention`` launches, 97 ``rms_norm`` a forward), held to the plain path within
      the larger of the rounding model and twice the plain path's spread
      against a plain bundle that sums attention over the keys in two halves
      (routing near a tie flips under both), printing the share of top-k
@@ -143,9 +152,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``TorchFeed``) through ``Trainer`` (2 microbatches, int8 gradient
      compression, ``warmup_cosine``), printing each step's loss, grad norm,
      lr, CUDA-synchronised ms, tokens/s and launches (exactly 152
-     ``ssd_scan``, 152 ``gated_rmsnorm``, 456 ``causal_conv_silu`` and 12
-     ``flash_attention`` a step: remat runs each Mamba2 block's forward
-     twice), the peak memory and one profiled step (device
+     ``ssd_scan``, 152 ``gated_rmsnorm``, 456 ``causal_conv_silu``, 178
+     ``rms_norm`` and 12 ``flash_attention`` a step: remat runs each Mamba2
+     block's forward twice), the peak memory and one profiled step (device
      against wall ms, top kernels, the plain backward's share); the losses
      and grad norms must be finite and the loss on step 1's batch after
      step 4 below step 1's; (c) one loss + backward through the kernels
@@ -175,8 +184,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``decode_cache_axes(long_context=True)``, 131072 a rank, K and V 25.8
      GB whole, seeded slice by slice), 4 teacher-forced steps from index
      499996 through ``lm.decode_step`` with ``on_shards(KERNELS)``: exactly
-     6 partials launches, 38 ``gated_rmsnorm`` and 114 ``causal_conv_silu``
-     a step on each rank (the replicated SSM state moves nothing) and no plain partials, each
+     6 partials launches, 38 ``gated_rmsnorm``, 114 ``causal_conv_silu``
+     and 51 ``rms_norm`` a step on each rank (the replicated SSM state moves nothing) and no plain partials, each
      site's output within SEQ_ERR_UNITS half ulps of bf16 of one
      ``decode_attention`` launch over the whole cache on the same inputs (a
      planted fault, rank 0's partials replaced by an empty slice's, must
@@ -313,7 +322,7 @@ def _same(a, b) -> tuple:
 
 _OUR_KERNELS = ("filter_select_kernel", "project_kernel", "segment_sum_kernel", "minmax_", "fused_", "fsum_fold",
                 "flash_attn", "decode_attn", "ssd_scan_kernel", "mlstm_chunk_kernel", "gated_rmsnorm_kernel",
-                "causal_conv_silu_kernel")
+                "causal_conv_silu_kernel", "rms_norm_kernel")
 
 
 # Once a run has profiled for a while, every profiler session drops the device records of its first six
@@ -1637,6 +1646,75 @@ def check_causal_conv(dev, rng) -> KernelRecord:
     return rec
 
 
+RMS_WIDTHS = {3584: "zamba2-7b", 4096: "granite-4.0-h-small", 7168: "zamba2-7b ln_a"}  # at 12,288 rows
+RMS_ROWS = 12288  # the scoring cells' longest forward: 3 × 4096 tokens
+
+
+def check_rms_norm(dev, rng) -> KernelRecord:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gated_norm import ulps
+    from repro_torch.kernels.rms_norm import ULPS, rms_norm, rms_norm_plain
+
+    rec = KernelRecord("rms_norm", "src/repro_torch/kernels/csrc/rms_norm.cu",
+                       "none: src/repro/models/layers.py computes the norm in jnp")
+    rec.tolerance = "units in the last place of the output " + str({str(k)[6:]: v for k, v in ULPS.items()})
+    cases = [(label, (RMS_ROWS, w), torch.bfloat16) for w, label in RMS_WIDTHS.items()] + [
+        ("decode", (SERVE_BATCH, 1, 4096), torch.bfloat16),
+        ("q/k norms", (2, 333, 8, 128), torch.bfloat16),  # several rows a block
+        ("f32", (4096, 4096), torch.float32),
+    ]
+    rec.extra["worst_ulps"], rec.extra["widths"], rec.extra["library_ulps"] = {}, {}, {}
+    for label, shape, dtype in cases:
+        x = (3 * torch.from_numpy(rng.standard_normal(shape).astype(np.float32))).to(dev, dtype)
+        scale = torch.from_numpy((rng.standard_normal(shape[-1]) * 0.1 + 1).astype(np.float32)).to(dev, dtype)
+        args = (x, scale, 1e-5)
+        got = rms_norm(*args)
+        torch.cuda.synchronize()
+        want = rms_norm_plain(*args)
+        units = ulps(got, want)
+        rec.extra["worst_ulps"][label] = units
+        rec.checks += 1
+        rec.max_abs_err = max(rec.max_abs_err, float((got.float() - want.float()).abs().max()))
+        rec.exact = rec.exact and units == 0
+        if units > ULPS[dtype]:
+            rec.agrees = False
+            log(f"MISMATCH {rec.name}: {label}: {units} units in the last place from the plain version")
+        # PyTorch's own RMSNorm, for its time and its distance from the plain version (the port does not call it)
+        library = lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5)  # noqa: E731
+        rec.extra["library_ulps"][label] = ulps(library(), want)
+        if shape[0] == RMS_ROWS:
+            call = lambda: rms_norm(*args)  # noqa: E731
+            plain = lambda: rms_norm_plain(*args)  # noqa: E731
+            # x read once and the output written once (4 bytes an element in bfloat16), and the scale
+            nbytes = (x.numel() + got.numel() + scale.numel()) * 2
+            row = {"device_ms": _kernel_device_ms(call), "bound_ms": _bytes_bound_ms(nbytes),
+                   "plain_device_ms": _all_device_ms(plain), "library_device_ms": _all_device_ms(library)}
+            row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+            rec.extra["widths"][shape[1]] = row
+            if shape[1] == 4096:
+                _time_kernel(rec, call)
+                rec.plain_ms = _time_ms(plain)
+                rec.extra["plain_device_ms"] = row["plain_device_ms"]
+                rec.extra["plain_kernels_a_call"] = sum(_events_per_call(plain).values())
+                rec.library_ms = _time_ms(library)
+                rec.extra["library_device_ms"] = row["library_device_ms"]
+                rec.extra["library_kernels_a_call"] = sum(_events_per_call(library).values())
+                rec.bound_ms, rec.bound_by = row["bound_ms"], "bytes"
+                rec.extra["bound_bytes"] = nbytes
+                rec.extra["bound_fraction"] = rec.bound_ms / rec.ms
+                rec.extra["call_device_ms"] = _all_device_ms(call)
+                rec.shape = f"rows={RMS_ROWS} W=4096 bfloat16"
+        del x, scale, got, want
+    torch.cuda.empty_cache()
+    rec.extra["design"] = ("a row's 16-byte vectors of 8 channels held in registers from the sum of squares to the "
+                           "write; up to 256 channels a run of lanes (several rows a 256-thread block, shuffles "
+                           "alone), wider rows a block each, two vectors a thread above 2048 channels (warp "
+                           "shuffles, then one word a warp in shared memory)")
+    return rec
+
+
 def check_mlstm(dev, rng) -> KernelRecord:
     import torch
 
@@ -2181,7 +2259,8 @@ def serve_lm(dev, counters) -> tuple:
     return serve_model(
         dev, counters, SERVE_ARCH, (n, 4096, 32, 8, 128, "bfloat16"),
         lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim_, c.dtype),
-        {"flash_attention": n, "decode_attention": n * SERVE_NEW}, SERVE_LOGIT_TOL,
+        {"flash_attention": n, "decode_attention": n * SERVE_NEW, "rms_norm": (2 * n + 1) * (1 + SERVE_NEW)},
+        SERVE_LOGIT_TOL,
     )
 
 
@@ -2218,7 +2297,8 @@ def serve_hybrids(dev, counters):
         lambda c: (c.n_layers, c.d_model, c.ssm.d_state, c.ssm.head_dim, c.ssm.expand, c.attn_every, c.n_heads,
                    c.n_kv_heads, c.dtype),
         {"ssd_scan": n_z, "flash_attention": n_attn, "decode_attention": n_attn * SERVE_NEW,
-         "gated_rmsnorm": n_z * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_z * (1 + SERVE_NEW)},
+         "gated_rmsnorm": n_z * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_z * (1 + SERVE_NEW),
+         "rms_norm": (n_z + 2 * n_attn + 1) * (1 + SERVE_NEW)},
         _logit_tol(n_z + n_attn),
     )
     n_x, s_every = 12, 8
@@ -2230,7 +2310,8 @@ def serve_hybrids(dev, counters):
     yield serve_model(
         dev, counters, "xlstm-125m", (n_x, 768, 4, s_every, "bfloat16"),
         lambda c: (c.n_layers, c.d_model, c.n_heads, c.slstm_every, c.dtype),
-        {"mlstm_chunk": n_m, "causal_conv_silu": n_x * (1 + SERVE_NEW)}, _logit_tol(n_m), reordered,
+        {"mlstm_chunk": n_m, "causal_conv_silu": n_x * (1 + SERVE_NEW), "rms_norm": n_x * (1 + SERVE_NEW)},
+        _logit_tol(n_m), reordered,
     )
     n_7, n_app = 81, 13
     # the plain scan over chunks of 128: the same function, its sums in another order
@@ -2243,7 +2324,8 @@ def serve_hybrids(dev, counters):
                    len(c.hybrid_layer_ids), c.n_heads, c.n_kv_heads, c.head_dim_, c.dtype),
         {"ssd_scan": n_7, "ssd_scan_grouped": n_7, "flash_attention": n_app, "flash_attention_padded": n_app,
          "decode_attention": n_app * SERVE_NEW, "decode_attention_padded": n_app * SERVE_NEW,
-         "gated_rmsnorm": n_7 * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_7 * (1 + SERVE_NEW)},
+         "gated_rmsnorm": n_7 * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_7 * (1 + SERVE_NEW),
+         "rms_norm": (n_7 + 2 * n_app + 1) * (1 + SERVE_NEW)},  # 108 a forward
         _logit_tol(n_7 + n_app), reordered,
     )
 
@@ -2324,7 +2406,8 @@ def serve_granite4h(dev, counters):
     parameters: 36 Mamba2 layers through the n = 128 ``ssd_scan``,
     ``causal_conv_silu`` and ``gated_rmsnorm``, 4 NoPE attention layers
     through ``flash_attention`` / ``decode_attention`` at the config's
-    scale, 40 dropless MoE layers through ``grouped_mm``) served from DACP
+    scale, 40 dropless MoE layers through ``grouped_mm``, 81 ``rms_norm`` a
+    forward) served from DACP
     prompts with exact launch counts and the kernel path held to the plain
     path, as ``serve_model`` does; then each prompt prefilled and decoded 16
     teacher-forced steps, its 17 positions' logits held to the float32
@@ -2355,7 +2438,7 @@ def serve_granite4h(dev, counters):
                    c.head_dim_, c.dtype),
         {"ssd_scan": n_m, "ssd_scan_n128": n_m, "flash_attention": n_a, "decode_attention": n_a * SERVE_NEW,
          "gated_rmsnorm": n_m * (1 + SERVE_NEW), "causal_conv_silu": 3 * n_m * (1 + SERVE_NEW),
-         "grouped_mm": 2 * n_l * (1 + SERVE_NEW)},
+         "grouped_mm": 2 * n_l * (1 + SERVE_NEW), "rms_norm": (2 * n_l + 1) * (1 + SERVE_NEW)},  # 81 a forward
         _logit_tol(n_m + n_a + n_l), reordered,
     )
     cfg = get_config("granite-4.0-h-small")
@@ -2490,7 +2573,8 @@ def serve_zoo(dev, counters):
         dev, counters, "moonshot-v1-16b-a3b", (n, 2048, 16, 16, 128, 64, 6, 1408, "bfloat16"),
         lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim_, c.moe.n_experts, c.moe.top_k,
                    c.moe.d_ff_expert, c.dtype),
-        {"flash_attention": n, "decode_attention": n * SERVE_NEW}, _logit_tol(n), reordered, moe_routing,
+        {"flash_attention": n, "decode_attention": n * SERVE_NEW, "rms_norm": (2 * n + 1) * (1 + SERVE_NEW)},
+        _logit_tol(n), reordered, moe_routing,
     )
     n_enc, n_dec = 12, 12
     yield serve_model(
@@ -2701,7 +2785,8 @@ def train_full_width(dev, counters, card: str) -> dict:
           f"{TRAIN_ARCH} is not at full width with bf16 and full remat: {width}")
     n_mamba, n_attn = cfg.n_layers, cfg.n_layers // cfg.attn_every
     expected = {"ssd_scan": TRAIN_MICRO * 2 * n_mamba, "flash_attention": TRAIN_MICRO * n_attn,
-                "gated_rmsnorm": TRAIN_MICRO * 2 * n_mamba, "causal_conv_silu": TRAIN_MICRO * 2 * 3 * n_mamba}
+                "gated_rmsnorm": TRAIN_MICRO * 2 * n_mamba, "causal_conv_silu": TRAIN_MICRO * 2 * 3 * n_mamba,
+                "rms_norm": TRAIN_MICRO * (2 * n_mamba + 2 * n_attn + 1)}  # a Mamba2 block's norm runs twice
     tmp = tempfile.mkdtemp(prefix="dacp_train_")
     server, net = None, TcpNetwork()
     try:
@@ -3261,7 +3346,8 @@ def _check_long_decode(dev, got: dict, card: str) -> dict:
     want = _long_decode_reference(dev, got["queries"], rows)
     sites = want["sites_per_step"]
     per_rank = {"decode_attention": sites * LONG_STEPS, "gated_rmsnorm": want["mamba_per_step"] * LONG_STEPS,
-                "causal_conv_silu": 3 * want["mamba_per_step"] * LONG_STEPS}
+                "causal_conv_silu": 3 * want["mamba_per_step"] * LONG_STEPS,
+                "rms_norm": (want["mamba_per_step"] + 2 * sites + 1) * LONG_STEPS}
     check(want["launches"] == per_rank, f"8e: the whole-cache reference made launches {want['launches']}")
     for r, rank in enumerate(got["ranks"]):
         check(rank["launches"] == per_rank, f"8e: rank {r} made launches {rank['launches']}, expected {per_rank}")
@@ -3388,6 +3474,7 @@ def main() -> None:
         check_mlstm(dev, rng),
         check_gated_norm(dev, rng),
         check_causal_conv(dev, rng),
+        check_rms_norm(dev, rng),
     ]
     for r in records:
         log(f"kernel {r.name}: exact={r.exact} agrees={r.agrees} ({r.tolerance}) over {r.checks} checks, "
@@ -3464,6 +3551,15 @@ def main() -> None:
         f"the plain version {cc.extra['plain_device_ms']:.6f} ms device in "
         f"{cc.extra['plain_kernels_a_call']} device events a call (events {cc.plain_ms:.6f}); bit for bit per case "
         f"{cc.extra['exact_cases']}")
+    rn = records[11]
+    log(f"rms_norm at {rn.shape}: {rn.ms:.6f} ms device against its bytes bound {rn.bound_ms:.6f} "
+        f"({rn.extra['bound_fraction']:.4f} of it; wrapper call {rn.extra['call_device_ms']:.6f}); the plain chain "
+        f"{rn.extra['plain_device_ms']:.6f} ms device in {rn.extra['plain_kernels_a_call']} device events a call "
+        f"(events {rn.plain_ms:.6f}); torch.nn.functional.rms_norm {rn.extra['library_device_ms']:.6f} ms device "
+        f"in {rn.extra['library_kernels_a_call']} device events a call (events {rn.library_ms:.6f}); by width at "
+        f"{RMS_ROWS} rows " + json.dumps(rn.extra["widths"])
+        + f"; worst units in the last place per case {rn.extra['worst_ulps']}, of torch.nn.functional.rms_norm "
+        f"from the plain version {rn.extra['library_ulps']}")
     fused = records[4]
     log(f"fused vs per-op on one morsel: fused {fused.ms:.6f} ms device, per-op kernels "
         f"{fused.extra['per_op_ms']:.6f} ms device ({fused.call_ms:.6f} / {fused.extra['per_op_call_ms']:.6f} ms call); "
@@ -3508,12 +3604,12 @@ def main() -> None:
     for serving, serve_launches in serve_hybrids(dev, ops.LAUNCHES):
         log("serve: " + json.dumps(serving) + f" on {kind}")
         for name in ("ssd_scan", "mlstm_chunk", "gated_rmsnorm", "causal_conv_silu", "ssd_scan_grouped",
-                     "flash_attention_padded", "decode_attention_padded"):
+                     "flash_attention_padded", "decode_attention_padded", "rms_norm"):
             launches[name] = launches.get(name, 0) + serve_launches[name]
 
     serving, serve_launches = serve_granite4h(dev, ops.LAUNCHES)
     log("serve: " + json.dumps(serving) + f" on {kind}")
-    for name in ("ssd_scan", "ssd_scan_n128", "gated_rmsnorm", "causal_conv_silu", "grouped_mm"):
+    for name in ("ssd_scan", "ssd_scan_n128", "gated_rmsnorm", "causal_conv_silu", "grouped_mm", "rms_norm"):
         launches[name] = launches.get(name, 0) + serve_launches[name]
     phase_s["serve_hybrids"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 

@@ -1,8 +1,9 @@
 """The model kernels on DTensors: each rank runs the kernel on its own shard.
 
 Attention and the two scans are independent across the batch and across
-heads, the gated RMSNorm across the batch (its group spans heads) and the
-depthwise causal conv across the batch and channels, so
+heads, the gated RMSNorm across the batch (its group spans heads), the
+depthwise causal conv across the batch and channels and the RMSNorm across
+every dim but its last, so
 on a mesh each rank can call the kernel wrapper (the CUDA kernel on a
 card, the plain version on the CPU or on meta tensors) on its local slice:
 the SPMD lowering the reference's compiler performs.  ``run`` lays
@@ -17,7 +18,9 @@ RMSNorm's map names the batch alone, so ``run`` gathers the heads that a
 mesh splits (zamba2-1.2b's one group spans all of them) and moves nothing
 when the operands are replicated.  The conv's map keeps batch and
 channels sharded and gathers nothing but a sharded sequence, which its
-callers never hand it.
+callers never hand it.  The RMSNorm's map names every dim but the last:
+each row is whole on a rank, and ``run`` gathers a last dim that a mesh
+splits before the kernel, as it gathers the gated norm's heads.
 
 A KV cache whose positions are sharded (``cache_seq_long``) runs the
 flash-decoding merge of ``collectives.seq_sharded_decode_attention`` over
@@ -173,10 +176,21 @@ def _sharded(name: str, fn, partials):
     return call
 
 
+def _rms_norm(fn):
+    def call(x, scale, eps):
+        lead = 0 if is_dtensor(x) else 1 if is_dtensor(scale) else None
+        if lead is None:
+            return fn(x, scale, eps)
+        rows = {i: i for i in range(x.dim() - 1)}  # each row stands alone: the leading dims keep their shards
+        return run(lambda lx, ls: fn(lx, ls, eps), (x, scale), (rows, {}), (rows,), lead=lead)
+
+    return call
+
+
 def on_shards(kernels: ModelKernels) -> ModelKernels:
     """``kernels`` with each model kernel run per rank on DTensor operands;
     ``decode_attention_partials`` stays as it is and makes the ranks'
     partials of a decode over a cache sharded by position."""
     partials = kernels.decode_attention_partials
     wrapped = {name: _sharded(name, getattr(kernels, name), partials) for name in _ROLES}
-    return ModelKernels(**wrapped, decode_attention_partials=partials)
+    return ModelKernels(**wrapped, decode_attention_partials=partials, rms_norm=_rms_norm(kernels.rms_norm))

@@ -13,13 +13,16 @@
                         RMSNorm after the scan, in one pass
     causal_conv       — the depthwise causal conv, its bias and SiLU at the
                         front of the Mamba2 and xLSTM blocks, in one pass
+    rms_norm          — the model's RMSNorm over the last dim, in one pass
+                        (the wrapper is ``ops.rms_norm``; the package's
+                        ``rms_norm`` is this module)
     grouped_mm        — the dropless MoE's expert products over contiguous
                         row segments (PyTorch's grouped GEMM on the card,
                         not a kernel of this package)
 
 Every TPU kernel of ``repro.kernels`` has its CUDA counterpart here;
-``gated_norm`` and ``causal_conv`` replace chains the JAX package leaves
-to jnp.
+``gated_norm``, ``causal_conv`` and ``rms_norm`` replace chains the JAX
+package leaves to jnp.
 
 Importing this package builds nothing: the kernels compile at their first
 CUDA launch (``_build``).  Each wrapper runs its plain PyTorch version for

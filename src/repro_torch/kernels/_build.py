@@ -48,8 +48,9 @@ SOURCES = (
     "mlstm_chunk.cu",
     "gated_norm.cu",
     "causal_conv.cu",
+    "rms_norm.cu",
 )
-HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "dataplane.cuh", "attention.cuh", "scan.cuh", "mma.cuh", "norm.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -98,6 +99,8 @@ _SIGNATURES = {
     "dacp_gated_rmsnorm": (_P,) * 6 + (_I, _I, _L, _I, _I, _I, _D, _P),
     # x, w, bias, state, y, dtype, batch, S, C, K, vector loads, stream
     "dacp_causal_conv_silu": (_P,) * 5 + (_I, _L, _I, _I, _I, _I, _P),
+    # x, scale, out, dtype, scale dtype, rows, row stride, width, eps, stream
+    "dacp_rms_norm": (_P,) * 3 + (_I, _I, _L, _L, _I, _D, _P),
 }
 
 _lock = threading.Lock()

@@ -31,24 +31,15 @@
 // channels), every load of the group issued before any arithmetic.  The
 // gated values stay in registers from the sum of squares to the write, so
 // nothing is read twice; the sum is a warp-shuffle tree, then one word a
-// warp in shared memory.  Group width and count come from the shapes: the
+// warp in shared memory (norm.cuh, shared with rms_norm.cu).  Group width and count come from the shapes: the
 // same kernel serves zamba2-7b (2 groups of 3584), zamba2-1.2b (1 of 4096)
 // and a decode step's few rows.
-#include <cuda_bf16.h>
-#include <math.h>
-
 #include "common.cuh"
+#include "norm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// dtype codes the wrapper passes: 0 float32, 1 bfloat16
-#define DACP_GN_F32 0
-#define DACP_GN_BF16 1
-
-constexpr int kVec = 8;  // channels a vector: 16 bytes of bfloat16
-constexpr int kMaxThreads = 1024;
+using namespace dacp_norm;
 
 struct GatedArgs {
   const float* y;
@@ -60,55 +51,6 @@ struct GatedArgs {
   int d_inner, width, groups, head_dim;
   float mean_factor, eps;
 };
-
-// 8 consecutive elements of type T at p (16-byte aligned) as float32.
-__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[kVec]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // a bfloat16 is the high half of its float32
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[kVec]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]));
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]));
-    w[i] = lo | (hi << 16);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// v held as T: float32 unchanged, bfloat16 rounded to nearest even.
-template <typename T>
-__device__ __forceinline__ float as_act(float v);
-template <>
-__device__ __forceinline__ float as_act<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float as_act<bf16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-  return v;
-}
 
 // blockIdx.x = row · groups + group; thread t holds the group's vector t
 // (channels 8t to 8t + 7), the threads past W / 8 none.
@@ -138,19 +80,7 @@ __global__ void __launch_bounds__(kMaxThreads) gated_rmsnorm_kernel(GatedArgs a)
     }
   }
 
-  __shared__ float part[kMaxThreads / 32];
-  __shared__ float rstd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  ss = warp_sum(ss);
-  if (lane == 0) part[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (int)(blockDim.x >> 5) ? part[lane] : 0.0f;
-    t = warp_sum(t);
-    if (lane == 0) rstd = rsqrtf(__fadd_rn(__fmul_rn(t, a.mean_factor), a.eps));
-  }
-  __syncthreads();
-  const float r = rstd;
+  const float r = block_rstd(ss, a.mean_factor, a.eps);
 
   if (holds) {
     float sc[kVec];
@@ -170,8 +100,8 @@ int launch(const GatedArgs& a, int64_t rows, cudaStream_t stream) {
 
 template <typename T>
 int dispatch_scale(int scale_dtype, const GatedArgs& a, int64_t rows, cudaStream_t s) {
-  if (scale_dtype == DACP_GN_F32) return launch<T, float>(a, rows, s);
-  if (scale_dtype == DACP_GN_BF16) return launch<T, bf16>(a, rows, s);
+  if (scale_dtype == kF32) return launch<T, float>(a, rows, s);
+  if (scale_dtype == kBF16) return launch<T, bf16>(a, rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -207,7 +137,7 @@ DACP_API int dacp_gated_rmsnorm(const void* y, const void* x, const void* z, con
   a.mean_factor = (float)(rows * groups) / (float)(rows * d_inner);
   a.eps = (float)eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DACP_GN_F32) return dispatch_scale<float>(scale_dtype, a, rows, s);
-  if (dtype == DACP_GN_BF16) return dispatch_scale<bf16>(scale_dtype, a, rows, s);
+  if (dtype == kF32) return dispatch_scale<float>(scale_dtype, a, rows, s);
+  if (dtype == kBF16) return dispatch_scale<bf16>(scale_dtype, a, rows, s);
   return (int)cudaErrorInvalidValue;
 }

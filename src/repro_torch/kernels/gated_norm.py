@@ -63,13 +63,14 @@ def ulps(a, b) -> int:
 def gated_rmsnorm_plain(y, x, z, D, scale, groups: int, eps: float):
     """Plain PyTorch version: the expressions of ``models.ssm``'s ``_out``
     and ``_gated_norm`` (and the skip of ``mamba_apply``) as they stood."""
-    from repro_torch.models.layers import merge_heads, norm_apply  # the models import this package first
+    from repro_torch.kernels.rms_norm import rms_norm_plain  # which imports this module's constants
+    from repro_torch.models.layers import merge_heads  # the models import this package first
 
     y = y + D[None, None, :, None] * x.float()
     y = merge_heads(y, y.shape[-2]).reshape(z.shape).to(z.dtype)
     y = y * F.silu(z)
     if groups == 1:
-        return norm_apply({"scale": scale}, y, "rmsnorm", eps)
+        return rms_norm_plain(y, scale, eps)
     yf = y.float().unflatten(-1, (groups, -1))
     yf = yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + eps)
     return (yf.flatten(-2) * scale.float()).to(y.dtype)

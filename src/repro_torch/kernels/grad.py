@@ -3,8 +3,9 @@
 The JAX package has no backward for any of its kernels (no ``custom_vjp``
 in ``repro``): it trains through jnp attention and scans.  The port's
 model calls its kernels on the training path too, so each of
-``flash_attention``, ``ssd_scan``, ``mlstm_chunk``, ``gated_rmsnorm`` and
-``causal_conv_silu`` on a CUDA tensor that needs a gradient runs through ``PlainBackward``: the forward launches the
+``flash_attention``, ``ssd_scan``, ``mlstm_chunk``, ``gated_rmsnorm``,
+``causal_conv_silu`` and ``rms_norm`` on a CUDA tensor that needs a
+gradient runs through ``PlainBackward``: the forward launches the
 hand-written kernel as always, and the backward re-runs the kernel's plain
 PyTorch version on the saved inputs and differentiates that.  So the
 gradients are the plain version's, evaluated where the kernel's outputs

@@ -10,7 +10,7 @@ scan's launches in B/C groups and at d_state 128.  Every
 TPU kernel of ``repro.kernels`` has its wrapper here.
 
 On card tensors that need a gradient, ``flash_attention``, ``ssd_scan``,
-``mlstm_chunk``, ``gated_rmsnorm`` and ``causal_conv_silu`` launch their kernel forward and take
+``mlstm_chunk``, ``gated_rmsnorm``, ``causal_conv_silu`` and ``rms_norm`` launch their kernel forward and take
 the plain version's backward (``grad.PlainBackward``); ``decode_attention``
 raises.
 
@@ -18,7 +18,7 @@ raises.
 TPU kernels return y alone), because the model's prefill hands it to the
 decode cache.
 
-The model zoo calls its seven kernels through a ``ModelKernels`` bundle:
+The model zoo calls its eight kernels through a ``ModelKernels`` bundle:
 ``KERNELS`` (the wrappers) unless a caller passes ``PLAIN`` (the plain
 versions), which holds the kernels against their plain versions on the
 card.  The bundle also carries ``decode_attention_partials``, the decode
@@ -55,6 +55,8 @@ from repro_torch.kernels.grouped_mm import launches as _grouped_launches
 from repro_torch.kernels.mlstm_chunk import launches as _mlstm_launches
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.project_arith import project_tiles
+from repro_torch.kernels.rms_norm import launches as _rms_launches
+from repro_torch.kernels.rms_norm import rms_norm, rms_norm_plain
 from repro_torch.kernels.segment_reduce import SUM_ROW_CAP, segment_minmax_tiles, segment_sum_tiles
 from repro_torch.kernels.ssd_scan import grouped_launches as _ssd_grouped
 from repro_torch.kernels.ssd_scan import launches as _ssd_launches
@@ -69,6 +71,7 @@ __all__ = [
     "gated_rmsnorm",
     "causal_conv_silu",
     "grouped_mm",
+    "rms_norm",
     "filter_select_planes",
     "project_tiles",
     "segment_sum_tiles",
@@ -94,6 +97,7 @@ LAUNCHES = {
     "gated_rmsnorm": _gated_launches,
     "causal_conv_silu": _conv_launches,
     "grouped_mm": _grouped_launches,  # the dropless MoE's expert products: two a MoE layer
+    "rms_norm": _rms_launches,  # the model's RMSNorm: before each block, the final norm, the q/k norms
     # of the launches above: attention at a padded head dim (zamba2-7b's 224), the SSD scan in B/C groups
     # and at d_state 128 (granite-4.0-h-small's)
     "flash_attention_padded": _flash_padded,
@@ -116,6 +120,7 @@ class ModelKernels:
     gated_rmsnorm: Callable
     causal_conv_silu: Callable
     grouped_mm: Callable
+    rms_norm: Callable
 
 
 KERNELS = ModelKernels(
@@ -127,6 +132,7 @@ KERNELS = ModelKernels(
     gated_rmsnorm,
     causal_conv_silu,
     grouped_mm,
+    rms_norm,
 )
 PLAIN = ModelKernels(
     flash_attention_plain,
@@ -137,4 +143,5 @@ PLAIN = ModelKernels(
     gated_rmsnorm_plain,
     causal_conv_silu_plain,
     grouped_mm_plain,
+    rms_norm_plain,
 )

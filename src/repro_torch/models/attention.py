@@ -71,7 +71,7 @@ def attn_spec(cfg, dtype) -> dict:
     return spec
 
 
-def _project_qkv(params, x, cfg, positions):
+def _project_qkv(params, x, cfg, positions, kernels):
     """q (B, S, KV, G, hd), k and v (B, S, KV, hd), all contiguous."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -84,8 +84,8 @@ def _project_qkv(params, x, cfg, positions):
         k = k + params["wk"]["b"].to(x.dtype)
         v = v + params["wv"]["b"].to(x.dtype)
     if cfg.qk_norm:
-        q = norm_apply(params["q_norm"], q, "rmsnorm")
-        k = norm_apply(params["k_norm"], k, "rmsnorm")
+        q = norm_apply(params["q_norm"], q, "rmsnorm", kernels=kernels)
+        k = norm_apply(params["k_norm"], k, "rmsnorm", kernels=kernels)
     if cfg.pos_emb == "rope":
         inv, rot = rope_freqs(hd, cfg.partial_rotary, cfg.rope_theta, device=x.device)
         q = apply_rope(q, positions, inv, rot)
@@ -116,7 +116,7 @@ def attn_apply(params, x, cfg, positions=None, causal=True, layer_cache=None, ke
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, kernels)
     if layer_cache is not None:
         layer_k, layer_v = layer_cache
         layer_k[:, :, :s].copy_(k.transpose(1, 2))
@@ -150,7 +150,7 @@ def attn_decode(params, x, cfg, layer_k, layer_v, index: int, kernels=KERNELS):
     Returns (y, layer_k, layer_v)."""
     b = x.shape[0]
     positions = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions, kernels)
     if per_shard.is_dtensor(layer_k):  # on a mesh: the rank holding the position writes it
         per_shard.write_at(layer_k, k_new[:, 0].to(layer_k.dtype), index, 2)
         per_shard.write_at(layer_v, v_new[:, 0].to(layer_v.dtype), index, 2)

@@ -124,11 +124,12 @@ def encode(params, frames, cfg, kernels=ops.KERNELS):
     """frames (B, enc_seq, d) stub embeddings -> encoder memory."""
     x = constrain(frames + params["enc_pos"][None, : frames.shape[1]].to(frames.dtype), ACT_AXES)
     for lp in params["encoder"]:
-        x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, causal=False, kernels=kernels)
+        h = norm_apply(lp["ln1"], x, cfg.norm, kernels=kernels)
+        x = x + attn.attn_apply(lp["attn"], h, cfg, causal=False, kernels=kernels)
         x = constrain(x, ACT_AXES)
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm, kernels=kernels), cfg.act, cfg.glu)
         x = constrain(x, ACT_AXES)
-    return norm_apply(params["enc_final_norm"], x, cfg.norm)
+    return norm_apply(params["enc_final_norm"], x, cfg.norm, kernels=kernels)
 
 
 def _memory_kv(params, memory, cfg) -> tuple:
@@ -176,17 +177,17 @@ def _decoder_stack(params, x, cfg, kernels, memory=None, cache=None):
     x = constrain(x, ACT_AXES)
     for li, lp in enumerate(params["decoder"]):
         layer_cache = None if cache is None else (cache["k"][li], cache["v"][li])
-        x = x + attn.attn_apply(
-            lp["self_attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels
-        )
+        h = norm_apply(lp["ln1"], x, cfg.norm, kernels=kernels)
+        x = x + attn.attn_apply(lp["self_attn"], h, cfg, layer_cache=layer_cache, kernels=kernels)
         x = constrain(x, ACT_AXES)
         if cache is None:
             mem_k, mem_v = _memory_kv(lp["cross_attn"], memory, cfg)
         else:
             mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
-        x = x + _cross_attn(lp["cross_attn"], norm_apply(lp["ln_x"], x, cfg.norm), mem_k, mem_v, cfg, kernels)
+        h = norm_apply(lp["ln_x"], x, cfg.norm, kernels=kernels)
+        x = x + _cross_attn(lp["cross_attn"], h, mem_k, mem_v, cfg, kernels)
         x = constrain(x, ACT_AXES)
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm, kernels=kernels), cfg.act, cfg.glu)
         x = constrain(x, ACT_AXES)
     return x
 
@@ -196,8 +197,8 @@ def _embed(params, tokens, start: int, dtype):
     return embed_tokens(params["embed"], tokens, dtype) + params["dec_pos"][None, start : start + s].to(dtype)
 
 
-def _head(params, x, cfg):
-    return logits_apply(params["embed"], norm_apply(params["final_norm"], x, cfg.norm), cfg.vocab_size)
+def _head(params, x, cfg, kernels):
+    return logits_apply(params["embed"], norm_apply(params["final_norm"], x, cfg.norm, kernels=kernels), cfg.vocab_size)
 
 
 def forward(params, batch, cfg, kernels=ops.KERNELS):
@@ -205,7 +206,7 @@ def forward(params, batch, cfg, kernels=ops.KERNELS):
     dt = Dtypes.from_cfg(cfg)
     memory = encode(params, batch["frames"].to(dt.act), cfg, kernels)
     x = _decoder_stack(params, _embed(params, batch["tokens"], 0, dt.act), cfg, kernels, memory=memory)
-    return constrain(_head(params, x, cfg), LOGIT_AXES), 0.0
+    return constrain(_head(params, x, cfg, kernels), LOGIT_AXES), 0.0
 
 
 def loss_fn(params, batch, cfg, kernels=ops.KERNELS):
@@ -251,7 +252,7 @@ def prefill(params, batch, cfg, max_seq: int, kernels=ops.KERNELS):
         cache["cross_v"][li].copy_(mem_v)
     x = _decoder_stack(params, _embed(params, tokens, 0, dt.act), cfg, kernels, cache=cache)
     cache["index"] = s
-    return _head(params, x[:, -1:], cfg), cache
+    return _head(params, x[:, -1:], cfg, kernels), cache
 
 
 def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
@@ -262,14 +263,13 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
     x = constrain(_embed(params, token, idx, dt.act), ACT_AXES)  # as lm.decode_step's
     b = x.shape[0]
     for li, lp in enumerate(params["decoder"]):
-        h, _, _ = attn.attn_decode(
-            lp["self_attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
-        )
+        h = norm_apply(lp["ln1"], x, cfg.norm, kernels=kernels)
+        h, _, _ = attn.attn_decode(lp["self_attn"], h, cfg, cache["k"][li], cache["v"][li], idx, kernels)
         x = x + h
         xp = lp["cross_attn"]
-        q = _cross_q(xp, norm_apply(lp["ln_x"], x, cfg.norm), cfg)
+        q = _cross_q(xp, norm_apply(lp["ln_x"], x, cfg.norm, kernels=kernels), cfg)
         mem_k, mem_v = cache["cross_k"][li], cache["cross_v"][li]
         out = kernels.decode_attention(q[:, 0], mem_k, mem_v, mem_k.shape[2])  # (B, KV, G, hd)
         x = x + attn._out_proj(xp, out.reshape(b, 1, cfg.n_heads, cfg.head_dim_), x, cfg.n_kv_heads)
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), cfg.act, cfg.glu)
-    return _head(params, x, cfg), dict(cache, index=idx + 1)
+        x = x + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm, kernels=kernels), cfg.act, cfg.glu)
+    return _head(params, x, cfg, kernels), dict(cache, index=idx + 1)

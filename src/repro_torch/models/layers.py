@@ -17,9 +17,10 @@ an explicit ``torch.Generator`` with the reference's standard deviations
 The reference's ``causal_conv_silu`` (the depthwise causal conv and SiLU at
 the front of the Mamba2 and xLSTM blocks) is a kernel in the port:
 ``kernels.causal_conv``, whose ``causal_conv_silu_plain`` keeps the
-expressions that stood here.  The blocks call it through their kernel
-bundle: the CUDA kernel on card tensors, the plain version on CPU and meta
-tensors and wherever a caller passes ``kernels.ops.PLAIN``.
+expressions that stood here; so is ``norm_apply``'s RMSNorm
+(``kernels.rms_norm``, ``rms_norm_plain``).  The blocks call them through
+their kernel bundle: the CUDA kernel on card tensors, the plain version on
+CPU and meta tensors and wherever a caller passes ``kernels.ops.PLAIN``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import axis_divides, constrain, current_mesh, layout_grad, sharding_for
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
 __all__ = [
@@ -244,12 +246,12 @@ def norm_spec(d: int, kind: str, dtype, axis="embed") -> dict:
     return spec
 
 
-def norm_apply(params, x, kind: str, eps: float = 1e-6):
-    xf = x.float()
+def norm_apply(params, x, kind: str, eps: float = 1e-6, kernels=ops.KERNELS):
+    """RMSNorm through ``kernels.rms_norm`` (the model's kernel bundle), or
+    layer norm in plain PyTorch."""
     if kind == "rmsnorm":
-        var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps)
-        return (y * params["scale"].float()).to(x.dtype)
+        return kernels.rms_norm(x, params["scale"], eps)
+    xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)

@@ -271,23 +271,26 @@ def _ffn(lp, x, cfg, kernels) -> tuple:
 
 def _block(lp, x, cfg, kernels, layer_cache=None, lp_axes=None) -> tuple:
     lp = _maybe_gather(cfg, lp, lp_axes)
-    x = x + attn.attn_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
+    h = norm_apply(lp["ln1"], x, cfg.norm, kernels=kernels)
+    x = x + attn.attn_apply(lp["attn"], h, cfg, layer_cache=layer_cache, kernels=kernels)
     x = constrain(x, ACT_AXES)
-    y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg, kernels)
+    y, aux = _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm, kernels=kernels), cfg, kernels)
     return constrain(x + y, ACT_AXES), aux
 
 
 def _mamba_block(lp, x, cfg, kernels, return_state: bool = False):
     """One zamba2 layer's Mamba2 block on x: its residual branch."""
-    return ssm_mod.mamba_apply(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, return_state, kernels)
+    h = norm_apply(lp["ln"], x, cfg.norm, kernels=kernels)
+    return ssm_mod.mamba_apply(lp["mamba"], h, cfg, return_state, kernels)
 
 
 def _shared_block(sp, x, cfg, kernels, layer_cache=None):
     """zamba2's shared attention + MLP block, after every ``attn_every``-th
     Mamba block; its weights are shared by every application."""
-    x = x + attn.attn_apply(sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, layer_cache=layer_cache, kernels=kernels)
-    x = constrain(x, ACT_AXES)
-    return constrain(x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu), ACT_AXES)
+    h = norm_apply(sp["ln_a"], x, cfg.norm, kernels=kernels)
+    x = constrain(x + attn.attn_apply(sp["attn"], h, cfg, layer_cache=layer_cache, kernels=kernels), ACT_AXES)
+    h = norm_apply(sp["ln_m"], x, cfg.norm, kernels=kernels)
+    return constrain(x + mlp_apply(sp["mlp"], h, cfg.act, cfg.glu), ACT_AXES)
 
 
 def _mem_block(params, j: int, x, emb, cfg, kernels, layer_cache=None, index=None):
@@ -296,12 +299,12 @@ def _mem_block(params, j: int, x, emb, cfg, kernels, layer_cache=None, index=Non
     input.  ``index`` set: one decode step at that position, its k and v
     written into ``layer_cache`` (k, v)."""
     bp, ap = params["mem_blocks"][j % cfg.n_mem_blocks], params["hybrid"][j]
-    h = norm_apply(bp["ln_a"], torch.cat([x, emb], dim=-1), cfg.norm, cfg.norm_eps)
+    h = norm_apply(bp["ln_a"], torch.cat([x, emb], dim=-1), cfg.norm, cfg.norm_eps, kernels=kernels)
     if index is None:
         h = attn.attn_apply(bp["attn"], h, cfg, layer_cache=layer_cache, kernels=kernels)
     else:
         h = attn.attn_decode(bp["attn"], h, cfg, *layer_cache, index, kernels)[0]
-    h = norm_apply(bp["ln_m"], h, cfg.norm, cfg.norm_eps)
+    h = norm_apply(bp["ln_m"], h, cfg.norm, cfg.norm_eps, kernels=kernels)
     mlp = bp["mlp"]
     gate_up = h @ mlp["gate_up"]["w"].to(h.dtype) + (h @ ap["lora_a"]["w"].to(h.dtype)) @ ap["lora_b"]["w"].to(h.dtype)
     gate, up = gate_up.chunk(2, dim=-1)
@@ -320,7 +323,7 @@ def _published_body(params, x, cfg, kernels, cache=None):
             j = apps[li]
             layer_cache = None if cache is None else (cache["kv"]["k"][j], cache["kv"]["v"][j])
             inp = x + _mem_block(params, j, x, emb, cfg, kernels, layer_cache)
-        h = norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps)
+        h = norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps, kernels=kernels)
         if cache is None:
             mamba = functools.partial(ssm_mod.mamba_apply, lp["mamba"], cfg=cfg, kernels=kernels)
             y = _remat_wrap(cfg, mamba)(h)
@@ -344,7 +347,8 @@ def _published_decode(params, x, cache, cfg, kernels):
             j = apps[li]
             inp = x + _mem_block(params, j, x, emb, cfg, kernels, (kv["k"][j], kv["v"][j]), idx)
         layer = {name: t[li] for name, t in cache["ssm"].items()}
-        y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps), cfg, layer, kernels)
+        h = norm_apply(lp["ln"], inp, cfg.norm, cfg.norm_eps, kernels=kernels)
+        y, st = ssm_mod.mamba_decode(lp["mamba"], h, cfg, layer, kernels)
         for name, t in st.items():
             layer[name].copy_(t)
         x = x + y
@@ -356,7 +360,7 @@ def _hybrid_moe_layer(lp, x, cfg, kernels, state=None, index=None):
     ``state``: the layer's decode state (a Mamba2 layer's {ssm, conv_x,
     conv_B, conv_C}, an attention layer's (k, v)), which prefill writes and
     a decode step at position ``index`` reads and writes."""
-    h = norm_apply(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+    h = norm_apply(lp["ln1"], x, cfg.norm, cfg.norm_eps, kernels=kernels)
     if "mamba" in lp:
         if state is None:
             y = ssm_mod.mamba_apply(lp["mamba"], h, cfg, kernels=kernels)
@@ -372,7 +376,8 @@ def _hybrid_moe_layer(lp, x, cfg, kernels, state=None, index=None):
     else:
         y = attn.attn_decode(lp["attn"], h, cfg, *state, index, kernels)[0]
     x = constrain(x + y * cfg.residual_multiplier, ACT_AXES)
-    y, aux = moe_mod.moe_apply(lp["moe"], norm_apply(lp["ln2"], x, cfg.norm, cfg.norm_eps), cfg, cfg.act, kernels)
+    h = norm_apply(lp["ln2"], x, cfg.norm, cfg.norm_eps, kernels=kernels)
+    y, aux = moe_mod.moe_apply(lp["moe"], h, cfg, cfg.act, kernels)
     return constrain(x + y * cfg.residual_multiplier, ACT_AXES), aux
 
 
@@ -417,8 +422,8 @@ def _remat_wrap(cfg, fn):
     return functools.partial(checkpoint, fn, **kwargs)
 
 
-def _head(params, x, cfg):
-    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+def _head(params, x, cfg, kernels):
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps, kernels=kernels)
     emb = params["embed_out"] if not cfg.tie_embeddings else params["embed"]
     logits = logits_apply(emb, x, cfg.vocab_size)
     if cfg.logits_scaling != 1.0:
@@ -461,7 +466,7 @@ def _body(params, x, cfg, kernels, cache=None) -> tuple:
                 ai += 1
     else:
         for li, lp in enumerate(params["layers"]):
-            h = norm_apply(lp["ln"], x, cfg.norm)
+            h = norm_apply(lp["ln"], x, cfg.norm, kernels=kernels)
             if xl.is_slstm(cfg, li):
                 y = xl.slstm_apply(lp["slstm"], h, cfg, return_state=cache is not None, kernels=kernels)
             else:
@@ -476,7 +481,7 @@ def forward(params, tokens, cfg, kernels=ops.KERNELS):
     """tokens: (B, S) -> (logits (B, S, V), aux_losses)."""
     check_supported(cfg)
     x, aux = _body(params, embed_tokens(params["embed"], tokens, Dtypes.from_cfg(cfg).act), cfg, kernels)
-    return _head(params, x, cfg), aux
+    return _head(params, x, cfg, kernels), aux
 
 
 def cross_entropy(logits, labels, impl: str = "logp"):
@@ -544,7 +549,7 @@ def prefill(params, tokens, cfg, max_seq: int, kernels=ops.KERNELS):
         cache["kv"]["index"] = s
     else:
         cache["index"] = s
-    return _head(params, x[:, -1:], cfg), cache
+    return _head(params, x[:, -1:], cfg, kernels), cache
 
 
 def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
@@ -557,11 +562,10 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
     if cfg.block_pattern == "attn":
         idx = int(cache["index"])
         for li, lp in enumerate(params["layers"]):
-            h, _, _ = attn.attn_decode(
-                lp["attn"], norm_apply(lp["ln1"], x, cfg.norm), cfg, cache["k"][li], cache["v"][li], idx, kernels
-            )
+            h = norm_apply(lp["ln1"], x, cfg.norm, kernels=kernels)
+            h, _, _ = attn.attn_decode(lp["attn"], h, cfg, cache["k"][li], cache["v"][li], idx, kernels)
             x = x + h
-            x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm), cfg, kernels)[0]
+            x = x + _ffn(lp, norm_apply(lp["ln2"], x, cfg.norm, kernels=kernels), cfg, kernels)[0]
         cache = {"k": cache["k"], "v": cache["v"], "index": idx + 1}
     elif cfg.block_pattern == "hybrid_moe":
         idx = int(cache["index"])
@@ -576,22 +580,22 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
         ai = 0
         for li, lp in enumerate(params["layers"]):
             layer = {name: t[li] for name, t in cache["ssm"].items()}
-            y, st = ssm_mod.mamba_decode(lp["mamba"], norm_apply(lp["ln"], x, cfg.norm), cfg, layer, kernels)
+            h = norm_apply(lp["ln"], x, cfg.norm, kernels=kernels)
+            y, st = ssm_mod.mamba_decode(lp["mamba"], h, cfg, layer, kernels)
             for name, t in st.items():
                 layer[name].copy_(t)
             x = x + y
             if (li + 1) % cfg.attn_every == 0:
-                h, _, _ = attn.attn_decode(
-                    sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm), cfg, kv["k"][ai], kv["v"][ai], idx, kernels
-                )
+                h = norm_apply(sp["ln_a"], x, cfg.norm, kernels=kernels)
+                h, _, _ = attn.attn_decode(sp["attn"], h, cfg, kv["k"][ai], kv["v"][ai], idx, kernels)
                 x = x + h
-                x = x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm), cfg.act, cfg.glu)
+                x = x + mlp_apply(sp["mlp"], norm_apply(sp["ln_m"], x, cfg.norm, kernels=kernels), cfg.act, cfg.glu)
                 ai += 1
         cache = {"ssm": cache["ssm"], "kv": {"k": kv["k"], "v": kv["v"], "index": idx + 1}}
     else:
         states = []
         for li, lp in enumerate(params["layers"]):
-            h = norm_apply(lp["ln"], x, cfg.norm)
+            h = norm_apply(lp["ln"], x, cfg.norm, kernels=kernels)
             if xl.is_slstm(cfg, li):
                 y, st = xl.slstm_decode(lp["slstm"], h, cfg, cache["xlstm"][li], kernels)
             else:
@@ -599,4 +603,4 @@ def decode_step(params, token, cache, cfg, kernels=ops.KERNELS):
             states.append(st)
             x = x + y
         cache = {"xlstm": states, "index": int(cache["index"]) + 1}
-    return _head(params, x, cfg), cache
+    return _head(params, x, cfg, kernels), cache

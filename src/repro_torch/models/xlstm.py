@@ -94,9 +94,9 @@ def _mlstm_in(params, x, nh, kernels, conv_state=None):
     return q, k, v, gates[..., :nh].contiguous(), _log_sigmoid(gates[..., nh:]).contiguous(), g, conv_state
 
 
-def _mlstm_out(params, h, g, x_dtype):
+def _mlstm_out(params, h, g, x_dtype, kernels):
     y = merge_heads(h, h.shape[2]).to(x_dtype)
-    y = norm_apply(params["norm"], y, "rmsnorm")
+    y = norm_apply(params["norm"], y, "rmsnorm", kernels=kernels)
     y = y * F.silu(g)
     return y @ params["down"]["w"].to(x_dtype)
 
@@ -106,7 +106,7 @@ def mlstm_apply(params, x, cfg, return_state: bool = False, kernels=ops.KERNELS)
     (B, S, D); with ``return_state`` also the decode state {C, n, m, conv}."""
     q, k, v, log_i, log_f, g, conv_state = _mlstm_in(params, x, cfg.n_heads, kernels)
     h, C, n, m = kernels.mlstm_chunk(q, k, v, log_i, log_f, MLSTM_CHUNK)
-    out = _mlstm_out(params, h, g, x.dtype)
+    out = _mlstm_out(params, h, g, x.dtype, kernels)
     if return_state:
         return out, {"C": C, "n": n, "m": m, "conv": conv_state}
     return out
@@ -128,7 +128,7 @@ def mlstm_decode(params, x, cfg, state, kernels=ops.KERNELS):
     num = torch.einsum("bhk,bhkv->bhv", q, C) * scale
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs() * scale, torch.exp(-m_new))
     h = (num / den[..., None])[:, None]  # (B, 1, nh, hd)
-    return _mlstm_out(params, h, g, x.dtype), {"C": C, "n": n, "m": m_new, "conv": conv_state}
+    return _mlstm_out(params, h, g, x.dtype, kernels), {"C": C, "n": n, "m": m_new, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +219,7 @@ def slstm_apply(params, x, cfg, return_state: bool = False, state=None, kernels=
     f_in = cx @ params["wf"]["w"].to(x.dtype)
     scan = _slstm_scan_per_shard if per_shard.is_dtensor(z_in) else _slstm_cell_scan
     h, cell = scan(z_in, i_in, f_in, o_in, params, nh, hd, None if state is None else state["cell"])
-    h = norm_apply(params["norm"], h.to(x.dtype), "rmsnorm")
+    h = norm_apply(params["norm"], h.to(x.dtype), "rmsnorm", kernels=kernels)
     up = h @ params["ffn_up"]["w"].to(x.dtype)
     gate = h @ params["ffn_gate"]["w"].to(x.dtype)
     y = (F.silu(gate) * up) @ params["ffn_down"]["w"].to(x.dtype)

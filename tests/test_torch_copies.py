@@ -39,7 +39,7 @@ REFERENCE_ONLY = {"kernels/ref.py", "client/jax_adapter.py"}
 PORT_ADDITIONS = {"client/torch_adapter.py", "device.py", "tree.py", "kernels/_build.py", "kernels/grad.py",
                   "models/convert.py", "distributed/per_shard.py", "trace.py", "configs/zamba2_7b.py",
                   "models/score.py", "kernels/gated_norm.py", "kernels/causal_conv.py",
-                  "configs/granite_4_0_h_small.py", "kernels/grouped_mm.py"}
+                  "configs/granite_4_0_h_small.py", "kernels/grouped_mm.py", "kernels/rms_norm.py"}
 
 
 def _rewrite(text: str) -> str:

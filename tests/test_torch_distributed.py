@@ -605,6 +605,18 @@ ON_SHARDS_SCRIPT = textwrap.dedent(
         out = sharded.gated_rmsnorm(*(whole(t) for t in (y, xh, z, D, scale)), 2, 1e-5)  # replicated: nothing moves
         assert tuple(out.placements) == (Replicate(), Replicate()), out.placements
         same(out, ops.gated_rmsnorm(y, xh, z, D, scale, 2, 1e-5), "gated_rmsnorm, replicated")
+        # the RMSNorm: rows whole on a rank run per rank; a last dim the mesh splits is gathered
+        x, scale = r(4, 6, 32), r(32)
+        out = sharded.rms_norm(shard_tensor(x, mesh, (Shard(0), Shard(1))), whole(scale), 1e-5)
+        assert tuple(out.placements) == (Shard(0), Shard(1)), out.placements
+        same(out, ops.rms_norm(x, scale, 1e-5), "rms_norm, batch and positions sharded")
+        out = sharded.rms_norm(lay(x), shard_tensor(scale, mesh, (Replicate(), Shard(0))), 1e-5)
+        assert tuple(out.placements) == (Shard(0), Replicate()), out.placements
+        same(out, ops.rms_norm(x, scale, 1e-5), "rms_norm, the last dim sharded")
+        out = sharded.rms_norm(whole(x), whole(scale), 1e-5)  # replicated: nothing moves
+        assert tuple(out.placements) == (Replicate(), Replicate()), out.placements
+        same(out, ops.rms_norm(x, scale, 1e-5), "rms_norm, replicated")
+        assert torch.equal(sharded.rms_norm(x, scale, 1e-5), ops.rms_norm(x, scale, 1e-5))
         # the depthwise conv: batch over data, channels over model, with and without a state and a bias
         x, w, st, bias = r(4, 6, 32), r(4, 32), r(4, 3, 32), r(32)
         out = sharded.causal_conv_silu(lay(x), shard_tensor(w, mesh, (Replicate(), Shard(1))), None, whole(bias))
@@ -638,7 +650,8 @@ def test_on_shards_runs_each_model_kernel_per_rank_over_four_cpu_ranks(tmp_path)
     runs flash and decode attention, the SSD scan and the mLSTM per rank on
     DTensor shards over a (2, 2) gloo mesh, and a cache sharded over its
     positions through the flash-decoding merge, the gated RMSNorm with
-    the heads a mesh splits gathered, and the depthwise causal conv with
+    the heads a mesh splits gathered, the RMSNorm per rank on rows with
+    a last dim the mesh splits gathered, and the depthwise causal conv with
     batch and channels sharded (a state or bias left out passes through as
     None; a plain stream over a DTensor state takes the state's layout):
     each equals the wrapper on the whole tensors.  The launch checks refuse

@@ -926,6 +926,7 @@ def test_lm_kernel_path_matches_plain_path_on_the_card(dev):
         want, cache_p = plain.decode_step(params, tok, cache_p)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert ops.LAUNCHES["decode_attention"].value == 3 * cfg.n_layers
+    assert ops.LAUNCHES["rms_norm"].value == 4 * (2 * cfg.n_layers + 1)  # ln1, ln2 a layer, the final norm
     torch.testing.assert_close(cache_k["k"], cache_p["k"], rtol=1e-5, atol=1e-5)
 
 
@@ -1097,11 +1098,13 @@ def test_hybrid_kernel_path_matches_plain_path_on_the_card(dev, arch):
         n_attn = cfg.n_layers // cfg.attn_every
         assert counts == {"ssd_scan": cfg.n_layers, "flash_attention": n_attn, "decode_attention": 3 * n_attn,
                           "gated_rmsnorm": 4 * cfg.n_layers,  # prefill and three decode steps
-                          "causal_conv_silu": 3 * 4 * cfg.n_layers}  # x, B and C a layer a forward
+                          "causal_conv_silu": 3 * 4 * cfg.n_layers,  # x, B and C a layer a forward
+                          "rms_norm": 4 * (cfg.n_layers + 2 * n_attn + 1)}  # a layer's, ln_a and ln_m, the final
         torch.testing.assert_close(cache_k["ssm"]["ssm"], cache_p["ssm"]["ssm"], rtol=1e-4, atol=1e-4)
     else:
         n_m = sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers))
-        assert counts == {"mlstm_chunk": n_m, "causal_conv_silu": 4 * cfg.n_layers}  # one a block a forward
+        assert counts == {"mlstm_chunk": n_m, "causal_conv_silu": 4 * cfg.n_layers,  # one a block a forward
+                          "rms_norm": 4 * cfg.n_layers}  # each block's inner norm a forward
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "whisper-small"])
@@ -1137,8 +1140,9 @@ def test_moe_and_encdec_kernel_path_matches_plain_path_on_the_card(dev, arch):
     if cfg.is_encdec:
         assert counts == {"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers, "decode_attention": 6 * cfg.n_layers}
         torch.testing.assert_close(cache_k["cross_k"], cache_p["cross_k"], rtol=1e-5, atol=1e-5)
-    else:
-        assert counts == {"flash_attention": cfg.n_layers, "decode_attention": 3 * cfg.n_layers}
+    else:  # ln1 and ln2 a layer and the final norm a forward
+        assert counts == {"flash_attention": cfg.n_layers, "decode_attention": 3 * cfg.n_layers,
+                          "rms_norm": 4 * (2 * cfg.n_layers + 1)}
     torch.testing.assert_close(cache_k["k"], cache_p["k"], rtol=1e-5, atol=1e-5)
 
 
@@ -1162,6 +1166,11 @@ def _kernel_case(kernel, dtype, dev, rng):
     if kernel == "causal_conv_silu":  # zamba2-7b's B/C width with a bias and a state: y and the next state
         x, w, st, bias = (_randn(rng, sh, dtype, dev) for sh in ((2, 100, 128), (4, 128), (2, 3, 128), (128,)))
         return ops.causal_conv_silu, ops.causal_conv_silu_plain, (x, w, st, bias), 2.0**-8 if dtype == torch.bfloat16 else 2.0**-20
+    if kernel == "rms_norm":  # reduced zamba2-7b's ln_a width; the backward is the plain version's
+        x, scale = _randn(rng, (2, 100, 256), dtype, dev), _randn(rng, (256,), dtype, dev)
+        fn = functools.partial(ops.rms_norm, eps=1e-5)
+        plain = functools.partial(ops.rms_norm_plain, eps=1e-5)
+        return fn, plain, (x, scale), 2.0**-8 if dtype == torch.bfloat16 else 2.0**-20
     if kernel == "gated_rmsnorm":  # reduced zamba2-7b's two groups; the backward is the plain version's
         y = _randn(rng, (2, 100, 8, 32), torch.float32, dev)
         x, z = _randn(rng, (2, 100, 8, 32), dtype, dev), _randn(rng, (2, 100, 256), dtype, dev)
@@ -1181,7 +1190,9 @@ def _kernel_case(kernel, dtype, dev, rng):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "mlstm_chunk", "gated_rmsnorm", "causal_conv_silu"])
+@pytest.mark.parametrize(
+    "kernel", ["flash_attention", "ssd_scan", "mlstm_chunk", "gated_rmsnorm", "causal_conv_silu", "rms_norm"]
+)
 def test_model_kernel_gradients_match_plain_version_on_the_card(dev, kernel, dtype):
     """On card tensors that need a gradient each kernel launches once and
     returns outputs with a grad_fn; the input gradients (every output used,
@@ -1240,11 +1251,11 @@ def test_train_step_kernel_path_matches_plain_path_on_the_card(dev, arch):
 
     cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
     tol = 1e-4 if arch.startswith("granite") else 5e-4
-    if arch.startswith("granite"):
-        per_micro = {"flash_attention": 2 * cfg.n_layers}
-    else:  # every xlstm block's conv, the mLSTM blocks' chunk scans
+    if arch.startswith("granite"):  # remat runs each block's two norms again; the final norm once
+        per_micro = {"flash_attention": 2 * cfg.n_layers, "rms_norm": 4 * cfg.n_layers + 1}
+    else:  # every xlstm block's conv and inner norm, the mLSTM blocks' chunk scans
         per_micro = {"mlstm_chunk": sum((li + 1) % cfg.slstm_every != 0 for li in range(cfg.n_layers)),
-                     "causal_conv_silu": cfg.n_layers}
+                     "causal_conv_silu": cfg.n_layers, "rms_norm": cfg.n_layers}
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, 259, (4, 65)).astype(np.int64)).to(dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1522,6 +1533,45 @@ def test_gated_rmsnorm_kernel_matches_plain_version(dev, b, s, h, p, groups, sca
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize(
+    "shape,scale_dtype,view",
+    [
+        ((12288, 3584), None, None),  # zamba2-7b's stream at the scoring cell's longest forward
+        ((12288, 4096), None, None),  # granite-4.0-h-small's
+        ((12288, 7168), None, None),  # zamba2-7b's ln_a over cat(x, emb)
+        ((4, 1, 4096), None, None),  # a decode step
+        ((2, 333, 8, 128), None, None),  # q/k norms over the head dim: several rows a block
+        ((4, 1, 4096), torch.float32, None),  # float32 parameters under bfloat16 activations
+        ((3, 64, 3584), None, "last"),  # prefill's final norm on the last position's strided rows
+        ((1000, 8), None, None),  # the narrowest row
+        ((999, 520), None, None),  # a block a row with threads past the row's vectors
+        ((777, 2048), None, None),  # the widest row at one vector a thread
+        ((999, 2056), None, None),  # two vectors a thread, the last thread's second past the row
+        ((300, 8192), None, None),  # the widest row
+    ],
+)
+def test_rms_norm_kernel_matches_plain_version(dev, shape, scale_dtype, view, dtype):
+    """One launch at each launch shape; every element within
+    ``gated_norm.ULPS`` units in the last place of the plain version on the
+    card."""
+    import sys
+
+    rn, gn = sys.modules["repro_torch.kernels.rms_norm"], sys.modules["repro_torch.kernels.gated_norm"]
+    rng = np.random.default_rng(sum(shape))
+    x = 3 * _randn(rng, shape, torch.float32, dev)
+    x = x.to(dtype)[:, -1:] if view == "last" else x.to(dtype)
+    scale = (0.1 * _randn(rng, shape[-1:], torch.float32, dev) + 1).to(scale_dtype or dtype)
+    before = rn.launches.value
+    got = rn.rms_norm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.launches.value == before + 1
+    want = rn.rms_norm_plain(x, scale, 1e-5)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == x.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert gn.ulps(got, want) <= rn.ULPS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
     "b,s,c,k,bias,state",
     [
         (3, 4096, 7168, 4, True, False),  # zamba2-7b's x at the scoring cell's longest forward
@@ -1583,7 +1633,8 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     """7,356,749,648 parameters in bfloat16 from the seed; prefill of one
     document of 1000 tokens, then 16 decode steps through the cache, with
     the CUDA kernels (13 hd-224 flash launches at prefill, 81 grouped scans,
-    13 decode launches a step, 81 gated RMSNorms and 243 convs a forward).  The 17 positions' logits against the plain
+    13 decode launches a step, 81 gated RMSNorms, 243 convs and 108
+    RMSNorms a forward).  The 17 positions' logits against the plain
     float32 reference's forward over the 1016 tokens, run layer by layer on
     the program's weights.  Random weights amplify bfloat16's rounding over
     81 layers: an H100 measured 0.30 largest and 0.085 mean absolute
@@ -1608,7 +1659,7 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, 1016)).to(dev)
     counts = {name: ops.LAUNCHES[name].value for name in ("flash_attention_padded", "ssd_scan_grouped",
                                                           "decode_attention_padded", "gated_rmsnorm",
-                                                          "causal_conv_silu")}
+                                                          "causal_conv_silu", "rms_norm")}
     with torch.no_grad():
         last, cache = api.prefill(params, {"tokens": toks[None, :1000]}, 1016)
         assert cache["kv"]["k"].shape == (13, 1, 32, 1016, 224) and cache["ssm"]["ssm"].shape == (81, 1, 112, 64, 64)
@@ -1624,10 +1675,41 @@ def test_zamba2_7b_at_its_published_widths_prefill_and_decode_match_the_referenc
     assert ops.LAUNCHES["decode_attention_padded"].value - counts["decode_attention_padded"] == 13 * 16
     assert ops.LAUNCHES["gated_rmsnorm"].value - counts["gated_rmsnorm"] == 81 * (1 + 16)  # 81 a forward
     assert ops.LAUNCHES["causal_conv_silu"].value - counts["causal_conv_silu"] == 243 * (1 + 16)  # x, B, C: 243 a forward
+    assert ops.LAUNCHES["rms_norm"].value - counts["rms_norm"] == 108 * (1 + 16)  # 81 + 2 · 13 + 1 a forward
     err = (got - want).abs()
     assert float(err.max()) <= 0.75 and float(err.mean()) <= 0.2, (float(err.max()), float(err.mean()))
     low_err = (low - want).abs()
     assert float(low_err.max()) > 0.75 or float(low_err.mean()) > 0.2
+
+
+def test_granite_4_0_h_small_at_its_published_widths_launches_each_kernel_once_a_layer(dev):
+    """32,207,337,984 parameters in bfloat16 from the seed; one forward of
+    256 tokens through the kernels: 36 Mamba2 layers (one ``ssd_scan`` at
+    d_state 128, one ``gated_rmsnorm`` and three convs each), 4 attention
+    layers, 40 MoE layers (two grouped products each) and 81 RMSNorms (ln1
+    and ln2 a layer, the final norm), and finite logits.  ``chip_smoke.py``
+    (phase 5b) holds this model's logits to the plain path's and to the
+    float32 reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build
+
+    cfg = get_config("granite-4.0-h-small")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(2**31 + 9), dev)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (1, 256))).to(dev)
+    try:
+        with torch.no_grad():
+            before = {name: c.value for name, c in ops.LAUNCHES.items()}
+            logits, _ = api.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            launches = {name: c.value - before[name] for name, c in ops.LAUNCHES.items() if c.value > before[name]}
+        assert launches == {"ssd_scan": 36, "ssd_scan_n128": 36, "gated_rmsnorm": 36, "causal_conv_silu": 108,
+                            "flash_attention": 4, "grouped_mm": 80, "rms_norm": 81}
+        assert logits.shape == (1, 256, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all())
+    finally:
+        del params
+        torch.cuda.empty_cache()
 
 
 # granite-4.0-h-small: the SSD scan at d_state 128 in one group, and the dropless MoE's grouped expert products
